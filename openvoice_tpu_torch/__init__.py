@@ -1,0 +1,17 @@
+"""OpenVoice tone-colour conversion in PyTorch, with hand-written CUDA
+kernels for NVIDIA Hopper (sm_90a).
+
+The port of ``openvoice_tpu`` (JAX/Pallas), which stays beside it as the
+reference.  This package imports neither JAX nor anything of
+``openvoice_tpu``: what it needs of the JAX package's host-side modules, it
+keeps as its own copy.
+"""
+
+from openvoice_tpu_torch.api import ToneColorConverter  # noqa: F401
+from openvoice_tpu_torch.config import (  # noqa: F401
+    V1_CONVERTER_CONFIG,
+    V2_CONVERTER_CONFIG,
+    HParams,
+    SynthesizerConfig,
+    load_hparams,
+)

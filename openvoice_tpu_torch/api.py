@@ -1,0 +1,205 @@
+"""User-facing API of the PyTorch port: `ToneColorConverter`.
+
+Mirrors ``openvoice_tpu/api.py`` and through it the reference surface
+(api.py:101-201).  The f32 parity mode runs end to end: host reflect-pad →
+STFT kernel (``csrc/stft.cu``) → posterior encoder → flow → decoder →
+watermark.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a GPU and without that, they raise.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from openvoice_tpu_torch.audio.io import load_audio, write_wav
+from openvoice_tpu_torch.ckpt.from_jax import load_ckpt as _load_reference_ckpt
+from openvoice_tpu_torch.config import HParams, SynthesizerConfig, load_hparams
+from openvoice_tpu_torch.models import synthesizer as S
+from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
+from openvoice_tpu_torch.pipeline import watermark as wm
+from openvoice_tpu_torch.pipeline.se_extractor import split_audio_vad
+from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` means the GPU.  There is no silent CPU path: without CUDA the
+    caller must ask for ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(device)
+
+
+def _spec_from_audio(audio: np.ndarray, cfg: SynthesizerConfig) -> tuple[np.ndarray, int]:
+    """Host reflect-pad + true frame count; returns (padded_audio_1d, n_frames).
+
+    Matches spectrogram_torch framing (mel_processing.py:54-74): pad
+    (n_fft-hop)/2 reflect on both sides, center=False.
+    """
+    pad = (cfg.filter_length - cfg.hop_length) // 2
+    padded = np.concatenate([audio[1 : pad + 1][::-1], audio, audio[-pad - 1 : -1][::-1]])
+    n_frames = (len(padded) - cfg.filter_length) // cfg.hop_length + 1
+    return padded, n_frames
+
+
+class ToneColorConverter:
+    """Zero-shot tone-colour conversion (reference api.py:101-201)."""
+
+    def __init__(self, config_path: str | None = None, cfg: SynthesizerConfig | None = None, *,
+                 device: str | torch.device | None = None, enable_watermark: bool = True):
+        if config_path is not None:
+            self.hps: HParams | None = load_hparams(config_path)
+            self.cfg = SynthesizerConfig.from_hparams(self.hps)
+            self.version = self.hps.get("_version_", "v1")
+        else:
+            if cfg is None:
+                raise ValueError("pass config_path or cfg")
+            self.hps = None
+            self.cfg = cfg
+            self.version = "v2" if cfg.zero_g else "v1"
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # Parity mode is real f32.  cuDNN convolutions default to TF32,
+            # which keeps ~3 decimal digits and breaks the 1e-4 bars; turn it
+            # off for convolutions and matrix products alike.
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        self.enable_watermark = enable_watermark
+        self.model: S.Synthesizer | None = None
+
+    # -- weights ------------------------------------------------------------
+
+    def init_random(self, seed: int = 0) -> None:
+        """Random weights (development and benchmarking without a checkpoint)."""
+        model = S.init_synthesizer(self.cfg, torch.Generator().manual_seed(seed))
+        self.set_model(model)
+
+    def load_ckpt(self, ckpt_path: str) -> dict:
+        """Load a reference ``.pth``; returns the missing/unexpected report
+        (strict=False semantics, api.py:35-39)."""
+        model = S.Synthesizer(self.cfg)
+        result = model.load_state_dict(_load_reference_ckpt(ckpt_path), strict=False)
+        self.set_model(model)
+        report = {"missing": list(result.missing_keys), "unexpected": list(result.unexpected_keys)}
+        print(f"Loaded checkpoint '{ckpt_path}'")
+        print("missing/unexpected keys:", report["missing"], report["unexpected"])
+        return report
+
+    def set_model(self, model: S.Synthesizer) -> None:
+        """Use `model`'s weights (moved to this converter's device)."""
+        self.model = model.to(self.device).eval()
+
+    def _require_model(self) -> S.Synthesizer:
+        if self.model is None:
+            raise RuntimeError("no weights loaded: call load_ckpt() or init_random()")
+        return self.model
+
+    # -- speaker embeddings -------------------------------------------------
+
+    def extract_se(self, ref_wav_list, se_save_path: str | None = None) -> np.ndarray:
+        """Per-file SE then mean over files (api.py:114-139); returns
+        [1, gin, 1] like the reference's SE tensors."""
+        if isinstance(ref_wav_list, str):
+            ref_wav_list = [ref_wav_list]
+        audios = [load_audio(f, sr=self.cfg.sampling_rate)[0] for f in ref_wav_list]
+        # one bucketed batch over all files; the batch mean IS the per-file
+        # mean (api.py:133) since each row is one file's whole-recording SE
+        out = self._se_from_audio_batch(audios)[None, :, None].astype(np.float32)
+        if se_save_path is not None:
+            os.makedirs(os.path.dirname(se_save_path) or ".", exist_ok=True)
+            np.save(se_save_path if se_save_path.endswith(".npy") else se_save_path + ".npy", out)
+        return out
+
+    def extract_se_from_file(self, audio_path: str, vad: bool = True) -> np.ndarray:
+        """Segment a reference recording with the energy VAD, batch the
+        segments through ref_enc, mean → [1, gin, 1] (the get_se fast path).
+        Whisper-mode segmentation (vad=False) is not ported yet."""
+        if not vad:
+            raise NotImplementedError("whisper-mode segmentation is not ported yet")
+        audio, sr = load_audio(audio_path, sr=self.cfg.sampling_rate)
+        se = self._se_from_audio_batch(split_audio_vad(audio, sr))
+        return se[None, :, None].astype(np.float32)
+
+    @torch.inference_mode()
+    def _se_from_audio_batch(self, audios: list[np.ndarray]) -> np.ndarray:
+        """Mean tone colour over a batch of same-speaker clips → [gin].
+
+        All clips run as one length-aware batch, padded to the largest clip's
+        bucket, with the true frame counts as lengths."""
+        model, cfg = self._require_model(), self.cfg
+        prepared = [_spec_from_audio(a, cfg) for a in audios]
+        bucket = round_up_to_bucket(max(n for _, n in prepared))
+        target_len = (bucket - 1) * cfg.hop_length + cfg.filter_length
+        batch = np.zeros((len(prepared), target_len), np.float32)
+        lengths = np.zeros(len(prepared), np.int64)
+        for i, (padded, n_frames) in enumerate(prepared):
+            batch[i, : len(padded)] = padded
+            lengths[i] = n_frames
+        spec = stft_magnitude(torch.from_numpy(batch).to(self.device),
+                              cfg.filter_length, cfg.hop_length, cfg.win_length)
+        ses = S.extract_tone_color(model, spec, torch.from_numpy(lengths).to(self.device))
+        return ses.mean(dim=0).cpu().numpy()
+
+    # -- conversion ---------------------------------------------------------
+
+    @torch.inference_mode()
+    def convert(self, audio_src_path, src_se, tgt_se, output_path: str | None = None,
+                tau: float = 0.3, message: str = "default", seed: int = 0, fast: bool = False):
+        """Reference-compatible convert (api.py:141-160).
+
+        `audio_src_path` may be a path or a float waveform at sampling_rate.
+        src/tgt SE accept [1, gin, 1] (reference layout) or [gin].
+        fast=True (the bf16 serving mode) needs kernels not ported yet.
+        """
+        if fast:
+            raise NotImplementedError("serving mode: slice 2")
+        model, cfg = self._require_model(), self.cfg
+        if isinstance(audio_src_path, (str, os.PathLike)):
+            audio, _ = load_audio(str(audio_src_path), sr=cfg.sampling_rate)
+        else:
+            audio = np.asarray(audio_src_path, np.float32)
+
+        padded, n_frames = _spec_from_audio(audio, cfg)
+        bucket = round_up_to_bucket(n_frames)
+        buf = np.zeros((1, (bucket - 1) * cfg.hop_length + cfg.filter_length), np.float32)
+        buf[0, : len(padded)] = padded
+        # host noise, drawn exactly as the JAX package draws it
+        noise = np.random.default_rng(seed).standard_normal(
+            (1, bucket, cfg.inter_channels)).astype(np.float32)
+
+        dev = self.device
+        spec = stft_magnitude(torch.from_numpy(buf).to(dev),
+                              cfg.filter_length, cfg.hop_length, cfg.win_length)
+        out, _ = S.voice_conversion(
+            model, spec, torch.tensor([n_frames], device=dev),
+            self._as_g(src_se), self._as_g(tgt_se), float(tau), torch.from_numpy(noise).to(dev),
+        )
+        audio_out = out[0, : n_frames * cfg.upsample_factor, 0].cpu().numpy()
+        if self.enable_watermark and message:
+            audio_out = self.add_watermark(audio_out, message)
+        if output_path is None:
+            return audio_out
+        write_wav(output_path, audio_out, cfg.sampling_rate)
+        return None
+
+    def _as_g(self, se) -> torch.Tensor:
+        se = np.asarray(se, np.float32)
+        if se.ndim == 3:  # [1, gin, 1] reference layout
+            se = se[0, :, 0]
+        elif se.ndim == 2:
+            se = se.reshape(-1)
+        return torch.from_numpy(np.ascontiguousarray(se)).to(self.device)[None, None, :]  # [1, 1, gin]
+
+    # -- watermark ----------------------------------------------------------
+
+    def add_watermark(self, audio: np.ndarray, message: str) -> np.ndarray:
+        if not self.enable_watermark:
+            return audio
+        return wm.add_watermark(audio, message)
+
+    def detect_watermark(self, audio: np.ndarray, n_repeat: int) -> str:
+        return wm.detect_watermark(audio, n_repeat)

@@ -1,0 +1,88 @@
+"""Linear-magnitude spectrogram front end of the PyTorch port.
+
+Reference semantics (mel_processing.py:40-75, `spectrogram_torch`):
+reflect-pad ``(n_fft - hop)/2`` each side, periodic Hann window,
+``center=False``, one-sided, magnitude ``sqrt(re² + im² + 1e-6)``.
+
+The spectrogram is a framed product with a windowed real-DFT basis, as in the
+JAX package (``openvoice_tpu/audio/stft.py``).  `stft_magnitude_plain` is
+the plain PyTorch version of that product; on the GPU the same function runs
+as the hand-written kernel in ``openvoice_tpu_torch/csrc/stft.cu``, reached
+through `openvoice_tpu_torch.ops.stft_cuda.stft_magnitude`.  All in float32.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+
+@lru_cache(maxsize=8)
+def stft_basis(n_fft: int, win_length: int) -> np.ndarray:
+    """Windowed real-DFT basis, shape [n_fft, 2 * (n_fft//2 + 1)].
+
+    Column block 0 holds cos (real) rows, block 1 holds -sin (imag) rows so
+    that ``frames @ basis`` yields [re | im] matching torch.stft's convention
+    (X_k = sum_n x_n e^{-2πi kn/N}).  The Hann window is periodic and
+    zero-padded centred to n_fft when win_length < n_fft, as torch.stft does.
+    The returned array is shared between callers: do not write to it.
+    """
+    n_freq = n_fft // 2 + 1
+    n = np.arange(n_fft)[:, None].astype(np.float64)
+    k = np.arange(n_freq)[None, :].astype(np.float64)
+    ang = 2.0 * np.pi * n * k / n_fft
+    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
+    if win_length < n_fft:
+        pad_l = (n_fft - win_length) // 2
+        w = np.zeros(n_fft)
+        w[pad_l : pad_l + win_length] = win
+    else:
+        w = win
+    basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1) * w[:, None]
+    return basis.astype(np.float32)
+
+
+def _reflect_pad_1d(y: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflect-pad the last axis by ``pad`` on both sides (torch 'reflect')."""
+    if pad == 0:
+        return y
+    left = y[..., 1 : pad + 1].flip(-1)
+    right = y[..., -pad - 1 : -1].flip(-1)
+    return torch.cat([left, y, right], dim=-1)
+
+
+def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """[..., T] → [..., n_frames, n_fft] frames starting at multiples of hop
+    (a strided view: no copy)."""
+    return y.unfold(-1, n_fft, hop)
+
+
+def stft_magnitude_plain(padded_audio: torch.Tensor, n_fft: int, hop: int,
+                         win_length: int) -> torch.Tensor:
+    """[B, L] pre-reflect-padded f32 audio → [B, n_frames, n_fft//2+1]
+    magnitudes: frames @ windowed basis, then sqrt(re² + im² + 1e-6)."""
+    frames = frame_signal(padded_audio, n_fft, hop)
+    basis = torch.from_numpy(stft_basis(n_fft, win_length)).to(padded_audio.device)
+    proj = torch.matmul(frames, basis)
+    n_freq = n_fft // 2 + 1
+    re, im = proj[..., :n_freq], proj[..., n_freq:]
+    return torch.sqrt(re * re + im * im + 1e-6)
+
+
+def host_spectrogram(padded_audio: np.ndarray, n_fft: int, hop: int,
+                     win_length: int) -> np.ndarray:
+    """Pure-numpy (float64 rfft) magnitude spectrogram of an ALREADY
+    reflect-padded 1-D signal — same framing and `sqrt(|.|² + 1e-6)`
+    semantics as the device path, computed independently of it."""
+    win = np.hanning(win_length + 1)[:-1].astype(np.float64)
+    if win_length < n_fft:
+        pad_l = (n_fft - win_length) // 2
+        win = np.pad(win, (pad_l, n_fft - win_length - pad_l))
+    n_frames = (len(padded_audio) - n_fft) // hop + 1
+    frames = np.lib.stride_tricks.sliding_window_view(
+        np.asarray(padded_audio, np.float64), n_fft
+    )[::hop][:n_frames]
+    spec = np.fft.rfft(frames * win, axis=-1)
+    return np.sqrt(np.abs(spec) ** 2 + 1e-6).astype(np.float32)

@@ -1,0 +1,129 @@
+"""Weights for the port's `Synthesizer`.
+
+* `synthesizer_from_jax`: a JAX parameter pytree (nested dicts and lists of
+  arrays, as ``openvoice_tpu`` builds or imports them) → a `Synthesizer`.
+  It inverts the layouts of ``openvoice_tpu/ckpt/torch_import.py``:
+  conv [K, C_in, C_out] → [C_out, C_in, K]; transposed conv, stored there
+  with the kernel axis flipped → [C_in, C_out, K] unflipped; conv2d HWIO →
+  [C_out, C_in, KH, KW]; linear [in, out] → [out, in]; GRU ``w_ih`` [in, 3H]
+  and ``w_hh`` [H, 3H] (gate order r, z, n in both) → transposed.
+* `load_ckpt`: a reference-format ``.pth`` checkpoint → a state dict with
+  weight norm folded into plain weights, ready for ``load_state_dict``.
+
+Only numpy arrays cross the boundary: nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from openvoice_tpu_torch.config import SynthesizerConfig
+from openvoice_tpu_torch.models.synthesizer import Synthesizer
+
+
+def _conv(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    sd[f"{prefix}.weight"] = np.transpose(np.asarray(p["w"]), (2, 1, 0))
+    if p.get("b") is not None:
+        sd[f"{prefix}.bias"] = np.asarray(p["b"])
+
+
+def _conv_transpose(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    w = np.asarray(p["w"])[::-1]  # undo the import-time kernel flip
+    sd[f"{prefix}.weight"] = np.transpose(w, (1, 2, 0))
+    sd[f"{prefix}.bias"] = np.asarray(p["b"])
+
+
+def _wn(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    for i, lp in enumerate(p["in"]):
+        _conv(lp, f"{prefix}.in_layers.{i}", sd)
+    for i, lp in enumerate(p["res_skip"]):
+        _conv(lp, f"{prefix}.res_skip_layers.{i}", sd)
+    if p.get("cond") is not None:
+        _conv(p["cond"], f"{prefix}.cond_layer", sd)
+
+
+def jax_state_dict(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """The reference-named state dict of a converter's JAX pytree."""
+    sd: dict[str, np.ndarray] = {}
+    enc_q = params["enc_q"]
+    _conv(enc_q["pre"], "enc_q.pre", sd)
+    _wn(enc_q["wn"], "enc_q.enc", sd)
+    _conv(enc_q["proj"], "enc_q.proj", sd)
+    for i, lp in enumerate(params["flow"]["layers"]):
+        prefix = f"flow.flows.{2 * i}"  # odd slots are the parameter-free flips
+        _conv(lp["pre"], f"{prefix}.pre", sd)
+        _wn(lp["wn"], f"{prefix}.enc", sd)
+        _conv(lp["post"], f"{prefix}.post", sd)
+    dec = params["dec"]
+    _conv(dec["conv_pre"], "dec.conv_pre", sd)
+    for i, up in enumerate(dec["ups"]):
+        _conv_transpose(up, f"dec.ups.{i}", sd)
+    for n, rb in enumerate(dec["resblocks"]):
+        for name in ("convs1", "convs2", "convs"):
+            for j, c in enumerate(rb.get(name, [])):
+                _conv(c, f"dec.resblocks.{n}.{name}.{j}", sd)
+    _conv(dec["conv_post"], "dec.conv_post", sd)
+    if dec.get("cond") is not None:
+        _conv(dec["cond"], "dec.cond", sd)
+    ref = params["ref_enc"]
+    if ref.get("layernorm") is not None:
+        sd["ref_enc.layernorm.weight"] = np.asarray(ref["layernorm"]["gamma"])
+        sd["ref_enc.layernorm.bias"] = np.asarray(ref["layernorm"]["beta"])
+    for i, c in enumerate(ref["convs"]):
+        sd[f"ref_enc.convs.{i}.weight"] = np.transpose(np.asarray(c["w"]), (3, 2, 0, 1))
+        sd[f"ref_enc.convs.{i}.bias"] = np.asarray(c["b"])
+    gru = ref["gru"]
+    sd["ref_enc.gru.weight_ih_l0"] = np.asarray(gru["w_ih"]).T
+    sd["ref_enc.gru.weight_hh_l0"] = np.asarray(gru["w_hh"]).T
+    sd["ref_enc.gru.bias_ih_l0"] = np.asarray(gru["b_ih"])
+    sd["ref_enc.gru.bias_hh_l0"] = np.asarray(gru["b_hh"])
+    sd["ref_enc.proj.weight"] = np.asarray(ref["proj"]["w"]).T
+    sd["ref_enc.proj.bias"] = np.asarray(ref["proj"]["b"])
+    return sd
+
+
+def synthesizer_from_jax(params: Mapping[str, Any], cfg: SynthesizerConfig) -> Synthesizer:
+    """A CPU `Synthesizer` holding the JAX pytree's weights (strict: every
+    parameter of the module must be in the pytree and vice versa)."""
+    model = Synthesizer(cfg)
+    sd = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+          for k, v in jax_state_dict(params).items()}
+    model.load_state_dict(sd, strict=True)
+    return model
+
+
+def _fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """torch._weight_norm(v, g, dim=0): w = g · v / ‖v‖, norm over dims > 0."""
+    norm = torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True))
+    return g * v / norm
+
+
+def fold_weight_norm(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Replace every ``X.weight_g``/``X.weight_v`` pair (and torch ≥ 2.1's
+    ``X.parametrizations.weight.original0/1``) with a plain ``X.weight``."""
+    out: dict[str, torch.Tensor] = {}
+    pairs = ((".weight_g", ".weight_v"),
+             (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
+    for key, value in state_dict.items():
+        for g_suffix, v_suffix in pairs:
+            if key.endswith(g_suffix):
+                prefix = key[: -len(g_suffix)]
+                out[f"{prefix}.weight"] = _fold_weight_norm(
+                    value.float(), state_dict[prefix + v_suffix].float())
+                break
+            if key.endswith(v_suffix):
+                break
+        else:
+            out[key] = value.float() if value.is_floating_point() else value
+    return out
+
+
+def load_ckpt(path: str) -> dict[str, torch.Tensor]:
+    """Reference ``.pth`` (``torch.load`` → ``checkpoint['model']``) → a
+    state dict with weight norm folded, on the CPU."""
+    checkpoint = torch.load(path, map_location="cpu", weights_only=True)
+    sd = checkpoint["model"] if "model" in checkpoint else checkpoint
+    return fold_weight_norm({k: v for k, v in sd.items() if isinstance(v, torch.Tensor)})

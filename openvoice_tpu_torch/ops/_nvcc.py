@@ -1,0 +1,77 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each source ``openvoice_tpu_torch/csrc/<name>.cu`` is compiled by nvcc for
+``sm_90a`` into a shared library with a plain C interface and loaded with
+ctypes; no PyTorch header is included, so a build takes seconds.  Libraries
+are built at first use into ``openvoice_tpu_torch/csrc/build/`` (listed in
+``.gitignore``) under a name that hashes the source and the flags: a changed
+source builds anew, an unchanged one loads at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def kernel_names() -> list[str]:
+    """Every kernel source in the package, by name (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the port's CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns nvcc's
+    report (registers, shared memory, spills per kernel), '' when cached."""
+    out = library_path(name)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)  # atomic: a concurrent builder never loads half a file
+    return proc.stdout + proc.stderr
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build(name)
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib
