@@ -2,22 +2,27 @@
 """Smoke run of the PyTorch port (``openvoice_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one NVIDIA H100
+    python3 chip_smoke.py --sweep  # instead: time K1-K4 over tile sizes and warps
 
 Phases, in order; any failure exits non-zero before the result line:
 
 1. toolchain: Python, torch, CUDA, nvcc, the card's name and power limit;
 2. build: every kernel source ``openvoice_tpu_torch/csrc/*.cu``, all nvcc
    processes started together;
-3. kernel check: each kernel against its plain PyTorch version on the card,
-   at the shapes the main path gives it, with its time, the plain version's,
-   one PyTorch library call's and the bound;
-4. main path: a full-width V2 converter with seeded random weights runs
+3. kernel check: each kernel (K5 STFT, K1 WaveNet stack, K2 coupling block,
+   K3 MRF stage, K4 decoder tail) against its plain PyTorch version on the
+   card, at the shapes the main path gives it and at a ragged batch, with its
+   time, the plain version's, the bound, and one PyTorch library call's (K5)
+   or the stock bf16 layers' (K1-K4);
+4. main path, f32: a full-width V2 converter with seeded random weights runs
    extract_se on two synthetic wav files, then convert on a 10 s synthetic
    waveform (tau 0.3, watermark on); the launch counters, zeroed just
    before, show which kernels the path ran;
-5. card against CPU: the same converter's speaker embeddings and its
-   convert of a ~2 s clip, on cuda and on cpu;
-6. one JSON line of every ported kernel, the card's ``nvidia-smi`` line,
+5. main path, serving mode: convert(fast=True) of the same clip, counters
+   zeroed just before; then serving against f32 on the card;
+6. card against CPU: the same converter's speaker embeddings and its
+   convert of a ~2 s clip in both modes, on cuda and on cpu;
+7. one JSON line of every ported kernel, the card's ``nvidia-smi`` line,
    then the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a CUDA card, or outside a checkout of the
@@ -27,6 +32,7 @@ repository, it fails.
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
 import os
@@ -46,6 +52,23 @@ STFT_TOL = 1e-4       # the JAX suite's STFT bar (tests/test_ops.py), f32
 CPU_AUDIO_TOL = 5e-4  # the port's audio bar against JAX on the CPU (f32)
 SE_TOL = 1e-4         # the port's speaker-embedding bar against JAX (f32)
 TIMED_RUNS = 20
+# K1-K4 against their plain versions, both on bf16-valued operands with f32
+# sums: a different summation order can flip a bf16 rounding, nothing more
+KERNEL_MAX_TOL = 2.0 ** -6    # max |kernel - plain| over max |plain|: a flip at the peak is 2^-7
+# mean |kernel - plain| over max |plain|.  The WaveNet kernels carry a flip
+# through up to 16 layers of a residual; a decoder stage sums 126 taps of small
+# weights and flips rarely.  Each bar is about twice what one H100 measured.
+WN_MEAN_TOL = 2.0 ** -10.5
+MRF_MEAN_TOL = 2.0 ** -13
+ROUND_TRIP_TOL = 2.0 ** -5    # K2 forward then reverse, over max |x|
+FRAMES = 861                  # the 10 s clip at hop 256
+BUCKET = 1024                 # its bucket
+# serving (bf16) against parity (f32) on the card, and card against CPU in
+# serving mode, both as a share of the reference's peak: sixteen bf16 WaveNet
+# layers and eight couplings in a row measured 0.012-0.013 on one H100, and the
+# bars leave four times that for other seeds (PERF.md, Findings)
+FAST_VS_F32_TOL = 0.05
+FAST_CPU_TOL = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -67,15 +90,26 @@ def run(cmd: list[str]) -> str:
 
 # -- measurement helpers -----------------------------------------------------
 
-def time_ms(fn, runs: int = TIMED_RUNS) -> float:
+_L2_FLUSH = []  # one buffer larger than the card's 50 MB L2, made at first use
+
+
+def time_ms(fn, runs: int = TIMED_RUNS, cold: bool = True) -> float:
     """Median device time of `fn` in ms: CUDA events around each of `runs`
-    warm calls."""
+    calls after a warm-up call.  With `cold` the L2 cache is overwritten
+    before each timed call, as a convert leaves it for its next stage (the
+    decoder alone streams more than the L2 holds): weights and inputs then
+    come from device memory.  Without, a call finds what the call before it
+    left in the L2."""
     import torch
 
+    if cold and not _L2_FLUSH:
+        _L2_FLUSH.append(torch.empty(128 * 2 ** 20, dtype=torch.uint8, device="cuda"))
     fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(runs):
+        if cold:
+            _L2_FLUSH[0].zero_()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -85,17 +119,20 @@ def time_ms(fn, runs: int = TIMED_RUNS) -> float:
     return statistics.median(times)
 
 
-def card_peaks(name: str) -> tuple[float, float]:
-    """(fp32 FLOP/s, memory bytes/s) of the card.  fp32 is computed from the
-    card itself: SMs × 128 fp32 lanes × 2 (FMA) × max SM clock.  Memory rate
-    from NVIDIA's H100 data sheets: SXM 3.35 TB/s, PCIe 2.0, NVL 3.9."""
+@functools.lru_cache(maxsize=None)
+def card_peaks(name: str) -> tuple[float, float, float]:
+    """(fp32 FLOP/s, bf16 dense tensor FLOP/s, memory bytes/s) of the card.
+    fp32 is computed from the card itself: SMs × 128 fp32 lanes × 2 (FMA) ×
+    max SM clock.  The bf16 tensor rate (dense, no sparsity) and the memory
+    rate are NVIDIA's H100 data-sheet figures: SXM 989 TFLOP/s and 3.35 TB/s,
+    PCIe 756 and 2.0, NVL 835 and 3.9."""
     import torch
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
                      "--format=csv,noheader,nounits"]).splitlines()[0])
-    bw = 2.0e12 if "PCIe" in name else 3.9e12 if "NVL" in name else 3.35e12
-    return sms * 128 * 2 * mhz * 1e6, bw
+    bf16, bw = (756e12, 2.0e12) if "PCIe" in name else (835e12, 3.9e12) if "NVL" in name else (989e12, 3.35e12)
+    return sms * 128 * 2 * mhz * 1e6, bf16, bw
 
 
 # -- phases ------------------------------------------------------------------
@@ -142,13 +179,13 @@ def stft_case(rng, lengths: list[int], bucket: int):
     return torch.from_numpy(batch).cuda()
 
 
-def kernel_check(name: str) -> dict:
+def stft_check(name: str) -> dict:
     import torch
 
     from openvoice_tpu_torch.audio.stft import host_spectrogram, stft_magnitude_plain
     from openvoice_tpu_torch.ops import stft_cuda
 
-    phase("3. kernel check (K5 stft_magnitude vs its plain version)")
+    phase("3a. kernel check: K5 stft_magnitude vs its plain version")
     rng = np.random.default_rng(SEED)
     # the convert path at a 10 s clip (861 frames → bucket 1024); extract_se
     # on three clips of 3, 5 and 8 s (bucket 768); and a win < n_fft case.
@@ -182,15 +219,16 @@ def kernel_check(name: str) -> dict:
 
     lib_err = float((library() - stft_cuda.stft_magnitude(x, 1024, 256, 1024)).abs().max())
     ms = time_ms(lambda: stft_cuda.stft_magnitude(x, 1024, 256, 1024))
+    hot_ms = time_ms(lambda: stft_cuda.stft_magnitude(x, 1024, 256, 1024), cold=False)
     plain_ms = time_ms(lambda: stft_magnitude_plain(x, 1024, 256, 1024))
     library_ms = time_ms(library)
-    flop_rate, byte_rate = card_peaks(name)
+    flop_rate, _, byte_rate = card_peaks(name)
     ops = 2 * b * frames * 1024 * 2 * n_freq + 5 * b * frames * n_freq
     nbytes = 4 * (b * length + 1024 * 2 * n_freq + b * frames * n_freq)
     op_ms, byte_ms = ops / flop_rate * 1e3, nbytes / byte_rate * 1e3
     bound_ms = max(op_ms, byte_ms)
-    print(f"[{b}, {length}] → [{b}, {frames}, {n_freq}]: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"torch.stft {library_ms:.4f} ms (max diff {lib_err:.2e})")
+    print(f"[{b}, {length}] → [{b}, {frames}, {n_freq}]: kernel {ms:.4f} ms ({hot_ms:.4f} with a hot L2)  "
+          f"plain {plain_ms:.4f} ms  torch.stft {library_ms:.4f} ms (max diff {lib_err:.2e})")
     print(f"bound {bound_ms:.4f} ms = max({ops / 1e9:.3f} GFLOP at {flop_rate / 1e12:.1f} TFLOP/s fp32, "
           f"{nbytes / 1e6:.2f} MB at {byte_rate / 1e12:.2f} TB/s); kernel at "
           f"{ops / ms / 1e9:.2f} TFLOP/s, {100 * bound_ms / ms:.1f}% of bound")
@@ -200,8 +238,339 @@ def kernel_check(name: str) -> dict:
         "replaces": "openvoice_tpu/ops/stft_pallas.py:75",
         "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-        "library_ms": library_ms,
+        "library_ms": library_ms, "hot_ms": hot_ms,
     }
+
+
+# -- K1-K4: shared pieces of their checks ---------------------------------------
+
+def redraw(module, gen, gain: float = 1.0):
+    """Seeded weights of a working scale (uniform ±gain/√fan_in, biases
+    ±0.1), so that every tap moves the result: the converter's own random
+    decoder weights are too small for that."""
+    import torch
+
+    with torch.no_grad():
+        for p in module.parameters():
+            bound = gain / math.sqrt(p[0].numel()) if p.dim() > 1 else 0.1
+            p.copy_(torch.empty(p.shape).uniform_(-bound, bound, generator=gen))
+    return module.cuda().eval()
+
+
+def rand_bf16(gen, *shape, scale: float = 0.5):
+    import torch
+
+    return (torch.randn(shape, generator=gen) * scale).to(torch.bfloat16).cuda()
+
+
+def lens_on_card(lengths: list[int]):
+    import torch
+
+    return torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def agree(label: str, out, ref, mean_tol: float, lengths: list[int] | None = None,
+          zero_after: int = 0) -> float:
+    """Hold a kernel's result against its plain version's under the two
+    bars, and its rows past each length against exact zero."""
+    import torch
+
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype, f"{label}: {tuple(out.shape)} {out.dtype}")
+    check(bool(torch.isfinite(out.float()).all()), f"{label}: output not finite")
+    diff = (out.float() - ref.float()).abs()
+    peak = float(ref.float().abs().max())
+    worst, mean = float(diff.max()), float(diff.mean())
+    print(f"{label}: out {tuple(out.shape)} peak {peak:.4f}  max|kernel - plain| {worst:.3e} "
+          f"(bar {KERNEL_MAX_TOL * peak:.3e})  mean {mean:.3e} (bar {mean_tol * peak:.3e})")
+    check(worst <= KERNEL_MAX_TOL * peak and mean <= mean_tol * peak,
+          f"{label}: kernel disagrees with its plain version")
+    for b, n in enumerate(lengths or []):
+        check(bool((out[b, n + zero_after:] == 0).all()), f"{label}: rows past the length are not 0")
+    return worst
+
+
+def kernel_entry(kind: str, name: str, source: str, replaces: str, max_err: float, ms: float,
+                 hot_ms: float, plain_ms: float, stock_ms: float, flop: float, nbytes: float) -> dict:
+    """One kernel's line: its bound is the larger of its operations at the
+    card's dense bf16 tensor rate and its bytes (inputs once, outputs once,
+    weights once) at the card's memory rate.  `ms`, `plain_ms` and `stock_ms`
+    start from a cold L2, `hot_ms` is the kernel with a hot one."""
+    _, bf16_rate, byte_rate = card_peaks(kind)
+    op_ms, byte_ms = flop / bf16_rate * 1e3, nbytes / byte_rate * 1e3
+    bound_ms = max(op_ms, byte_ms)
+    print(f"{name}: kernel {ms:.4f} ms ({hot_ms:.4f} with a hot L2)  plain {plain_ms:.4f} ms  "
+          f"stock bf16 layers {stock_ms:.4f} ms  "
+          f"bound {bound_ms:.4f} ms = max({flop / 1e9:.2f} GFLOP at {bf16_rate / 1e12:.0f} TFLOP/s bf16, "
+          f"{nbytes / 1e6:.2f} MB at {byte_rate / 1e12:.2f} TB/s); kernel at {flop / ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bound_ms / ms:.1f}% of bound, {stock_ms / ms:.2f}x the stock layers' speed")
+    return {
+        "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": 0,
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations" if op_ms >= byte_ms else "bytes", "library_ms": None,
+        "stock_bf16_ms": stock_ms, "hot_ms": hot_ms,
+    }
+
+
+def numel(packed: dict, keys: tuple) -> int:
+    return sum(packed[k].numel() for k in keys)
+
+
+def wn_flop(frames: int, n_layers: int, k: int, h: int) -> float:
+    """L layers of a K-tap H→2H conv and an H→2H 1×1 (H→H on the last)."""
+    return 2.0 * frames * (n_layers * (k + 1) * h * 2 * h - h * h)
+
+
+# -- K1 ------------------------------------------------------------------------
+
+def wn_check(kind: str, gen) -> dict:
+    import torch
+
+    from openvoice_tpu_torch.nn.wavenet import WN
+    from openvoice_tpu_torch.ops import wn_cuda
+
+    phase("3b. kernel check: K1 wn_stack (csrc/wn.cu) vs its plain version")
+    h, k, n_layers, gin = 192, 5, 16, 256  # the V2 posterior encoder's WaveNet
+    wn = redraw(WN(h, k, n_layers, gin), gen)
+    wn16 = copy.deepcopy(wn).to(torch.bfloat16)
+    packed = wn_cuda.stack_wn_params(wn)
+    max_err, timed = 0.0, None
+    for label, t, lengths in [("convert B=1 T=1024", BUCKET, [FRAMES]), ("ragged B=2 T=333", 333, [333, 200])]:
+        b = len(lengths)
+        x, g = rand_bf16(gen, b, t, h), rand_bf16(gen, b, gin, 1, scale=1.0)
+        lens = lens_on_card(lengths)
+        g_all = wn16.cond_layer(g).reshape(b, n_layers, 2 * h).contiguous()
+        out = wn_cuda.wn_stack(x, lens, packed, g_all)
+        max_err = max(max_err, agree(label, out, wn_cuda.wn_stack_plain(x, lens, packed, g_all), WN_MEAN_TOL, lengths))
+        timed = timed or (x, g, lens, g_all)
+    x, g, lens, g_all = timed
+    mask = (torch.arange(BUCKET, device="cuda") < FRAMES).to(torch.bfloat16)[None, None]
+    x_bct = (x.transpose(1, 2) * mask).contiguous()
+    stock = wn16(x_bct, mask, g).transpose(1, 2)
+    print(f"stock bf16 layers vs kernel: max diff {float((stock.float() - wn_cuda.wn_stack(x, lens, packed, g_all).float()).abs().max()):.3e}")
+    nbytes = 2 * (FRAMES * h + BUCKET * h + g_all.numel() + numel(packed, ("w_in", "b_in", "w_rs", "b_rs")))
+    return kernel_entry(
+        kind, "wn_stack", "openvoice_tpu_torch/csrc/wn.cu", "openvoice_tpu/ops/wn_pallas.py:92", max_err,
+        time_ms(lambda: wn_cuda.wn_stack(x, lens, packed, g_all)),
+        time_ms(lambda: wn_cuda.wn_stack(x, lens, packed, g_all), cold=False),
+        time_ms(lambda: wn_cuda.wn_stack_plain(x, lens, packed, g_all), 5),
+        time_ms(lambda: wn16(x_bct, mask, g)), wn_flop(FRAMES, n_layers, k, h), nbytes)
+
+
+# -- K2 ------------------------------------------------------------------------
+
+def coupling_check(kind: str, gen) -> dict:
+    import torch
+
+    from openvoice_tpu_torch.nn.flows import ResidualCouplingBlock
+    from openvoice_tpu_torch.ops import coupling_cuda as cc
+
+    phase("3c. kernel check: K2 coupling_block (csrc/coupling.cu) vs its plain version")
+    c, h, k, n_layers, n_flows, gin = 192, 192, 5, 4, 4, 256  # the V2 flow
+    flow = redraw(ResidualCouplingBlock(c, h, k, n_layers, n_flows, gin), gen)
+    flow16 = copy.deepcopy(flow).to(torch.bfloat16)
+    convs = [layer.enc.cond_layer for layer in flow16.flows[::2]]
+    packed = {rev: cc.pack_coupling_block(flow, reverse=rev) for rev in (False, True)}
+    max_err, timed = 0.0, None
+    for label, t, lengths in [("convert B=1 T=1024", BUCKET, [FRAMES]), ("ragged B=2 T=333", 333, [333, 200])]:
+        b = len(lengths)
+        lens = lens_on_card(lengths)
+        live = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[..., None]
+        x = rand_bf16(gen, b, t, c) * live
+        g = rand_bf16(gen, b, 1, gin, scale=1.0)
+        g_all = {rev: cc.coupling_g_stack(flow, g, reverse=rev, convs=convs) for rev in (False, True)}
+        fwd = cc.coupling_block(x, lens, packed[False], g_all[False])
+        max_err = max(max_err, agree(f"{label} forward", fwd,
+                                     cc.coupling_block_plain(x, lens, packed[False], g_all[False]), WN_MEAN_TOL, lengths))
+        back = cc.coupling_block(fwd, lens, packed[True], g_all[True])
+        max_err = max(max_err, agree(f"{label} reverse", back,
+                                     cc.coupling_block_plain(fwd, lens, packed[True], g_all[True]), WN_MEAN_TOL, lengths))
+        trip, peak = float((back.float() - x.float()).abs().max()), float(x.float().abs().max())
+        print(f"{label} forward then reverse: max |back - x| {trip:.3e} (bar {ROUND_TRIP_TOL * peak:.3e})")
+        check(trip <= ROUND_TRIP_TOL * peak, f"{label}: the flow does not invert")
+        timed = timed or (x, g, lens, g_all)
+    x, g, lens, g_all = timed
+    mask = (torch.arange(BUCKET, device="cuda") < FRAMES).to(torch.bfloat16)[None, None]
+    x_bct, g_t = x.transpose(1, 2).contiguous(), g.transpose(1, 2)
+    stock = flow16(x_bct, mask, g_t).transpose(1, 2)
+    print(f"stock bf16 layers vs kernel (forward): max diff "
+          f"{float((stock.float() - cc.coupling_block(x, lens, packed[False], g_all[False]).float()).abs().max()):.3e}")
+
+    def both(fn):
+        return lambda: fn(fn(x, lens, packed[False], g_all[False]), lens, packed[True], g_all[True])
+
+    # per direction: S × (pre C/2→H, the WaveNet, post H→C/2); the entry holds
+    # both directions, as one convert runs them
+    flop = 2 * n_flows * (wn_flop(FRAMES, n_layers, k, h) + 2.0 * FRAMES * 2 * (c // 2) * h)
+    weights = numel(packed[False], ("wp", "bp", "w_in", "b_in", "w_rs", "b_rs", "wq", "bq"))
+    nbytes = 2 * 2 * (FRAMES * c + BUCKET * c + g_all[False].numel() + weights)
+    return kernel_entry(
+        kind, "coupling_block", "openvoice_tpu_torch/csrc/coupling.cu",
+        "openvoice_tpu/ops/coupling_pallas.py:212", max_err, time_ms(both(cc.coupling_block)),
+        time_ms(both(cc.coupling_block), cold=False), time_ms(both(cc.coupling_block_plain), 5),
+        time_ms(lambda: flow16(flow16(x_bct, mask, g_t), mask, g_t, reverse=True)), flop, nbytes)
+
+
+# -- K3 / K4 -------------------------------------------------------------------
+
+KS, DILS = (3, 7, 11), ((1, 3, 5), (1, 3, 5), (1, 3, 5))  # the V2 decoder's branches
+N_TAPS = sum(2 * k * len(d) for k, d in zip(KS, DILS))      # 126 [C, C] taps a stage
+
+
+def resblocks(c: int, gen):
+    from torch import nn
+
+    from openvoice_tpu_torch.nn.hifigan import ResBlock1
+
+    return redraw(nn.ModuleList(ResBlock1(c, k, d) for k, d in zip(KS, DILS)), gen)
+
+
+def stock_mrf(rbs, x_bct, mask):
+    return sum(rb(x_bct, mask) for rb in rbs) / len(rbs)
+
+
+def mrf_check(kind: str, gen) -> dict:
+    import torch
+
+    from openvoice_tpu_torch.ops import mrf_cuda
+
+    phase("3d. kernel check: K3 mrf_stage (csrc/mrf.cu) vs its plain version")
+    max_err, ms, hot_ms, plain_ms, stock_ms, flop, nbytes, stage_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, []
+    # V2 stages 0 and 1 of the 10 s clip, and a ragged batch of each width
+    for c, rate in [(256, 8), (128, 64)]:
+        rbs = resblocks(c, gen)
+        rbs16 = copy.deepcopy(rbs).to(torch.bfloat16)
+        packed = mrf_cuda.pack_stage_weights(list(rbs))
+        timed = None
+        for label, t, lengths in [(f"stage C={c} B=1 T={BUCKET * rate}", BUCKET * rate, [FRAMES * rate]),
+                                  (f"ragged C={c} B=2 T=1001", 1001, [1001, 613])]:
+            x, lens = rand_bf16(gen, len(lengths), t, c), lens_on_card(lengths)
+            out = mrf_cuda.mrf_stage(x, lens, packed)
+            max_err = max(max_err, agree(label, out, mrf_cuda.mrf_stage_plain(x, lens, packed), MRF_MEAN_TOL, lengths))
+            timed = timed or (x, lens, t, lengths[0])
+        x, lens, t, n = timed
+        mask = (torch.arange(t, device="cuda") < n).to(torch.bfloat16)[None, None]
+        x_bct = (x.transpose(1, 2) * mask).contiguous()
+        stock = stock_mrf(rbs16, x_bct, mask).transpose(1, 2)
+        print(f"stock bf16 layers vs kernel: max diff "
+              f"{float((stock.float() - mrf_cuda.mrf_stage(x, lens, packed).float()).abs().max()):.3e}")
+        times = (time_ms(lambda: mrf_cuda.mrf_stage(x, lens, packed), 10),
+                 time_ms(lambda: mrf_cuda.mrf_stage_plain(x, lens, packed), 3),
+                 time_ms(lambda: stock_mrf(rbs16, x_bct, mask), 10),
+                 time_ms(lambda: mrf_cuda.mrf_stage(x, lens, packed), 10, cold=False))
+        print(f"C={c} T={t}: kernel {times[0]:.4f} ms ({times[3]:.4f} with a hot L2)  plain {times[1]:.4f} ms  "
+              f"stock bf16 layers {times[2]:.4f} ms")
+        ms, plain_ms, stock_ms, hot_ms = ms + times[0], plain_ms + times[1], stock_ms + times[2], hot_ms + times[3]
+        stage_ms.append(times[0])
+        flop += 2.0 * n * N_TAPS * c * c
+        nbytes += 2 * (n * c + t * c + numel(packed, ("w", "b")))
+    # the entry holds both stages, as one convert runs them
+    entry = kernel_entry(kind, "mrf_stage", "openvoice_tpu_torch/csrc/mrf.cu",
+                         "openvoice_tpu/ops/mrf_pallas.py:515", max_err, ms, hot_ms, plain_ms, stock_ms, flop,
+                         nbytes)
+    return {**entry, "stage_ms": stage_ms}
+
+
+def tail_check(kind: str, gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from openvoice_tpu_torch.nn.conv import conv1d, conv_transpose1d
+    from openvoice_tpu_torch.ops import tail_cuda
+
+    phase("3e. kernel check: K4 tail_stage (csrc/tail.cu) vs its plain version")
+    max_err, ms, hot_ms, plain_ms, stock_ms, flop, nbytes, stage_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, []
+    u, k_up = 2, 4
+    # V2 stages 2 (128 → 64 channels) and 3 (64 → 32, then conv_post and tanh)
+    for c_in, c, rate_in, last in [(128, 64, 64, False), (64, 32, 128, True)]:
+        up, rbs = redraw(conv_transpose1d(c_in, c, k_up, u), gen), resblocks(c, gen)
+        post = redraw(conv1d(c, 1, 7, bias=False), gen) if last else None
+        up16, rbs16 = copy.deepcopy(up).to(torch.bfloat16), copy.deepcopy(rbs).to(torch.bfloat16)
+        post16 = copy.deepcopy(post).to(torch.bfloat16) if last else None
+        packed = tail_cuda.pack_tail_weights(up, list(rbs), post)
+        timed = None
+        for label, t_in, lengths in [
+                (f"stage {c_in}→{c} B=1 T_in={BUCKET * rate_in}", BUCKET * rate_in, [FRAMES * rate_in * u]),
+                (f"ragged {c_in}→{c} B=2 T_in=501", 501, [1002, 614])]:
+            x, lens = rand_bf16(gen, len(lengths), t_in, c_in), lens_on_card(lengths)
+            out = tail_cuda.tail_stage(x, lens, packed)
+            # the audio has no mask after conv_post: zeros start 3 samples late
+            max_err = max(max_err, agree(label, out, tail_cuda.tail_stage_plain(x, lens, packed), MRF_MEAN_TOL,
+                                         lengths, zero_after=3 if last else 0))
+            timed = timed or (x, lens, t_in, lengths[0])
+        x, lens, t_in, n = timed
+        mask_in = (torch.arange(t_in, device="cuda") < n // u).to(torch.bfloat16)[None, None]
+        mask = (torch.arange(t_in * u, device="cuda") < n).to(torch.bfloat16)[None, None]
+        x_bct = (x.transpose(1, 2) * mask_in).contiguous()
+
+        def stock():
+            y = stock_mrf(rbs16, up16(F.leaky_relu(x_bct, 0.1)) * mask, mask)
+            return torch.tanh(post16(F.leaky_relu(y, 0.01))) if last else y
+
+        print(f"stock bf16 layers vs kernel: max diff "
+              f"{float((stock().transpose(1, 2).float() - tail_cuda.tail_stage(x, lens, packed).float()).abs().max()):.3e}")
+        times = (time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10),
+                 time_ms(lambda: tail_cuda.tail_stage_plain(x, lens, packed), 3), time_ms(stock, 10),
+                 time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10, cold=False))
+        print(f"{c_in}→{c} T_in={t_in}: kernel {times[0]:.4f} ms ({times[3]:.4f} with a hot L2)  "
+              f"plain {times[1]:.4f} ms  stock bf16 layers {times[2]:.4f} ms")
+        ms, plain_ms, stock_ms, hot_ms = ms + times[0], plain_ms + times[1], stock_ms + times[2], hot_ms + times[3]
+        stage_ms.append(times[0])
+        flop += 2.0 * n * (N_TAPS * c * c + (k_up // u) * c_in * c + (7 * c if last else 0))
+        weights = numel(packed, ("w", "b", "up_w", "up_b")) + (packed["post_w"].numel() if last else 0)
+        nbytes += 2 * ((n // u) * c_in + t_in * u * (1 if last else c) + weights)
+    entry = kernel_entry(kind, "tail_stage", "openvoice_tpu_torch/csrc/tail.cu",
+                         "openvoice_tpu/ops/mrf_pallas.py:731", max_err, ms, hot_ms, plain_ms, stock_ms, flop,
+                         nbytes)
+    return {**entry, "stage_ms": stage_ms}
+
+
+def print_windows() -> None:
+    """The time windows the wrappers chose in the checks above: rows a block
+    holds in shared memory, and the rows of them it keeps (the rest is halo,
+    recomputed by the neighbours)."""
+    from openvoice_tpu_torch.ops import _frag
+
+    print("\ntime windows (rows held / kept a block):")
+    lines = {f"  {kernel} {tuple(sizes)} halo {halo}, {want} wanted: {rows} / {tile} "
+             f"({rows / tile:.2f}x recomputation)"
+             for (kernel, *sizes, halo, want, _multiples), (rows, tile) in _frag.chosen_windows().items()}
+    print("\n".join(sorted(lines)))
+
+
+def sweep(kind: str) -> None:
+    """Time K1-K4 at the main path's shapes over the two knobs their wrappers
+    have, the rows a block keeps and its threads.  Each variant goes through
+    the kernel's whole check, so a variant that disagrees with the plain
+    version fails the run.  The wrappers' defaults were chosen from this
+    table."""
+    import importlib
+
+    import torch
+
+    grids = [
+        (wn_check, "wn_cuda", [(tile, th) for tile in (16, 32, 64) for th in (256, 384, 512)]),
+        (coupling_check, "coupling_cuda", [(tile, th) for tile in (16, 32) for th in (256, 384, 512)]),
+        (mrf_check, "mrf_cuda", [(tile, th) for tile in (128, 256, 4096) for th in (256, 384, 512)]),
+        (tail_check, "tail_cuda", [(tile, th) for tile in (128, 256, 4096) for th in (256, 384, 512)]),
+    ]
+    table = []
+    for fn, module, variants in grids:
+        mod = importlib.import_module(f"openvoice_tpu_torch.ops.{module}")
+        default = (mod._TILE_TARGET, mod._THREADS)
+        for tile, threads in variants:
+            mod._TILE_TARGET, mod._THREADS = tile, threads
+            gen = torch.Generator().manual_seed(SEED + 2)  # the same inputs for every variant
+            entry = fn(kind, gen)
+            table.append((entry["name"], tile, threads, entry["ms"], entry.get("stage_ms", []),
+                          entry["stock_bf16_ms"], (tile, threads) == default))
+        mod._TILE_TARGET, mod._THREADS = default
+    phase("sweep: kernel ms at the convert shapes (K2 both directions, K3 and K4 both stages)")
+    for name, tile, threads, ms, stage_ms, stock_ms, is_default in table:
+        stages = f" = {' + '.join(f'{t:.4f}' for t in stage_ms)}" if stage_ms else ""
+        print(f"  {name:15s} tile target {tile:5d}  threads {threads:4d}: {ms:8.4f} ms{stages}  "
+              f"(stock bf16 layers {stock_ms:.4f} ms){'  <- default' if is_default else ''}")
+    print_windows()
 
 
 def voice(seconds: float, f0: float, seed: int) -> np.ndarray:
@@ -235,37 +604,26 @@ def converter():
     return tc
 
 
-def main_path(tc, tmp: str) -> tuple[dict, dict]:
-    import torch
+KERNEL_MODULES = ("stft_cuda", "wn_cuda", "coupling_cuda", "mrf_cuda", "tail_cuda")
+KERNEL_NAMES = ("stft_magnitude", "wn_stack", "coupling_block", "mrf_stage", "tail_stage")
 
-    from openvoice_tpu_torch.api import _spec_from_audio
-    from openvoice_tpu_torch.audio.io import write_wav
-    from openvoice_tpu_torch.ops import stft_cuda
 
-    phase("4. main path: extract_se → convert, V2 full width, f32")
+def zero_launch_counts() -> None:
+    import importlib
+
+    for module in KERNEL_MODULES:
+        importlib.import_module(f"openvoice_tpu_torch.ops.{module}").launches = 0
+
+
+def launch_counts() -> dict:
+    import importlib
+
+    return {name: importlib.import_module(f"openvoice_tpu_torch.ops.{module}").launches
+            for name, module in zip(KERNEL_NAMES, KERNEL_MODULES)}
+
+
+def check_audio(tc, out: np.ndarray, n_frames: int) -> None:
     cfg = tc.cfg
-    refs = []
-    for i, (secs, f0) in enumerate([(6.0, 110.0), (8.0, 220.0)]):
-        refs.append(os.path.join(tmp, f"ref{i}.wav"))
-        write_wav(refs[-1], voice(secs, f0, seed=i), SR)
-    src = voice(10.0, 150.0, seed=7)
-    n_frames = _spec_from_audio(src, cfg)[1]  # 861 at V2's hop 256: bucket 1024
-
-    torch.cuda.synchronize()
-    stft_cuda.launches = 0
-    t0 = time.perf_counter()
-    se_src = tc.extract_se(refs[:1])
-    se_tgt = tc.extract_se(refs[1:])
-    out = tc.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-    launches = {"stft_magnitude": stft_cuda.launches}
-    print(f"first extract_se ×2 + convert: {first_s:.3f} s; kernel launches {launches}")
-    # one STFT launch per extract_se batch and one per convert
-    check(launches["stft_magnitude"] == 3, "the main path did not run the STFT kernel 3 times")
-
-    check(se_src.shape == se_tgt.shape == (1, cfg.gin_channels, 1), f"SE shape {se_src.shape}")
-    check(bool(np.isfinite(se_src).all() and np.isfinite(se_tgt).all()), "SE not finite")
     check(out.shape == (n_frames * cfg.upsample_factor,), f"audio shape {out.shape}, frames {n_frames}")
     check(bool(np.isfinite(out).all()), "audio not finite")
     peak = float(np.abs(out).max())
@@ -275,32 +633,108 @@ def main_path(tc, tmp: str) -> tuple[dict, dict]:
           f"watermark {found!r}")
     check(found == MESSAGE, f"watermark read back {found!r}, wrote {MESSAGE!r}")
 
-    # warm timings: whole convert (host pad, noise, device graph, readback,
-    # watermark) by host clock; the device part alone by CUDA events
+
+def warm_numbers(tc, src: np.ndarray, ses: dict, fast: bool) -> None:
+    """Warm timings of one mode: whole convert (host pad, noise, device graph,
+    readback, watermark) by host clock; the device part by CUDA events per
+    stage; the profiler's launch count and busy share."""
+    import torch
+
+    def convert():
+        return tc.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message=MESSAGE, fast=fast)
+
     torch.cuda.reset_peak_memory_stats()
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        tc.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE)
+        convert()
         walls.append(time.perf_counter() - t0)
     convert_s = statistics.median(walls)
-    stages = stage_times(tc, src, se_src, se_tgt)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9  # read before the stage timing's L2 flush buffer exists
+    stages = stage_times(tc, src, ses["se_src"], ses["se_tgt"], fast)
+    _L2_FLUSH.clear()
     print(f"warm convert of {len(src) / SR:.1f} s: {convert_s * 1e3:.2f} ms (median of 5) = "
           f"{len(src) / SR / convert_s:.1f} audio-s/s; peak device memory {peak_gb:.2f} GB")
-    print("device time by stage (ms, CUDA events, median of 5): "
+    print("device time by stage (ms, CUDA events, median of 5, each from a cold L2): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    device_profile(lambda: tc.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE),
-                   convert_s * 1e3)
-    return launches, {"se_src": se_src, "se_tgt": se_tgt, "refs": refs}
+    device_profile(convert, convert_s * 1e3)
 
 
-def stage_times(tc, audio: np.ndarray, se_src, se_tgt) -> dict:
-    """Device time of each stage of convert's graph, run as
-    models/synthesizer.py::voice_conversion_masked runs it."""
+def main_path(tc, tmp: str) -> tuple[dict, dict, np.ndarray]:
     import torch
 
     from openvoice_tpu_torch.api import _spec_from_audio
+    from openvoice_tpu_torch.audio.io import write_wav
+
+    phase("4. main path: extract_se → convert, V2 full width, f32")
+    cfg = tc.cfg
+    refs = []
+    for i, (secs, f0) in enumerate([(6.0, 110.0), (8.0, 220.0)]):
+        refs.append(os.path.join(tmp, f"ref{i}.wav"))
+        write_wav(refs[-1], voice(secs, f0, seed=i), SR)
+    src = voice(10.0, 150.0, seed=7)
+    n_frames = _spec_from_audio(src, cfg)[1]  # 861 at V2's hop 256: bucket 1024
+    check(n_frames == FRAMES, f"the 10 s clip has {n_frames} frames, the kernel checks assume {FRAMES}")
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    se_src = tc.extract_se(refs[:1])
+    se_tgt = tc.extract_se(refs[1:])
+    out = tc.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    print(f"first extract_se ×2 + convert: {first_s:.3f} s; kernel launches {launches}")
+    # one STFT launch per extract_se batch and one per convert; the f32 mode
+    # runs stock layers behind it
+    check(launches == {"stft_magnitude": 3, "wn_stack": 0, "coupling_block": 0, "mrf_stage": 0,
+                       "tail_stage": 0}, "the f32 path did not run the STFT kernel 3 times and no other")
+
+    check(se_src.shape == se_tgt.shape == (1, cfg.gin_channels, 1), f"SE shape {se_src.shape}")
+    check(bool(np.isfinite(se_src).all() and np.isfinite(se_tgt).all()), "SE not finite")
+    check_audio(tc, out, n_frames)
+    ses = {"se_src": se_src, "se_tgt": se_tgt, "refs": refs}
+    warm_numbers(tc, src, ses, fast=False)
+    return launches, ses, src
+
+
+def main_path_fast(tc, src: np.ndarray, ses: dict) -> dict:
+    import torch
+
+    phase("5. main path, serving mode: convert(fast=True), V2 full width, bf16 through K1-K4")
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    out = tc.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message=MESSAGE, fast=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = launch_counts()
+    print(f"first fast convert (packs the serving cache): {first_s:.3f} s; kernel launches {launches}")
+    check(launches == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2,
+                       "tail_stage": 2}, "one serving convert must launch K5 1, K1 1, K2 2, K3 2, K4 2")
+    check_audio(tc, out, FRAMES)
+    warm_numbers(tc, src, ses, fast=True)
+
+    # serving against parity on the card, watermark off
+    fast = tc.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message="", fast=True)
+    f32 = tc.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message="")
+    diff, peak = float(np.abs(fast - f32).max()), float(np.abs(f32).max())
+    print(f"serving against parity on the card: max |fast - f32| = {diff:.3e} = {diff / peak:.4f} of the "
+          f"f32 peak {peak:.5f} (bar {FAST_VS_F32_TOL}); rms of the difference "
+          f"{float(np.sqrt(np.mean((fast - f32) ** 2))):.3e}, of the f32 audio {float(np.sqrt(np.mean(f32 ** 2))):.3e}")
+    check(diff <= FAST_VS_F32_TOL * peak, "the serving mode strays from the f32 mode")
+    return launches
+
+
+def stage_times(tc, audio: np.ndarray, se_src, se_tgt, fast: bool) -> dict:
+    """Device time of each stage of convert's graph, run as
+    models/synthesizer.py runs it in that mode."""
+    import torch
+
+    from openvoice_tpu_torch.api import _spec_from_audio
+    from openvoice_tpu_torch.models.synthesizer import apply_generator, apply_wn
+    from openvoice_tpu_torch.ops.coupling_cuda import coupling_block, coupling_g_stack
     from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
     from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
 
@@ -309,20 +743,54 @@ def stage_times(tc, audio: np.ndarray, se_src, se_tgt) -> dict:
     bucket = round_up_to_bucket(n)
     buf = torch.zeros(1, (bucket - 1) * cfg.hop_length + cfg.filter_length, device=dev)
     buf[0, : len(padded)] = torch.from_numpy(padded).to(dev)
-    mask = (torch.arange(bucket, device=dev) < n).float()[None, None]
-    noise = torch.randn(1, cfg.inter_channels, bucket, device=dev)
-    g_src, g_tgt = tc._as_g(se_src).transpose(1, 2), tc._as_g(se_tgt).transpose(1, 2)
-    g0 = torch.zeros_like(g_src)
+    gen = torch.Generator().manual_seed(SEED)
+    noise = torch.randn(1, bucket, cfg.inter_channels, generator=gen).to(dev)
+    y_mask = (torch.arange(bucket, device=dev) < n).float()[None, :, None]
+    g_src, g_tgt = tc._as_g(se_src), tc._as_g(se_tgt)  # [1, 1, gin]
+
+    def stft():
+        return stft_magnitude(buf, cfg.filter_length, cfg.hop_length, cfg.win_length)
+
     with torch.inference_mode():
-        spec = stft_magnitude(buf, cfg.filter_length, cfg.hop_length, cfg.win_length).transpose(1, 2)
-        z = model.enc_q(spec, mask, g0, 0.3, noise)[0]
-        z_hat = model.flow(model.flow(z, mask, g=g_src), mask, g=g_tgt, reverse=True)
+        if not fast:
+            mask, g0 = y_mask.transpose(1, 2), torch.zeros_like(g_src).transpose(1, 2)
+            gs, gt = g_src.transpose(1, 2), g_tgt.transpose(1, 2)
+            spec, nz = stft().transpose(1, 2), noise.transpose(1, 2)
+            z = model.enc_q(spec, mask, g0, 0.3, nz)[0]
+            z_hat = model.flow(model.flow(z, mask, g=gs), mask, g=gt, reverse=True)
+            return {
+                "stft": time_ms(stft, 5),
+                "enc_q": time_ms(lambda: model.enc_q(spec, mask, g0, 0.3, nz), 5),
+                "flow fwd+rev": time_ms(lambda: model.flow(model.flow(z, mask, g=gs), mask, g=gt, reverse=True), 5),
+                "dec": time_ms(lambda: model.dec(z_hat * mask, g=g0, x_mask=mask), 5),
+            }
+        cache, bf = tc._require_dec_cache(), torch.bfloat16
+        enc = cache["enc_q"]
+        y16, nz, gs, gt = y_mask.to(bf), noise.to(bf), g_src.to(bf), g_tgt.to(bf)
+        g0, tau = torch.zeros_like(gs), torch.tensor(0.3, dtype=bf, device=dev)
+        lengths = torch.tensor([n], dtype=torch.int32, device=dev)
+        spec = stft().to(bf)
+
+        def enc_q():
+            x = enc["pre"](spec.transpose(1, 2)).transpose(1, 2) * y16
+            x = apply_wn(model.enc_q.enc, x, y16, g=g0, stacked=cache["wn"]["enc_q"], cond=enc["cond"])
+            stats = enc["proj"](x.transpose(1, 2)).transpose(1, 2) * y16
+            m, logs = stats[..., : cfg.inter_channels], stats[..., cfg.inter_channels :]
+            return ((m + nz * tau * torch.exp(logs)) * y16).contiguous()
+
+        def flow(z):
+            g_fwd = coupling_g_stack(model.flow, gs, reverse=False, convs=cache["flow_cond"])
+            g_rev = coupling_g_stack(model.flow, gt, reverse=True, convs=cache["flow_cond"])
+            z_p = coupling_block(z, lengths, cache["coupling"]["fwd"], g_fwd)
+            return coupling_block(z_p, lengths, cache["coupling"]["rev"], g_rev)
+
+        z = enc_q()
+        z_hat = flow(z)
         return {
-            "stft": time_ms(lambda: stft_magnitude(buf, cfg.filter_length, cfg.hop_length, cfg.win_length), 5),
-            "enc_q": time_ms(lambda: model.enc_q(spec, mask, g0, 0.3, noise), 5),
-            "flow fwd+rev": time_ms(
-                lambda: model.flow(model.flow(z, mask, g=g_src), mask, g=g_tgt, reverse=True), 5),
-            "dec": time_ms(lambda: model.dec(z_hat * mask, g=g0, x_mask=mask), 5),
+            "stft": time_ms(stft, 5),
+            "enc_q (K1)": time_ms(enc_q, 5),
+            "flow fwd+rev (K2)": time_ms(lambda: flow(z), 5),
+            "dec (K3, K4)": time_ms(lambda: apply_generator(model.dec, z_hat * y16, g=g0, x_mask=y16, packed=cache), 5),
         }
 
 
@@ -355,7 +823,7 @@ def device_profile(fn, wall_ms: float) -> None:
 def card_vs_cpu(tc, ses: dict) -> None:
     from openvoice_tpu_torch import ToneColorConverter
 
-    phase("5. card against CPU (same port, same weights; 2 s clip, watermark off)")
+    phase("6. card against CPU (same port, same weights; 2 s clip, watermark off)")
     cpu = ToneColorConverter(cfg=tc.cfg, device="cpu", enable_watermark=False)
     cpu.set_model(copy.deepcopy(tc.model))
     se_diff = float(np.abs(cpu.extract_se(ses["refs"]) - tc.extract_se(ses["refs"])).max())
@@ -372,6 +840,18 @@ def card_vs_cpu(tc, ses: dict) -> None:
     check(on_card.shape == on_cpu.shape and diff <= CPU_AUDIO_TOL and diff <= 1e-3 * peak,
           "card and CPU disagree on the audio")
 
+    # serving mode: the card runs the kernels, the CPU their plain versions
+    t0 = time.perf_counter()
+    fast_cpu = cpu.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message="", fast=True)
+    cpu_s = time.perf_counter() - t0
+    fast_card = tc.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message="", fast=True)
+    diff, peak = float(np.abs(fast_card - fast_cpu).max()), float(np.abs(fast_cpu).max())
+    print(f"serving mode: audio max |cuda - cpu| = {diff:.3e} = {diff / peak:.4f} of the peak {peak:.5f} "
+          f"(bar {FAST_CPU_TOL}); against f32 on the CPU {float(np.abs(fast_cpu - on_cpu).max()):.3e}; "
+          f"CPU convert {cpu_s:.2f} s")
+    check(fast_card.shape == fast_cpu.shape and bool(np.isfinite(fast_card).all())
+          and diff <= FAST_CPU_TOL * peak, "card and CPU disagree on the serving mode's audio")
+
 
 def main() -> int:
     import torch
@@ -384,15 +864,27 @@ def main() -> int:
 
     smi, kind = toolchain()
     build()
-    kernels = [kernel_check(kind)]
+    if sys.argv[1:] == ["--sweep"]:
+        with torch.inference_mode():
+            sweep(kind)
+        print(smi)
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
+    gen = torch.Generator().manual_seed(SEED + 2)
+    with torch.inference_mode():
+        kernels = [stft_check(kind)] + [fn(kind, gen) for fn in (wn_check, coupling_check, mrf_check, tail_check)]
+    print_windows()
+    _L2_FLUSH.clear()  # the converts' peak memory is theirs alone
     tc = converter()
     with tempfile.TemporaryDirectory() as tmp:
-        launches, ses = main_path(tc, tmp)
+        _, ses, src = main_path(tc, tmp)
+        launches = main_path_fast(tc, src, ses)
         card_vs_cpu(tc, ses)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        check(k["launches"] > 0, f"the serving path never launched {k['name']}")
 
-    phase("6. result")
+    phase("7. result")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

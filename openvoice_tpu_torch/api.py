@@ -1,10 +1,13 @@
 """User-facing API of the PyTorch port: `ToneColorConverter`.
 
 Mirrors ``openvoice_tpu/api.py`` and through it the reference surface
-(api.py:101-201).  The f32 parity mode runs end to end: host reflect-pad →
+(api.py:101-201).  Both numeric modes run end to end: host reflect-pad →
 STFT kernel (``csrc/stft.cu``) → posterior encoder → flow → decoder →
-watermark.  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; without a GPU and without that, they raise.
+watermark.  ``convert(fast=False)`` is the f32 parity mode on stock layers;
+``convert(fast=True)`` is the bf16 serving mode, whose WaveNet, flow and
+decoder stages are hand-written kernels (``csrc/{wn,coupling,mrf,tail}.cu``).
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
+without a GPU and without that, they raise.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ class ToneColorConverter:
             torch.backends.cudnn.allow_tf32 = False
         self.enable_watermark = enable_watermark
         self.model: S.Synthesizer | None = None
+        self._dec_cache: dict | None = None
 
     # -- weights ------------------------------------------------------------
 
@@ -92,11 +96,19 @@ class ToneColorConverter:
     def set_model(self, model: S.Synthesizer) -> None:
         """Use `model`'s weights (moved to this converter's device)."""
         self.model = model.to(self.device).eval()
+        self._dec_cache = None  # packed from the old weights
 
     def _require_model(self) -> S.Synthesizer:
         if self.model is None:
             raise RuntimeError("no weights loaded: call load_ckpt() or init_random()")
         return self.model
+
+    def _require_dec_cache(self) -> dict:
+        """The serving mode's packed weights (`S.make_dec_cache`): packed
+        once, at the first fast convert, and again after new weights."""
+        if self._dec_cache is None:
+            self._dec_cache = S.make_dec_cache(self._require_model())
+        return self._dec_cache
 
     # -- speaker embeddings -------------------------------------------------
 
@@ -153,10 +165,9 @@ class ToneColorConverter:
 
         `audio_src_path` may be a path or a float waveform at sampling_rate.
         src/tgt SE accept [1, gin, 1] (reference layout) or [gin].
-        fast=True (the bf16 serving mode) needs kernels not ported yet.
+        fast=True is the serving mode: bf16 after the STFT, through the
+        hand-written kernels.
         """
-        if fast:
-            raise NotImplementedError("serving mode: slice 2")
         model, cfg = self._require_model(), self.cfg
         if isinstance(audio_src_path, (str, os.PathLike)):
             audio, _ = load_audio(str(audio_src_path), sr=cfg.sampling_rate)
@@ -177,6 +188,7 @@ class ToneColorConverter:
         out, _ = S.voice_conversion(
             model, spec, torch.tensor([n_frames], device=dev),
             self._as_g(src_se), self._as_g(tgt_se), float(tau), torch.from_numpy(noise).to(dev),
+            fast=fast, dec_cache=self._require_dec_cache() if fast else None,
         )
         audio_out = out[0, : n_frames * cfg.upsample_factor, 0].cpu().numpy()
         if self.enable_watermark and message:

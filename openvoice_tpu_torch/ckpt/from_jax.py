@@ -7,6 +7,8 @@
   with the kernel axis flipped → [C_in, C_out, K] unflipped; conv2d HWIO →
   [C_out, C_in, KH, KW]; linear [in, out] → [out, in]; GRU ``w_ih`` [in, 3H]
   and ``w_hh`` [H, 3H] (gate order r, z, n in both) → transposed.
+* `dec_cache_from_jax`: the same pytree → the model and its packed serving
+  cache, so that a test starts both packages from the same arrays.
 * `load_ckpt`: a reference-format ``.pth`` checkpoint → a state dict with
   weight norm folded into plain weights, ready for ``load_state_dict``.
 
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from openvoice_tpu_torch.config import SynthesizerConfig
-from openvoice_tpu_torch.models.synthesizer import Synthesizer
+from openvoice_tpu_torch.models.synthesizer import Synthesizer, make_dec_cache
 
 
 def _conv(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
@@ -93,6 +95,14 @@ def synthesizer_from_jax(params: Mapping[str, Any], cfg: SynthesizerConfig) -> S
           for k, v in jax_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def dec_cache_from_jax(params: Mapping[str, Any], cfg: SynthesizerConfig,
+                       dtype: torch.dtype = torch.bfloat16) -> tuple[Synthesizer, dict]:
+    """What the JAX ``make_dec_cache(params, cfg, dtype)`` is given, as the
+    port's model (`synthesizer_from_jax`) and the port's own packing of it."""
+    model = synthesizer_from_jax(params, cfg).eval()
+    return model, make_dec_cache(model, dtype)
 
 
 def _fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -5,8 +5,11 @@ coupling flow, HiFi-GAN decoder and tone-colour reference encoder
 `Synthesizer` is an ``nn.Module`` whose ``state_dict()`` carries the
 reference's key names.  The graph functions below keep the JAX package's
 [B, T, C] layout at their arguments and results, and run the modules in
-PyTorch's [B, C, T] layout inside.  This is the f32 parity mode; the bf16
-serving mode needs the fused kernels of a later slice.
+PyTorch's [B, C, T] layout inside.  Two numeric modes share them: the f32
+parity mode on stock layers, and the bf16 serving mode (``fast=True`` with a
+`make_dec_cache`), where the posterior encoder's WaveNet, both directions of
+the flow and every decoder stage each run as one hand-written kernel
+(``ops/{wn,coupling,mrf,tail}_cuda.py``).
 """
 
 from __future__ import annotations
@@ -20,9 +23,15 @@ from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models.align import sequence_mask
 from openvoice_tpu_torch.nn.conv import conv1d
 from openvoice_tpu_torch.nn.flows import ResidualCouplingBlock
-from openvoice_tpu_torch.nn.hifigan import Generator
+from openvoice_tpu_torch.nn.hifigan import (
+    Generator, apply_generator, cast_copy, pack_generator_caches,
+)
 from openvoice_tpu_torch.nn.ref_encoder import GRU_HIDDEN, ReferenceEncoder
-from openvoice_tpu_torch.nn.wavenet import WN
+from openvoice_tpu_torch.nn.wavenet import WN, apply_wn
+from openvoice_tpu_torch.ops.coupling_cuda import (
+    coupling_block, coupling_g_stack, pack_coupling_block,
+)
+from openvoice_tpu_torch.ops.wn_cuda import stack_wn_params
 
 
 class PosteriorEncoder(nn.Module):
@@ -127,30 +136,79 @@ def extract_tone_color(model: Synthesizer, spec: torch.Tensor,
     return model.ref_enc(spec, lengths)
 
 
+def make_dec_cache(model: Synthesizer, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Pack, once, everything the kernel route of `voice_conversion` reads
+    (the JAX package's ``make_dec_cache``), on the model's device:
+
+    * the decoder's stages and the stock layers around them
+      (`nn.hifigan.pack_generator_caches`: keys ``mrf{i}``, ``upmrf{i}``,
+      ``tail``, ``stock``);
+    * ``wn``: the posterior encoder's WaveNet stack;
+    * ``coupling``: both directions of the flow, flips folded in;
+    * ``enc_q`` / ``flow_cond``: copies in `dtype` of the stock layers that
+      stay outside the kernels (pre, proj and the conditioning 1×1 convs).
+
+    Pass it as ``dec_cache``.  Build it again when the weights change."""
+    def cast(module):
+        return cast_copy(module, dtype)
+
+    cache = pack_generator_caches(model.dec, dtype)
+    cache["dtype"] = dtype
+    cache["wn"] = {"enc_q": stack_wn_params(model.enc_q.enc, dtype)}
+    cache["coupling"] = {
+        "fwd": pack_coupling_block(model.flow, reverse=False, dtype=dtype),
+        "rev": pack_coupling_block(model.flow, reverse=True, dtype=dtype),
+    }
+    cache["enc_q"] = {"pre": cast(model.enc_q.pre), "proj": cast(model.enc_q.proj),
+                      "cond": cast(model.enc_q.enc.cond_layer)}
+    cache["flow_cond"] = [cast(flow.enc.cond_layer) for flow in model.flow.flows[::2]]
+    return cache
+
+
 def voice_conversion(model: Synthesizer, spec: torch.Tensor, spec_lengths: torch.Tensor,
                      g_src: torch.Tensor, g_tgt: torch.Tensor, tau: float,
-                     noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                     noise: torch.Tensor, fast: bool = False,
+                     dec_cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Tone-colour conversion (models.py:492-499).
 
     spec [B, T, n_freq], spec_lengths [B], g_src/g_tgt [B, 1, gin], noise
-    [B, T, inter] → (audio [B, T·upsample, 1], y_mask [B, T, 1]).
+    [B, T, inter] → (audio [B, T·upsample, 1] float32, y_mask [B, T, 1]).
+
+    fast=True is the serving mode: everything after the STFT runs in bf16,
+    through the kernels, from ``dec_cache = make_dec_cache(model)``.
+    fast=False is the f32 parity mode.
     """
     y_mask = sequence_mask(spec_lengths, spec.shape[1])[..., None].to(spec.dtype)
-    audio = voice_conversion_masked(model, spec, y_mask, g_src, g_tgt, tau, noise)
+    audio = voice_conversion_masked(model, spec, y_mask, g_src, g_tgt, tau, noise,
+                                    fast=fast, dec_cache=dec_cache)
     return audio, y_mask
 
 
 def voice_conversion_masked(model: Synthesizer, spec: torch.Tensor, y_mask: torch.Tensor,
                             g_src: torch.Tensor, g_tgt: torch.Tensor, tau: float,
-                            noise: torch.Tensor) -> torch.Tensor:
+                            noise: torch.Tensor, fast: bool = False,
+                            dec_cache: dict | None = None) -> torch.Tensor:
     """Conversion body with an explicit frame mask [B, T, 1] → audio
-    [B, T·upsample, 1].
+    [B, T·upsample, 1] float32.
 
     zero_g follows the reference exactly: in V2 the posterior encoder and
     the decoder see zeroed speaker vectors, and the flow always sees the real
     src/tgt embeddings (models.py:495-498).
+
+    With a `dec_cache` the graph takes the kernel route in the cache's dtype:
+    bf16 for fast=True, and float32 (a cache packed with dtype=float32, which
+    only the plain versions on the CPU accept) to check the route's algebra
+    exactly.
     """
     cfg = model.cfg
+    if fast and dec_cache is None:
+        raise ValueError("fast=True needs dec_cache=make_dec_cache(model)")
+    if dec_cache is not None:
+        dt = torch.bfloat16 if fast else spec.dtype
+        if dec_cache["dtype"] != dt:
+            raise TypeError(f"dec_cache holds {dec_cache['dtype']}, this call runs in {dt}")
+        return _voice_conversion_packed(model, dec_cache, spec.to(dt), y_mask.to(dt), g_src.to(dt),
+                                        g_tgt.to(dt), tau, noise.to(dt))
     g_src, g_tgt = _bct(g_src), _bct(g_tgt)
     g_enc = torch.zeros_like(g_src) if cfg.zero_g else g_src
     g_dec = torch.zeros_like(g_tgt) if cfg.zero_g else g_tgt
@@ -160,3 +218,38 @@ def voice_conversion_masked(model: Synthesizer, spec: torch.Tensor, y_mask: torc
     z_hat = model.flow(z_p, mask, g=g_tgt, reverse=True)
     audio = model.dec(z_hat * mask, g=g_dec, x_mask=mask)
     return _bct(audio)
+
+
+def _voice_conversion_packed(model: Synthesizer, cache: dict, spec: torch.Tensor,
+                             y_mask: torch.Tensor, g_src: torch.Tensor, g_tgt: torch.Tensor,
+                             tau: float, noise: torch.Tensor) -> torch.Tensor:
+    """The kernel route, everything in the cache's dtype and the JAX layout:
+    the latents (`_latents_packed`), then the decoder."""
+    z_hat = _latents_packed(model, cache, spec, y_mask, g_src, g_tgt, tau, noise)
+    g_dec = torch.zeros_like(g_tgt) if model.cfg.zero_g else g_tgt
+    audio = apply_generator(model.dec, z_hat * y_mask, g=g_dec, x_mask=y_mask, packed=cache)
+    return audio.float()
+
+
+def _latents_packed(model: Synthesizer, cache: dict, spec: torch.Tensor, y_mask: torch.Tensor,
+                    g_src: torch.Tensor, g_tgt: torch.Tensor, tau: float,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """The kernel route up to the decoder's input z_hat [B, T, inter]:
+    posterior encoder (stock pre → WaveNet kernel → stock proj), then the flow
+    forward with g_src and back with g_tgt (one kernel each)."""
+    cfg = model.cfg
+    g_enc = torch.zeros_like(g_src) if cfg.zero_g else g_src
+    tau_t = torch.tensor(tau, dtype=spec.dtype, device=spec.device)
+    lengths = (y_mask[:, :, 0] != 0).sum(dim=1, dtype=torch.int32)
+    enc = cache["enc_q"]
+
+    x = _bct(enc["pre"](_bct(spec))) * y_mask
+    x = apply_wn(model.enc_q.enc, x, y_mask, g=g_enc, stacked=cache["wn"]["enc_q"], cond=enc["cond"])
+    stats = _bct(enc["proj"](_bct(x))) * y_mask
+    m, logs = stats[..., : cfg.inter_channels], stats[..., cfg.inter_channels :]
+    z = ((m + noise * tau_t * torch.exp(logs)) * y_mask).contiguous()
+
+    g_fwd = coupling_g_stack(model.flow, g_src, reverse=False, convs=cache["flow_cond"])
+    g_rev = coupling_g_stack(model.flow, g_tgt, reverse=True, convs=cache["flow_cond"])
+    z_p = coupling_block(z, lengths, cache["coupling"]["fwd"], g_fwd)
+    return coupling_block(z_p, lengths, cache["coupling"]["rev"], g_rev)

@@ -2,9 +2,10 @@
 flips (reference: modules.py:363-456, models.py:367-397; JAX:
 ``openvoice_tpu/nn/flows.py``).
 
-Plain f32 version.  The JAX serving mode runs each direction of the block
-as the Pallas kernel ``ops/coupling_pallas.py::fused_coupling_block``,
-which the port does not have yet.
+These are the plain stock-layer modules (the f32 parity mode).  The serving
+mode runs each direction of the block as one kernel, from weights packed off
+these modules (``ops/coupling_cuda.py``, the port of the Pallas kernel
+``ops/coupling_pallas.py::fused_coupling_block``).
 """
 
 from __future__ import annotations

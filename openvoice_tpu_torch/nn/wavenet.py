@@ -2,9 +2,10 @@
 of every coupling layer (reference: modules.py:133-210; JAX:
 ``openvoice_tpu/nn/wavenet.py``).
 
-This is the plain f32 stack.  The JAX serving mode runs it as the Pallas
-kernel ``ops/wn_pallas.py::fused_wn_stack``, which the port does not have
-yet.
+`WN` is the plain stack of stock layers (the f32 parity mode).  With
+pre-packed weights `apply_wn` runs the whole stack as one kernel instead
+(``ops/wn_cuda.py``, the port of the Pallas kernel
+``ops/wn_pallas.py::fused_wn_stack``): that is the serving mode's route.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from openvoice_tpu_torch.nn.conv import conv1d
+from openvoice_tpu_torch.ops.wn_cuda import wn_stack
 
 
 class WN(nn.Module):
@@ -55,8 +57,23 @@ class WN(nn.Module):
         return output * x_mask
 
 
-def apply_wn(wn: WN, x: torch.Tensor, x_mask: torch.Tensor,
-             g: torch.Tensor | None = None) -> torch.Tensor:
-    """The JAX layout: x [B, T, H], x_mask [B, T, 1], g [B, 1, gin] → [B, T, H]."""
+def apply_wn(wn: WN, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None,
+             stacked: dict | None = None, cond: nn.Module | None = None) -> torch.Tensor:
+    """The JAX layout: x [B, T, H], x_mask [B, T, 1], g [B, 1, gin] → [B, T, H].
+
+    `stacked` is the stack packed once by ``ops.wn_cuda.stack_wn_params``
+    (``models.synthesizer.make_dec_cache``).  When it is given in x's dtype,
+    which in the serving mode is bf16, the stack runs as one kernel; the
+    conditioning is still projected once outside it, by `cond` (a copy of
+    ``wn.cond_layer`` in x's dtype) or by ``wn.cond_layer`` itself."""
+    if stacked is not None and stacked["w_in"].dtype == x.dtype:
+        n_layers = len(wn.in_layers)
+        cond = cond if cond is not None else wn.cond_layer
+        if g is not None and cond is not None:
+            g_all = cond(g.transpose(1, 2)).reshape(x.shape[0], n_layers, 2 * wn.hidden)
+        else:
+            g_all = x.new_zeros(x.shape[0], n_layers, 2 * wn.hidden)
+        lengths = (x_mask[:, :, 0] != 0).sum(dim=1, dtype=torch.int32)
+        return wn_stack((x * x_mask).contiguous(), lengths, stacked, g_all.contiguous())
     g_t = g.transpose(1, 2) if g is not None else None
     return wn(x.transpose(1, 2), x_mask.transpose(1, 2), g_t).transpose(1, 2)

@@ -4,8 +4,10 @@ Each source ``openvoice_tpu_torch/csrc/<name>.cu`` is compiled by nvcc for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ctypes; no PyTorch header is included, so a build takes seconds.  Libraries
 are built at first use into ``openvoice_tpu_torch/csrc/build/`` (listed in
-``.gitignore``) under a name that hashes the source and the flags: a changed
-source builds anew, an unchanged one loads at once.
+``.gitignore``) under a name that hashes the flags and every source and
+header under ``csrc/``: the kernels share device code in headers
+(``csrc/*.cuh``), so a change to any of them builds every library anew, and an
+unchanged tree loads at once.  A stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -34,10 +36,17 @@ def kernel_names() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def _sources() -> list[Path]:
+    """Every source and header under ``csrc/``, outside ``build/``."""
+    return sorted(p for p in CSRC.rglob("*")
+                  if p.is_file() and BUILD_DIR not in p.parents and p.suffix in (".cu", ".cuh", ".h"))
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        digest.update(str(path.relative_to(CSRC)).encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:

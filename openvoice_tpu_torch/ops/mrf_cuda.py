@@ -1,0 +1,196 @@
+"""K3: one HiFi-GAN multi-receptive-field stage as one hand-written CUDA
+kernel (``csrc/mrf.cu``).
+
+Replaces ``openvoice_tpu/ops/mrf_pallas.py::fused_mrf_stage``: the mean of
+the stage's ResBlock1 branches, with masks rebuilt from the true sample
+lengths before every conv, the activation read once and written once.  A
+CUDA tensor goes to the kernel, a CPU tensor to `mrf_stage_plain`; nothing
+falls back.
+
+``launches`` counts the kernel's launches; it is raised where the kernel is
+launched and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from openvoice_tpu_torch.ops import _frag, _nvcc
+
+launches = 0
+
+LRELU_SLOPE = 0.1
+MAX_BRANCHES = 4   # MAX_BRANCHES / MAX_PAIRS in csrc/mrf_branch.cuh
+MAX_PAIRS = 4
+# 16 warps: the kernel waits on latency, and more warps hid more of it on one
+# H100 (``python3 chip_smoke.py --sweep`` times 8, 12 and 16 warps at the V2
+# stages of a 10 s clip)
+_THREADS = 512
+# samples a block keeps: as many as shared memory holds beside the halo it
+# recomputes (the window search stops at what fits); smaller tiles were no
+# faster in the same sweep
+_TILE_TARGET = 4096
+
+
+def stage_halo(kernel_sizes, dilation_sizes) -> int:
+    """The deepest branch's reach in samples a side: over its conv pairs, the
+    sum of (k−1)/2·d (dilated conv) + (k−1)/2 (second conv)."""
+    return max(sum((k - 1) // 2 * d + (k - 1) // 2 for d in dils)
+               for k, dils in zip(kernel_sizes, dilation_sizes))
+
+
+def pack_stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Pack the `nn.hifigan.ResBlock1` branches of one stage, once, in
+    execution order (per branch, per dilation: dilated conv, second conv):
+
+      w [n_taps, C, C]  tap j of a conv as the [C_in, C_out] matrix that
+                        multiplies x[t + (j − (k−1)/2)·d]
+      b [n_convs, C]
+      w_frag            w in the kernel's fragment order (None where C has
+                        no such layout)
+      kernel_sizes, dilation_sizes   the branches' static structure
+    """
+    taps, biases, kernel_sizes, dilation_sizes = [], [], [], []
+    with torch.no_grad():
+        for rb in resblocks:
+            kernel_sizes.append(rb.convs1[0].kernel_size[0])
+            dilation_sizes.append(tuple(c.dilation[0] for c in rb.convs1))
+            for c1, c2 in zip(rb.convs1, rb.convs2):
+                for conv in (c1, c2):
+                    taps.append(conv.weight.permute(2, 1, 0))  # [k, C_in, C_out]
+                    biases.append(conv.bias)
+        w = torch.cat(taps).to(dtype).contiguous()
+        b = torch.stack(biases).to(dtype).contiguous()
+    if len({len(d) for d in dilation_sizes}) != 1:
+        raise ValueError(f"branches must have equally many conv pairs, got {dilation_sizes}")
+    return {"w": w, "b": b, "w_frag": _frag.maybe_frag(w),
+            "kernel_sizes": tuple(kernel_sizes), "dilation_sizes": tuple(dilation_sizes)}
+
+
+def lrelu_plain(x: torch.Tensor, slope: float, dt: torch.dtype) -> torch.Tensor:
+    """Leaky ReLU on an f32 tensor of `dt` values as the `dt` graph computes
+    it: the slope is a `dt` value and the product is rounded to `dt`."""
+    s = torch.tensor(slope, dtype=dt).float()
+    return torch.where(x >= 0, x, (x * s).to(dt).float())
+
+
+def _conv_plain(x: torch.Tensor, taps: torch.Tensor, bias: torch.Tensor, dilation: int) -> torch.Tensor:
+    """'Same' conv of [B, T, C] f32 with taps [k, C_in, C_out], in f32."""
+    k = taps.shape[0]
+    y = F.conv1d(x.transpose(1, 2), taps.float().permute(2, 1, 0), bias.float(),
+                 padding=(k - 1) // 2 * dilation, dilation=dilation)
+    return y.transpose(1, 2)
+
+
+def mrf_branches_plain(x0: torch.Tensor, mask: torch.Tensor, dt: torch.dtype, packed: dict) -> torch.Tensor:
+    """The branch chains on f32 tensors of `dt` values: x0 [B, T, C] masked,
+    mask [B, T, 1] → the f32 mean of the masked branch outputs, summed in the
+    order (b0 + b1) + b2."""
+    w, b = packed["w"], packed["b"]
+    acc = torch.zeros_like(x0)
+    tap = conv = 0
+    for k, dils in zip(packed["kernel_sizes"], packed["dilation_sizes"]):
+        xb = x0
+        for d in dils:
+            xt = lrelu_plain(xb, LRELU_SLOPE, dt) * mask
+            y = _conv_plain(xt, w[tap : tap + k], b[conv], d)
+            xt = lrelu_plain(y.to(dt).float(), LRELU_SLOPE, dt) * mask
+            y2 = _conv_plain(xt, w[tap + k : tap + 2 * k], b[conv + 1], 1)
+            xb = (xb + y2.to(dt).float()).to(dt).float()
+            tap += 2 * k
+            conv += 2
+        acc = acc + xb * mask
+    return acc / len(packed["kernel_sizes"])
+
+
+def mrf_stage_plain(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Tensor:
+    """`mrf_stage` in plain PyTorch, in x's dtype, with the kernel's rounding
+    points; products in f32."""
+    dt = x.dtype
+    mask = _frag.length_mask(lengths, x.shape[1])
+    return mrf_branches_plain(x.float() * mask, mask, dt, packed).to(dt)
+
+
+def check_stage(packed: dict, c: int, dtype: torch.dtype) -> None:
+    """The packed branches fit C channels and `dtype` (K3 and K4 share this)."""
+    n_taps = sum(2 * k * len(d) for k, d in zip(packed["kernel_sizes"], packed["dilation_sizes"]))
+    if packed["w"].shape != (n_taps, c, c) or any(k % 2 == 0 for k in packed["kernel_sizes"]):
+        raise ValueError(f"packed weights {tuple(packed['w'].shape)} do not fit C = {c}")
+    if packed["w"].dtype != dtype:
+        raise TypeError(f"activations {dtype}, weights {packed['w'].dtype} must agree")
+
+
+def check_stage_cuda(packed: dict, c: int, device: torch.device):
+    """What the kernels ask of the packed branches; returns the ctypes
+    arrays (kernel sizes, dilations) of the launch."""
+    ks, dils = packed["kernel_sizes"], packed["dilation_sizes"]
+    if len(ks) > MAX_BRANCHES or len(dils[0]) > MAX_PAIRS:
+        raise ValueError(f"the kernel takes up to {MAX_BRANCHES} branches of {MAX_PAIRS} conv pairs")
+    if packed["w_frag"] is None or c % 16:
+        raise ValueError(f"the kernel needs C % 16 == 0, got C = {c}")
+    for name in ("w_frag", "b"):
+        _frag.check_bf16(name, packed[name])
+        if packed[name].device != device:
+            raise ValueError(f"{name} on {packed[name].device}, activations on {device}")
+    flat = [d for branch in dils for d in branch]
+    return (ctypes.c_int * len(ks))(*ks), (ctypes.c_int * len(flat))(*flat)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _nvcc.load("mrf")
+    lib.mrf_stage_bf16.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    lib.mrf_stage_bf16.restype = ctypes.c_int
+    lib.mrf_stage_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.mrf_stage_smem_bytes.restype = ctypes.c_int
+    return lib
+
+
+def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Tensor:
+    """x [B, T, C]; lengths [B] true sample counts at this stage's rate;
+    packed from `pack_stage_weights` in x's dtype → the mean of the branches
+    [B, T, C].  Samples past a row's length come out exactly 0."""
+    global launches
+    if x.dim() != 3:
+        raise ValueError(f"mrf_stage takes [B, T, C], got {tuple(x.shape)}")
+    batch, t, c = x.shape
+    check_stage(packed, c, x.dtype)
+    if batch == 0 or t == 0:
+        raise ValueError(f"empty input {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("mrf_stage takes a contiguous activation")
+    if x.device.type == "cpu":
+        return mrf_stage_plain(x, lengths, packed)
+    if x.device.type != "cuda":
+        raise ValueError(f"mrf_stage runs on cuda or cpu, not {x.device}")
+
+    _frag.check_bf16("x", x)
+    ks, dils = check_stage_cuda(packed, c, x.device)
+    if batch > _frag.GRID_MAX_Y:
+        raise ValueError(f"batch {batch} exceeds the launch grid")
+    lengths = _frag.check_lengths(lengths, batch, x.device)
+
+    lib = _library()
+    halo = stage_halo(packed["kernel_sizes"], packed["dilation_sizes"])
+    rows, tile = _frag.window(("mrf", c), halo, t, _TILE_TARGET,
+                              lambda r, tl: lib.mrf_stage_smem_bytes(c, r),
+                              multiples=(_frag.even_rows(c, _THREADS), _frag.TILE_ROWS))
+    out = torch.empty_like(x)
+    # where the finished branches' outputs wait for the last one, a tile a block
+    scratch = torch.empty(batch * -(-t // tile) * (len(packed["kernel_sizes"]) - 1) * tile * c,
+                          dtype=torch.bfloat16, device=x.device)
+    err = lib.mrf_stage_bf16(
+        x.data_ptr(), lengths.data_ptr(), packed["w_frag"].data_ptr(), packed["b"].data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), batch, t, c,
+        len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils,
+        rows, tile, _THREADS, x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mrf kernel launch failed with CUDA error {err}")
+    launches += 1
+    return out

@@ -32,6 +32,27 @@ TINY_API = dict(
     gin_channels=64,
 )
 
+# a tiny converter whose decoder takes every route of the serving mode, by
+# the JAX package's stage plan: stage 0 (256 → 128 channels, ×4) is a stock
+# transposed convolution and the MRF kernel, stage 1 (128 → 64, ×2) the tail
+# kernel as a middle stage, stage 2 (64 → 32, ×2) the tail kernel with
+# conv_post and tanh
+TINY_TAIL = dict(
+    n_speakers=0, zero_g=True,
+    spec_channels=65, filter_length=128, hop_length=16, win_length=128,
+    inter_channels=32, hidden_channels=32,
+    upsample_initial_channel=256, upsample_rates=(4, 2, 2),
+    upsample_kernel_sizes=(8, 4, 4),
+    resblock_kernel_sizes=(3, 7), resblock_dilation_sizes=((1, 3), (1, 3)),
+    gin_channels=32, enc_q_layers=4, flow_wn_layers=2,
+)
+
+# the same converter at widths the kernels' stage plan leaves partly on stock
+# layers: stage 0 (384 → 192 channels) takes the MRF kernel, stages 1 and 2
+# (96 and 48 channels, which tile no 128 lanes) and conv_post stay stock, so
+# the serving branch must carry its mask up to audio rate
+TINY_STOCK = dict(TINY_TAIL, upsample_initial_channel=384)
+
 
 def jax_cfg(fields: dict):
     from openvoice_tpu.config import SynthesizerConfig

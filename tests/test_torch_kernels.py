@@ -1,0 +1,293 @@
+"""The plain PyTorch versions of the port's four tensor-core kernels (K1-K4:
+WaveNet stack, coupling block, MRF stage, decoder tail) against the Pallas
+kernels they replace, run in interpret mode on the CPU.
+
+Both sides start from the same seeded numpy weights and pack them their own
+way.  In f32 the comparison pins the algebra (tap order, flips, phases,
+masks) at the JAX suite's own bars; in bf16 it pins the rounding points:
+max |Δ| ≤ 2⁻⁶·max|ref| and mean |Δ| ≤ 2⁻¹⁰·max|ref| (a different f32
+summation order can flip a bf16 rounding, nothing more; the on-card check of
+each kernel against its own plain version holds the same maximum and a
+tighter mean).  On the CPU each wrapper runs its plain version, so these
+tests go through the wrappers.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from openvoice_tpu.nn.conv import conv1d as jconv1d
+from openvoice_tpu.ops import coupling_pallas as jcp
+from openvoice_tpu.ops import mrf_pallas as jmrf
+from openvoice_tpu.ops import wn_pallas as jwn
+from openvoice_tpu_torch.ckpt import from_jax
+from openvoice_tpu_torch.nn.hifigan import ResBlock1
+from openvoice_tpu_torch.nn.conv import conv1d, conv_transpose1d
+from openvoice_tpu_torch.nn.wavenet import WN
+from openvoice_tpu_torch.ops import _frag, coupling_cuda, mrf_cuda, tail_cuda, wn_cuda
+from tests._torch_port import TINY, jax_params, t, torch_model
+
+KS = (3, 7, 11)
+DILS = ((1, 3, 5), (1, 3, 5), (1, 3, 5))
+JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _load(module, sd: dict):
+    module.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+                            for k, v in sd.items()}, strict=True)
+    return module.eval()
+
+
+def _close_f32(out, ref, atol, rtol):
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32), atol=atol, rtol=rtol)
+
+
+def _close_bf16(out, ref):
+    """The bf16 bars, relative to the reference's peak."""
+    ref = np.asarray(ref.astype(jnp.float32))
+    diff = np.abs(out.float().numpy() - ref)
+    peak = np.abs(ref).max()
+    assert diff.max() <= 2.0 ** -6 * peak, f"max |Δ| {diff.max():.3e} vs peak {peak:.3e}"
+    assert diff.mean() <= 2.0 ** -10 * peak, f"mean |Δ| {diff.mean():.3e} vs peak {peak:.3e}"
+
+
+def _cast(tree, dtype):
+    import jax
+
+    return jax.tree.map(lambda a: jnp.asarray(a, dtype), tree)
+
+
+# -- K1 ------------------------------------------------------------------------
+
+def _wn_params(rng, hidden, n_layers, k, gin):
+    def arr(*shape):
+        return (rng.standard_normal(shape) * 0.07).astype(np.float32)
+
+    p = {"in": [], "res_skip": [], "cond": None}
+    for i in range(n_layers):
+        out = 2 * hidden if i < n_layers - 1 else hidden
+        p["in"].append({"w": arr(k, hidden, 2 * hidden), "b": arr(2 * hidden)})
+        p["res_skip"].append({"w": arr(1, hidden, out), "b": arr(out)})
+    if gin:
+        p["cond"] = {"w": arr(1, gin, 2 * hidden * n_layers), "b": arr(2 * hidden * n_layers)}
+    return p
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_layers,hidden,gin,t_len", [(4, 64, 0, 96), (16, 32, 16, 120), (3, 64, 16, 56)])
+@torch.inference_mode()
+def test_wn_stack_matches_pallas(n_layers, hidden, gin, t_len, dtype):
+    k, b = 5, 2
+    rng = np.random.default_rng(n_layers * 100 + t_len)
+    params = _wn_params(rng, hidden, n_layers, k, gin)
+    sd: dict = {}
+    from_jax._wn(params, "wn", sd)
+    wn = _load(WN(hidden, k, n_layers, gin), {key[3:]: v for key, v in sd.items()})
+    lengths = np.asarray([t_len, max(t_len - 37, 8)], np.int32)
+    x = (rng.standard_normal((b, t_len, hidden)) * 0.5).astype(np.float32)
+    g = rng.standard_normal((b, 1, gin)).astype(np.float32) if gin else None
+
+    jdt = JDT[dtype]
+    jp = _cast(params, jdt) if dtype != torch.float32 else params
+    w_in, b_in, w_rs, b_rs = jwn.stack_wn_params(jp, hidden, dtype=jdt)
+    if gin:
+        g_stack = jconv1d(jnp.asarray(g, jdt), jp["cond"]["w"], jp["cond"]["b"]).reshape(b, n_layers, 2 * hidden)
+    else:
+        g_stack = jnp.zeros((b, n_layers, 2 * hidden), jdt)
+    ref = jwn.fused_wn_stack(jnp.asarray(x, jdt), jnp.asarray(lengths), w_in, b_in, g_stack, w_rs, b_rs,
+                             kernel_size=k, interpret=True)
+
+    packed = wn_cuda.stack_wn_params(wn, dtype)
+    if gin:
+        g_all = wn.cond_layer.to(dtype)(t(g).to(dtype).transpose(1, 2)).reshape(b, n_layers, 2 * hidden)
+    else:
+        g_all = torch.zeros(b, n_layers, 2 * hidden, dtype=dtype)
+    out = wn_cuda.wn_stack(t(x).to(dtype), t(lengths), packed, g_all)
+    assert out.dtype == dtype and out.shape == (b, t_len, hidden)
+    assert bool((out[1, lengths[1]:] == 0).all())
+    if dtype == torch.float32:
+        _close_f32(out, ref, 1e-4, 1e-4)
+    else:
+        _close_bf16(out, ref)
+
+
+# -- K2 ------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def flow_case():
+    params = jax_params(TINY, seed=3)
+    model = torch_model(TINY, params)
+    rng = np.random.default_rng(7)
+    b, t_len, c = 2, 64, TINY["inter_channels"]
+    lengths = np.asarray([t_len, 41], np.int32)
+    x = rng.standard_normal((b, t_len, c)).astype(np.float32)
+    x *= (np.arange(t_len)[None, :, None] < lengths[:, None, None])
+    g = rng.standard_normal((b, 1, TINY["gin_channels"])).astype(np.float32)
+    return params["flow"], model.flow, x, lengths, g
+
+
+def _flow_both(flow_case, dtype, reverse, x=None):
+    jflow, flow, x0, lengths, g = flow_case
+    x = x0 if x is None else x
+    jdt = JDT[dtype]
+    jf = _cast(jflow, jdt) if dtype != torch.float32 else jflow
+    k = jflow["layers"][0]["wn"]["in"][0]["w"].shape[0]
+    jpacked = jcp.pack_coupling_block(jflow, TINY["hidden_channels"], reverse=reverse, dtype=jdt, kernel_size=k)
+    jg = jcp.coupling_g_stack(jf, jnp.asarray(g, jdt), reverse=reverse, dtype=jdt)
+    ref = jcp.fused_coupling_block(jnp.asarray(x, jdt), jnp.asarray(lengths), jpacked, jg,
+                                   kernel_size=k, interpret=True)
+    packed = coupling_cuda.pack_coupling_block(flow, reverse=reverse, dtype=dtype)
+    convs = [layer.enc.cond_layer for layer in flow.flows[::2]]
+    if dtype != torch.float32:
+        import copy
+
+        convs = [copy.deepcopy(c).to(dtype) for c in convs]
+    g_all = coupling_cuda.coupling_g_stack(flow, t(g).to(dtype), reverse=reverse, convs=convs)
+    out = coupling_cuda.coupling_block(t(np.asarray(x, np.float32)).to(dtype), t(lengths), packed, g_all)
+    return out, ref
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@torch.inference_mode()
+def test_coupling_block_matches_pallas(flow_case, dtype, reverse):
+    out, ref = _flow_both(flow_case, dtype, reverse)
+    lengths = flow_case[3]
+    assert bool((out[1, lengths[1]:] == 0).all()), "frames past the length must be exactly 0"
+    if dtype == torch.float32:
+        _close_f32(out, ref, 2e-4, 1e-3)
+    else:
+        _close_bf16(out, ref)
+
+
+@pytest.mark.parametrize("dtype,bar", [(torch.float32, 1e-3), (torch.bfloat16, 2.0 ** -5)], ids=["f32", "bf16"])
+@torch.inference_mode()
+def test_coupling_block_round_trip(flow_case, dtype, bar):
+    x = flow_case[2]
+    y, _ = _flow_both(flow_case, dtype, False)
+    back, _ = _flow_both(flow_case, dtype, True, x=y.float().numpy())
+    assert float((back.float() - t(x)).abs().max()) <= bar * float(np.abs(x).max())
+
+
+@torch.inference_mode()
+def test_coupling_exec_order_and_g_stack_follow_jax(flow_case):
+    jflow, flow, _, _, g = flow_case
+    for reverse in (False, True):
+        assert coupling_cuda._exec_order(4, reverse) == jcp._exec_order(4, reverse)
+        ours = coupling_cuda.coupling_g_stack(flow, t(g), reverse=reverse)
+        ref = jcp.coupling_g_stack(jflow, jnp.asarray(g), reverse=reverse, dtype=jnp.float32)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+# -- K3 / K4 -------------------------------------------------------------------
+
+def _random_resblocks(rng, c):
+    def conv(k):
+        return {"w": (rng.standard_normal((k, c, c)) * 0.05).astype(np.float32),
+                "b": (rng.standard_normal(c) * 0.05).astype(np.float32)}
+
+    return [{"convs1": [conv(k) for _ in range(3)], "convs2": [conv(k) for _ in range(3)]} for k in KS]
+
+
+def _torch_resblocks(jrbs, c):
+    out = []
+    for rb, k, dils in zip(jrbs, KS, DILS):
+        sd: dict = {}
+        for name in ("convs1", "convs2"):
+            for j, conv in enumerate(rb[name]):
+                from_jax._conv(conv, f"{name}.{j}", sd)
+        out.append(_load(ResBlock1(c, k, dils), sd))
+    return out
+
+
+def test_stage_halo_is_the_jax_halo():
+    assert mrf_cuda.stage_halo(KS, DILS) == jmrf.stage_halo(KS, DILS) == 60
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c,t_len", [(32, 1030), (64, 1203)])
+@torch.inference_mode()
+def test_mrf_stage_matches_pallas(c, t_len, dtype):
+    rng = np.random.default_rng(c + t_len)
+    jrbs = _random_resblocks(rng, c)
+    b = 2
+    lengths = np.asarray([t_len, t_len - 321], np.int32)
+    x = (rng.standard_normal((b, t_len, c)) * 0.5).astype(np.float32)
+
+    jdt = JDT[dtype]
+    w_all, b_all, _ = jmrf.pack_stage_weights(jrbs, KS, DILS, dtype=jdt)
+    ref = jmrf.fused_mrf_stage(jnp.asarray(x, jdt), jnp.asarray(lengths), w_all, b_all,
+                               kernel_sizes=KS, dilation_sizes=DILS, interpret=True)
+    packed = mrf_cuda.pack_stage_weights(_torch_resblocks(jrbs, c), dtype)
+    assert packed["kernel_sizes"] == KS and packed["dilation_sizes"] == DILS
+    out = mrf_cuda.mrf_stage(t(x).to(dtype), t(lengths), packed)
+    assert out.dtype == dtype and out.shape == (b, t_len, c)
+    assert bool((out[1, lengths[1]:] == 0).all())
+    if dtype == torch.float32:
+        _close_f32(out, ref, 1e-4, 1e-4)
+    else:
+        _close_bf16(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c_in,c_out,t_in,last", [(128, 64, 301, False), (64, 32, 403, True)],
+                         ids=["middle", "last"])
+@torch.inference_mode()
+def test_tail_stage_matches_pallas(c_in, c_out, t_in, last, dtype):
+    u, k_up = 2, 4
+    rng = np.random.default_rng(c_in + t_in)
+    jrbs = _random_resblocks(rng, c_out)
+    up = {"w": (rng.standard_normal((k_up, c_in, c_out)) * 0.1).astype(np.float32),
+          "b": (rng.standard_normal(c_out) * 0.1).astype(np.float32)}
+    post_w = (rng.standard_normal((7, c_out, 1)) * 0.1).astype(np.float32) if last else None
+    b = 2
+    lengths_in = np.asarray([t_in, t_in - 111], np.int32)
+    x = (rng.standard_normal((b, t_in, c_in)) * 0.5).astype(np.float32)
+    x *= (np.arange(t_in)[None, :, None] < lengths_in[:, None, None])
+
+    jdt = JDT[dtype]
+    fold = 128 // c_out
+    w_all, b_all, up_qs, mrf_meta, post_qs = jmrf.pack_tail_weights(
+        _cast(up, jnp.float32), jrbs, None if post_w is None else jnp.asarray(post_w), KS, DILS,
+        stride=u, up_padding=(k_up - u) // 2, fold=fold, dtype=jdt)
+    ref = jmrf.fused_tail_stage(
+        jnp.asarray(x, jdt), jnp.asarray(lengths_in * u), w_all, b_all, kernel_sizes=KS,
+        dilation_sizes=DILS, stride=u, fold=fold, up_qs=up_qs, mrf_meta=mrf_meta, post_qs=post_qs,
+        interpret=True)
+
+    sd: dict = {}
+    from_jax._conv_transpose(up, "up", sd)
+    up_mod = _load(conv_transpose1d(c_in, c_out, k_up, u), {key[3:]: v for key, v in sd.items()})
+    post_mod = None
+    if last:
+        sd = {}
+        from_jax._conv({"w": post_w, "b": None}, "post", sd)
+        post_mod = _load(conv1d(c_out, 1, 7, bias=False), {key[5:]: v for key, v in sd.items()})
+    packed = tail_cuda.pack_tail_weights(up_mod, _torch_resblocks(jrbs, c_out), post_mod, dtype)
+    out = tail_cuda.tail_stage(t(x).to(dtype), t(lengths_in * u), packed)
+    assert out.dtype == dtype and out.shape == (b, t_in * u, 1 if last else c_out)
+    # activations are exactly 0 past the length; the audio only past conv_post's
+    # reach beyond it, in the Pallas kernel as here
+    assert bool((out[1, lengths_in[1] * u + (3 if last else 0):] == 0).all())
+    if dtype == torch.float32:
+        _close_f32(out, ref, 1e-4, 1e-4)
+    else:
+        _close_bf16(out, ref)
+
+
+# -- the kernels' weight layout ------------------------------------------------
+
+def test_fragment_layout_places_every_element_on_its_lane():
+    w = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 32, 24)).astype(np.float32))
+    frag = _frag.pack_frag(w)
+    assert frag.shape == (3, 2, 3, 32, 4) and frag.dtype == torch.bfloat16 and frag.is_contiguous()
+    # lane l = 4·g + t of k-tile kt, column tile nt holds W[16kt + 2t + {0, 1, 8, 9}, 8nt + g]
+    wb = w.to(torch.bfloat16)
+    for kt in range(2):
+        for nt in range(3):
+            for lane in range(32):
+                g, tq = lane // 4, lane % 4
+                rows = [16 * kt + 2 * tq + d for d in (0, 1, 8, 9)]
+                assert torch.equal(frag[:, kt, nt, lane], wb[:, rows, 8 * nt + g])
+    assert _frag.maybe_frag(torch.zeros(24, 8)) is None

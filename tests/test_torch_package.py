@@ -1,15 +1,23 @@
 """The PyTorch port's package rules: it imports neither JAX nor the JAX
-package, it never hides the device (no silent CPU path), and it refuses the
-serving mode whose kernels are not ported yet."""
+package, it never hides the device (no silent CPU path), its kernel wrappers
+raise on what their kernels do not take instead of falling back, and a
+kernel's library is rebuilt when a header it shares changes."""
 
 import ast
 import pathlib
+import shutil
 
 import numpy as np
 import pytest
 import torch
 
 from openvoice_tpu_torch.api import ToneColorConverter
+from openvoice_tpu_torch.models import synthesizer as S
+from openvoice_tpu_torch.nn.conv import conv1d, conv_transpose1d
+from openvoice_tpu_torch.nn.flows import ResidualCouplingBlock
+from openvoice_tpu_torch.nn.hifigan import ResBlock1
+from openvoice_tpu_torch.nn.wavenet import WN
+from openvoice_tpu_torch.ops import _nvcc, coupling_cuda, mrf_cuda, stft_cuda, tail_cuda, wn_cuda
 from tests._torch_port import TINY, torch_cfg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -41,7 +49,85 @@ def test_converter_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 def test_serving_mode_is_refused_until_its_kernels_exist():
+    """The kernels exist now, so the serving mode runs (on the CPU through
+    their plain versions); what is still refused is the graph's fast mode
+    without its packed weights."""
     tc = ToneColorConverter(cfg=torch_cfg(TINY), device="cpu")
     tc.init_random(0)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        tc.convert(np.zeros(4000, np.float32), np.zeros(64), np.zeros(64), fast=True)
+    out = tc.convert(np.zeros(4000, np.float32), np.zeros(64), np.zeros(64), fast=True, message="")
+    assert out.dtype == np.float32 and np.isfinite(out).all() and len(out) > 0
+    with pytest.raises(ValueError, match="make_dec_cache"):
+        S.voice_conversion(tc.model, torch.zeros(1, 8, 129), torch.tensor([8]), torch.zeros(1, 1, 64),
+                           torch.zeros(1, 1, 64), 0.3, torch.zeros(1, 8, 64), fast=True)
+
+
+def _wn_call():
+    wn = WN(16, 5, 2, 0).eval()
+    return wn_cuda.wn_stack, wn_cuda.stack_wn_params(wn, torch.float32), (2, 12, 16), (torch.zeros(2, 2, 32),)
+
+
+def _coupling_call():
+    flow = ResidualCouplingBlock(16, 16, 5, 2, 2, 0).eval()
+    packed = coupling_cuda.pack_coupling_block(flow, reverse=False, dtype=torch.float32)
+    return coupling_cuda.coupling_block, packed, (2, 12, 16), (torch.zeros(2, 2, 2, 32),)
+
+
+def _mrf_call():
+    packed = mrf_cuda.pack_stage_weights([ResBlock1(16, 3, (1, 3)).eval()], torch.float32)
+    return mrf_cuda.mrf_stage, packed, (2, 12, 16), ()
+
+
+def _tail_call():
+    packed = tail_cuda.pack_tail_weights(conv_transpose1d(32, 16, 4, 2).eval(), [ResBlock1(16, 3, (1, 3)).eval()],
+                                         conv1d(16, 1, 7, bias=False).eval(), torch.float32)
+    return tail_cuda.tail_stage, packed, (2, 12, 32), ()
+
+
+@pytest.mark.parametrize("make", [_wn_call, _coupling_call, _mrf_call, _tail_call],
+                         ids=["wn_stack", "coupling_block", "mrf_stage", "tail_stage"])
+@torch.inference_mode()
+def test_kernel_wrappers_raise_instead_of_falling_back(make):
+    fn, packed, shape, extra = make()
+    lengths = torch.tensor([shape[1], shape[1] - 3])
+    good = torch.randn(shape)
+    assert torch.isfinite(fn(good, lengths, packed, *extra)).all()
+    with pytest.raises(TypeError, match="must agree"):           # not the packed weights' dtype
+        fn(good.to(torch.float64), lengths, packed, *extra)
+    with pytest.raises(TypeError, match="must agree"):
+        fn(good.to(torch.bfloat16), lengths, packed, *extra)
+    strided = torch.randn(shape[0], shape[2], shape[1]).transpose(1, 2)
+    assert strided.shape == good.shape and not strided.is_contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(strided, lengths, packed, *extra)
+    with pytest.raises(ValueError):
+        fn(good[0], lengths, packed, *extra)                      # not [B, T, C]
+
+
+def test_stft_wrapper_raises_instead_of_falling_back():
+    audio = torch.zeros(1, 2048)
+    with pytest.raises(TypeError, match="float32"):
+        stft_cuda.stft_magnitude(audio.double(), 1024, 256, 1024)
+    with pytest.raises(ValueError, match="contiguous"):
+        stft_cuda.stft_magnitude(torch.zeros(2048, 2).t()[:1], 1024, 256, 1024)
+
+
+def test_library_path_changes_when_a_shared_header_changes(tmp_path, monkeypatch):
+    """K1/K2 and K3/K4 share device code in headers: the library's name must
+    follow them, or a stale build would load silently."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_nvcc.CSRC, csrc, ignore=shutil.ignore_patterns("build"))
+    monkeypatch.setattr(_nvcc, "CSRC", csrc)
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", csrc / "build")
+    names = _nvcc.kernel_names()
+    assert {"stft", "wn", "coupling", "mrf", "tail"} <= set(names)
+    before = {name: _nvcc.library_path(name) for name in names}
+    assert before == {name: _nvcc.library_path(name) for name in names}
+    assert len(set(before.values())) == len(names)
+    header = csrc / "mma_tile.cuh"
+    header.write_text(header.read_text() + "\n// changed\n")
+    after = {name: _nvcc.library_path(name) for name in names}
+    assert all(after[name] != before[name] for name in ("wn", "coupling", "mrf", "tail"))
+    # a library left in build/ does not count as a source
+    (csrc / "build").mkdir()
+    (csrc / "build" / "libwn-0.so").write_bytes(b"x")
+    assert after == {name: _nvcc.library_path(name) for name in names}
