@@ -2,7 +2,9 @@
 """Smoke run of the PyTorch port (``openvoice_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one NVIDIA H100
-    python3 chip_smoke.py --sweep  # instead: time K1-K4 over tile sizes and warps
+    python3 chip_smoke.py --sweep [wn coupling mrf tail]
+                                   # instead: time K1-K4 (or those named) over
+                                   # tile sizes, warps and K3's ring depth
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -207,6 +209,16 @@ def stft_check(name: str) -> dict:
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"{label}: bad output")
         check(err <= STFT_TOL and host_err <= STFT_TOL, f"{label}: kernel disagrees with its plain version")
         max_err = max(max_err, err)
+    # the kernel has an FFT for n_fft 1024 only: another size must raise on the
+    # card, not fall back to the plain version
+    before = stft_cuda.launches
+    try:
+        stft_cuda.stft_magnitude(cases[0][1], 512, 128, 512)
+    except ValueError as e:
+        print(f"n_fft 512 on the card raises: {e}")
+    else:
+        raise SmokeFailure("an n_fft without an FFT in the kernel did not raise")
+    check(stft_cuda.launches == before, "a refused n_fft launched the kernel")
 
     x = cases[0][1]  # the convert path's shape is the one timed
     b, length = x.shape
@@ -223,13 +235,16 @@ def stft_check(name: str) -> dict:
     plain_ms = time_ms(lambda: stft_magnitude_plain(x, 1024, 256, 1024))
     library_ms = time_ms(library)
     flop_rate, _, byte_rate = card_peaks(name)
-    ops = 2 * b * frames * 1024 * 2 * n_freq + 5 * b * frames * n_freq
-    nbytes = 4 * (b * length + 1024 * 2 * n_freq + b * frames * n_freq)
+    # the function's least work: a real FFT a frame and the magnitudes; the
+    # audio in, the bins out, the window and the twiddles once
+    ops = b * frames * (2.5 * 1024 * math.log2(1024) + 5 * n_freq)
+    window_, twiddle, w32 = stft_cuda.fft_tables(1024, 1024)
+    nbytes = 4 * (b * length + b * frames * n_freq) + window_.nbytes + twiddle.nbytes + w32.nbytes
     op_ms, byte_ms = ops / flop_rate * 1e3, nbytes / byte_rate * 1e3
     bound_ms = max(op_ms, byte_ms)
     print(f"[{b}, {length}] → [{b}, {frames}, {n_freq}]: kernel {ms:.4f} ms ({hot_ms:.4f} with a hot L2)  "
           f"plain {plain_ms:.4f} ms  torch.stft {library_ms:.4f} ms (max diff {lib_err:.2e})")
-    print(f"bound {bound_ms:.4f} ms = max({ops / 1e9:.3f} GFLOP at {flop_rate / 1e12:.1f} TFLOP/s fp32, "
+    print(f"bound {bound_ms:.5f} ms = max({ops / 1e9:.4f} GFLOP at {flop_rate / 1e12:.1f} TFLOP/s fp32, "
           f"{nbytes / 1e6:.2f} MB at {byte_rate / 1e12:.2f} TB/s); kernel at "
           f"{ops / ms / 1e9:.2f} TFLOP/s, {100 * bound_ms / ms:.1f}% of bound")
     return {
@@ -536,41 +551,78 @@ def print_windows() -> None:
              f"({rows / tile:.2f}x recomputation)"
              for (kernel, *sizes, halo, want, _multiples), (rows, tile) in _frag.chosen_windows().items()}
     print("\n".join(sorted(lines)))
+    from openvoice_tpu_torch.ops import mrf_cuda
+
+    print("K3 weight ring (slabs of 32·C bytes): " + ", ".join(
+        f"C={c} {rows} rows: {n} stages" for (c, rows), n in sorted(mrf_cuda.chosen_stages().items())))
 
 
-def sweep(kind: str) -> None:
-    """Time K1-K4 at the main path's shapes over the two knobs their wrappers
-    have, the rows a block keeps and its threads.  Each variant goes through
-    the kernel's whole check, so a variant that disagrees with the plain
-    version fails the run.  The wrappers' defaults were chosen from this
-    table."""
+def sweep(kind: str, only: list[str]) -> None:
+    """Time K1-K4 at the main path's shapes over the knobs their wrappers
+    have: the rows a block keeps and its threads, and the weight-ring slabs
+    K3's window leaves room for (more slabs, fewer rows).  Each variant goes
+    through the kernel's whole check, so a variant that disagrees with the
+    plain version fails the run.  The wrappers' defaults were chosen from
+    this table."""
     import importlib
 
     import torch
 
+    def knobs(pairs):
+        return [{"_TILE_TARGET": tile, "_THREADS": th} for tile, th in pairs]
+
     grids = [
-        (wn_check, "wn_cuda", [(tile, th) for tile in (16, 32, 64) for th in (256, 384, 512)]),
-        (coupling_check, "coupling_cuda", [(tile, th) for tile in (16, 32) for th in (256, 384, 512)]),
-        (mrf_check, "mrf_cuda", [(tile, th) for tile in (128, 256, 4096) for th in (256, 384, 512)]),
-        (tail_check, "tail_cuda", [(tile, th) for tile in (128, 256, 4096) for th in (256, 384, 512)]),
+        (wn_check, "wn_cuda", knobs((tile, th) for tile in (16, 32, 64) for th in (256, 384, 512))),
+        (coupling_check, "coupling_cuda", knobs((tile, th) for tile in (16, 32) for th in (256, 384, 512))),
+        (mrf_check, "mrf_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384))
+         + [{"_RING_RESERVE": n} for n in (3, 4, 6, 8)]),
+        (tail_check, "tail_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384, 512))),
     ]
+    if only:
+        grids = [grid for grid in grids if grid[1].removesuffix("_cuda") in only]
+        check(bool(grids), f"--sweep takes kernels among wn coupling mrf tail, not {only}")
     table = []
     for fn, module, variants in grids:
         mod = importlib.import_module(f"openvoice_tpu_torch.ops.{module}")
-        default = (mod._TILE_TARGET, mod._THREADS)
-        for tile, threads in variants:
-            mod._TILE_TARGET, mod._THREADS = tile, threads
+        default = {k: getattr(mod, k) for v in variants for k in v}
+        for variant in variants:
+            for k, v in {**default, **variant}.items():
+                setattr(mod, k, v)
             gen = torch.Generator().manual_seed(SEED + 2)  # the same inputs for every variant
             entry = fn(kind, gen)
-            table.append((entry["name"], tile, threads, entry["ms"], entry.get("stage_ms", []),
-                          entry["stock_bf16_ms"], (tile, threads) == default))
-        mod._TILE_TARGET, mod._THREADS = default
+            table.append((entry["name"], {**default, **variant}, entry["ms"], entry.get("stage_ms", []),
+                          entry["stock_bf16_ms"], {**default, **variant} == default))
+        for k, v in default.items():
+            setattr(mod, k, v)
+    if not only or "mrf" in only:
+        mrf_one_tile()
     phase("sweep: kernel ms at the convert shapes (K2 both directions, K3 and K4 both stages)")
-    for name, tile, threads, ms, stage_ms, stock_ms, is_default in table:
+    for name, knob, ms, stage_ms, stock_ms, is_default in table:
         stages = f" = {' + '.join(f'{t:.4f}' for t in stage_ms)}" if stage_ms else ""
-        print(f"  {name:15s} tile target {tile:5d}  threads {threads:4d}: {ms:8.4f} ms{stages}  "
+        setting = "  ".join(f"{k.strip('_').lower()} {v}" for k, v in knob.items())
+        print(f"  {name:15s} {setting}: {ms:8.4f} ms{stages}  "
               f"(stock bf16 layers {stock_ms:.4f} ms){'  <- default' if is_default else ''}")
     print_windows()
+
+
+def mrf_one_tile() -> None:
+    """K3 on one block's tile against the whole convert shape (114 and 249
+    blocks that share the L2): when one block alone takes as long as the
+    grid, blocks do not contend for L2 and the time is in each block's own
+    path."""
+    import torch
+
+    from openvoice_tpu_torch.ops import mrf_cuda
+
+    phase("sweep: K3 on one tile and on the convert shape")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    for c, t_full in [(256, BUCKET * 8), (128, BUCKET * 64)]:
+        packed = mrf_cuda.pack_stage_weights(list(resblocks(c, gen)))
+        one = mrf_cuda.launch_plan(c, t_full, packed["kernel_sizes"], packed["dilation_sizes"])[1]
+        for t in (one, t_full):
+            x, lens = rand_bf16(gen, 1, t, c), lens_on_card([t])
+            ms = time_ms(lambda: mrf_cuda.mrf_stage(x, lens, packed), 10)
+            print(f"  K3 C={c} T={t:6d} ({-(-t // one)} blocks): {ms:.4f} ms")
 
 
 def voice(seconds: float, f0: float, seed: int) -> np.ndarray:
@@ -864,9 +916,9 @@ def main() -> int:
 
     smi, kind = toolchain()
     build()
-    if sys.argv[1:] == ["--sweep"]:
+    if sys.argv[1:2] == ["--sweep"]:
         with torch.inference_mode():
-            sweep(kind)
+            sweep(kind, sys.argv[2:])
         print(smi)
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")

@@ -7,7 +7,7 @@ reflect-pad ``(n_fft - hop)/2`` each side, periodic Hann window,
 The spectrogram is a framed product with a windowed real-DFT basis, as in the
 JAX package (``openvoice_tpu/audio/stft.py``).  `stft_magnitude_plain` is
 the plain PyTorch version of that product; on the GPU the same function runs
-as the hand-written kernel in ``openvoice_tpu_torch/csrc/stft.cu``, reached
+as the hand-written FFT kernel in ``openvoice_tpu_torch/csrc/stft.cu``, reached
 through `openvoice_tpu_torch.ops.stft_cuda.stft_magnitude`.  All in float32.
 """
 
@@ -33,15 +33,20 @@ def stft_basis(n_fft: int, win_length: int) -> np.ndarray:
     n = np.arange(n_fft)[:, None].astype(np.float64)
     k = np.arange(n_freq)[None, :].astype(np.float64)
     ang = 2.0 * np.pi * n * k / n_fft
-    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
-    if win_length < n_fft:
-        pad_l = (n_fft - win_length) // 2
-        w = np.zeros(n_fft)
-        w[pad_l : pad_l + win_length] = win
-    else:
-        w = win
-    basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1) * w[:, None]
+    basis = np.concatenate([np.cos(ang), -np.sin(ang)], axis=1) * stft_window(n_fft, win_length)[:, None]
     return basis.astype(np.float32)
+
+
+def stft_window(n_fft: int, win_length: int) -> np.ndarray:
+    """The periodic Hann window of `stft_basis` in float64, [n_fft]:
+    zero-padded and centred when win_length < n_fft."""
+    win = 0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(win_length) / win_length)
+    if win_length == n_fft:
+        return win
+    pad_l = (n_fft - win_length) // 2
+    w = np.zeros(n_fft)
+    w[pad_l : pad_l + win_length] = win
+    return w
 
 
 def _reflect_pad_1d(y: torch.Tensor, pad: int) -> torch.Tensor:

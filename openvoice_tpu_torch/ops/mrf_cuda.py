@@ -25,21 +25,92 @@ launches = 0
 LRELU_SLOPE = 0.1
 MAX_BRANCHES = 4   # MAX_BRANCHES / MAX_PAIRS in csrc/mrf_branch.cuh
 MAX_PAIRS = 4
-# 16 warps: the kernel waits on latency, and more warps hid more of it on one
-# H100 (``python3 chip_smoke.py --sweep`` times 8, 12 and 16 warps at the V2
-# stages of a 10 s clip)
-_THREADS = 512
+# 12 warps of two output tiles each, the most the kernel's registers allow
+# (MAX_THREADS in csrc/mrf.cu); 8 warps were slower on one H100
+# (``python3 chip_smoke.py --sweep mrf`` times both)
+_THREADS = 384
 # samples a block keeps: as many as shared memory holds beside the halo it
 # recomputes (the window search stops at what fits); smaller tiles were no
 # faster in the same sweep
 _TILE_TARGET = 4096
+_CHUNK_ROWS = 16   # CHUNK_ROWS in csrc/mrf.cu
+# slabs of the weight ring (32·C bytes each): the window is the largest that
+# fits beside a ring of _RING_RESERVE slabs, and the ring then takes as many
+# slabs as fit beside the window, up to MAX_STAGES.  ``python3 chip_smoke.py
+# --sweep mrf`` trades ring slabs against window rows; the least ring (2, a
+# slab read while the next lands) kept the largest window and won.
+_RING_RESERVE = 2
+_MAX_STAGES = 16   # MAX_STAGES in csrc/mrf.cu
+# launch plans, kept per sizes and knobs (`launch_plan`)
+_PLANS: dict[tuple, tuple] = {}
+
+
+def conv_reaches(kernel_size: int, dilations) -> list[int]:
+    """How far each conv of one branch reads a side, in execution order
+    (per dilation d: the dilated conv (k−1)/2·d, then the second conv (k−1)/2)."""
+    h = (kernel_size - 1) // 2
+    return [r for d in dilations for r in (h * d, h)]
 
 
 def stage_halo(kernel_sizes, dilation_sizes) -> int:
-    """The deepest branch's reach in samples a side: over its conv pairs, the
-    sum of (k−1)/2·d (dilated conv) + (k−1)/2 (second conv)."""
-    return max(sum((k - 1) // 2 * d + (k - 1) // 2 for d in dils)
-               for k, dils in zip(kernel_sizes, dilation_sizes))
+    """The deepest branch's reach in samples a side: the sum of its convs'."""
+    return max(sum(conv_reaches(k, dils)) for k, dils in zip(kernel_sizes, dilation_sizes))
+
+
+def conv_ranges(kernel_sizes, dilation_sizes, halo: int, tile: int) -> list[tuple[int, int]]:
+    """The window rows [lo, hi) on which each conv's output is still read,
+    in execution order: the kept rows [halo, halo + tile) widened a side by
+    the reaches of the convs after it in its branch.  The least that
+    suffices: a row fewer on either side and a kept row goes wrong."""
+    ranges = []
+    for k, dils in zip(kernel_sizes, dilation_sizes):
+        reach = conv_reaches(k, dils)
+        for j in range(len(reach)):
+            wide = sum(reach[j + 1:])
+            ranges.append((halo - wide, halo + tile + wide))
+    return ranges
+
+
+def conv_chunks(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int) -> list[tuple[int, int]]:
+    """`conv_ranges` as the kernel computes them: (first, count) 16-row
+    chunks (one m16 tile) that cover each range, with an even count (a warp
+    tile is two chunks), inside the window's rows // 16 chunks."""
+    n_chunks = rows // _CHUNK_ROWS
+    out = []
+    for lo, hi in conv_ranges(kernel_sizes, dilation_sizes, halo, tile):
+        first, end = lo // _CHUNK_ROWS, -(-hi // _CHUNK_ROWS)
+        if (end - first) % 2:
+            end, first = (end + 1, first) if end < n_chunks else (end, first - 1)
+        if first < 0 or end > n_chunks:
+            raise ValueError(f"rows [{lo}, {hi}) do not fit a {rows}-row window")
+        out.append((first, end - first))
+    return out
+
+
+def launch_plan(c: int, t: int, kernel_sizes, dilation_sizes) -> tuple:
+    """(rows, tile, stages, chunks) of a launch at C channels and T samples:
+    the largest window (up to `_TILE_TARGET` kept rows) that fits beside a
+    ring of `_RING_RESERVE` slabs, then as many slabs as fit beside it, up to
+    `_MAX_STAGES`, and `conv_chunks` of that window as the kernel's ctypes
+    array.  Computed once per sizes and knobs."""
+    key = (c, min(_TILE_TARGET, max(t, 1)), kernel_sizes, dilation_sizes, _RING_RESERVE, _TILE_TARGET)
+    if key not in _PLANS:
+        lib = _library()
+        reserve = _RING_RESERVE
+        halo = stage_halo(kernel_sizes, dilation_sizes)
+        rows, tile = _frag.window(("mrf", c, reserve), halo, t, _TILE_TARGET,
+                                  lambda r, tl: lib.mrf_stage_smem_bytes(c, r, reserve))
+        stages = reserve
+        while stages < _MAX_STAGES and lib.mrf_stage_smem_bytes(c, rows, stages + 1) <= _frag.SMEM_MAX:
+            stages += 1
+        chunks = [v for rng in conv_chunks(kernel_sizes, dilation_sizes, halo, tile, rows) for v in rng]
+        _PLANS[key] = (rows, tile, stages, (ctypes.c_int * len(chunks))(*chunks))
+    return _PLANS[key]
+
+
+def chosen_stages() -> dict[tuple[int, int], int]:
+    """The ring depth of each (C, window rows) planned so far."""
+    return {(key[0], rows): stages for key, (rows, _tile, stages, _chunks) in _PLANS.items()}
 
 
 def pack_stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -142,10 +213,10 @@ def check_stage_cuda(packed: dict, c: int, device: torch.device):
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("mrf")
     lib.mrf_stage_bf16.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.mrf_stage_bf16.restype = ctypes.c_int
-    lib.mrf_stage_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.mrf_stage_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.mrf_stage_smem_bytes.restype = ctypes.c_int
     return lib
 
@@ -175,10 +246,7 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
     lengths = _frag.check_lengths(lengths, batch, x.device)
 
     lib = _library()
-    halo = stage_halo(packed["kernel_sizes"], packed["dilation_sizes"])
-    rows, tile = _frag.window(("mrf", c), halo, t, _TILE_TARGET,
-                              lambda r, tl: lib.mrf_stage_smem_bytes(c, r),
-                              multiples=(_frag.even_rows(c, _THREADS), _frag.TILE_ROWS))
+    rows, tile, stages, chunks = launch_plan(c, t, packed["kernel_sizes"], packed["dilation_sizes"])
     out = torch.empty_like(x)
     # where the finished branches' outputs wait for the last one, a tile a block
     scratch = torch.empty(batch * -(-t // tile) * (len(packed["kernel_sizes"]) - 1) * tile * c,
@@ -187,7 +255,7 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
         x.data_ptr(), lengths.data_ptr(), packed["w_frag"].data_ptr(), packed["b"].data_ptr(),
         out.data_ptr(), scratch.data_ptr(), batch, t, c,
         len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils,
-        rows, tile, _THREADS, x.device.index or 0,
+        chunks, rows, tile, stages, _THREADS, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

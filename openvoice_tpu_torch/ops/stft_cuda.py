@@ -1,11 +1,13 @@
-"""K5: the magnitude STFT as a hand-written CUDA kernel (``csrc/stft.cu``).
+"""K5: the magnitude STFT as a hand-written CUDA kernel (``csrc/stft.cu``),
+a four-step FFT with one warp per frame.
 
 Replaces ``openvoice_tpu/ops/stft_pallas.py::stft_magnitude_pallas``.  The
 wrapper takes pre-reflect-padded audio [B, L] and returns magnitudes
 [B, frames, n_fft//2+1], all float32.  A CUDA tensor goes to the kernel; a
 CPU tensor goes to the plain version
 (`openvoice_tpu_torch.audio.stft.stft_magnitude_plain`).  Nothing falls back:
-a failed build or launch raises.
+a failed build or launch raises, and so does an n_fft the kernel has no FFT
+for (it takes 1024 = 32 × 32, the size of every shipped configuration).
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
 launched and nowhere else.
@@ -15,35 +17,62 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
-from openvoice_tpu_torch.audio.stft import stft_basis, stft_magnitude_plain
+from openvoice_tpu_torch.audio.stft import stft_magnitude_plain, stft_window
 from openvoice_tpu_torch.ops import _nvcc
 
 launches = 0
 
-_BASIS: dict[tuple[int, int, torch.device], torch.Tensor] = {}
-_FRAMES_PER_BLOCK = 64  # BM in csrc/stft.cu
-_GRID_MAX_YZ = 65535
+RADIX = 32                     # RADIX in csrc/stft.cu: the kernel's n_fft is RADIX²
+FFT_SIZES = (RADIX * RADIX,)   # the n_fft values the kernel takes
+_GRID_MAX_Y = 65535
+
+_TABLES: dict[tuple[int, int, torch.device], tuple[torch.Tensor, torch.Tensor, ctypes.Array]] = {}
 
 
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("stft")
     fn = lib.stft_magnitude_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p
-    ]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
 
-def _device_basis(n_fft: int, win: int, device: torch.device) -> torch.Tensor:
+def fft_tables(n_fft: int, win: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """What the kernel reads beside the audio, computed in float64 and
+    rounded once to float32:
+
+      window  [n_fft]          the window of `stft_basis`
+      twiddle [32, 32, 2]      (k2, n1) → exp(−2πi·n1·k2 / n_fft) as (re, im)
+      w32     [2, 16]          exp(−2πi·j / 32), j = 0..15: real, imaginary
+    """
+    check_fft_size(n_fft)
+    k2, n1 = np.meshgrid(np.arange(RADIX), np.arange(RADIX), indexing="ij")
+    ang = -2.0 * np.pi * n1 * k2 / n_fft
+    twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    j = -2.0 * np.pi * np.arange(RADIX // 2) / RADIX
+    w32 = np.stack([np.cos(j), np.sin(j)])
+    return (stft_window(n_fft, win).astype(np.float32), twiddle.astype(np.float32),
+            w32.astype(np.float32))
+
+
+def check_fft_size(n_fft: int) -> None:
+    """The kernel computes only the FFT sizes in `FFT_SIZES`."""
+    if n_fft not in FFT_SIZES:
+        raise ValueError(f"the STFT kernel takes n_fft in {FFT_SIZES}, not n_fft={n_fft}")
+
+
+def _device_tables(n_fft: int, win: int, device: torch.device):
     key = (n_fft, win, device)
-    basis = _BASIS.get(key)
-    if basis is None:
-        basis = torch.from_numpy(stft_basis(n_fft, win)).to(device)
-        _BASIS[key] = basis
-    return basis
+    tables = _TABLES.get(key)
+    if tables is None:
+        window, twiddle, w32 = fft_tables(n_fft, win)
+        tables = (torch.from_numpy(window).to(device), torch.from_numpy(twiddle).to(device),
+                  (ctypes.c_float * w32.size)(*w32.ravel().tolist()))
+        _TABLES[key] = tables
+    return tables
 
 
 def stft_magnitude(padded_audio: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.Tensor:
@@ -66,19 +95,19 @@ def stft_magnitude(padded_audio: torch.Tensor, n_fft: int, hop: int, win: int) -
     if padded_audio.device.type != "cuda":
         raise ValueError(f"stft_magnitude runs on cuda or cpu, not {padded_audio.device}")
 
+    check_fft_size(n_fft)
     frames = (length - n_fft) // hop + 1
-    n_freq = n_fft // 2 + 1
     # the kernel takes int sizes and offsets in 64 bits; the grid is
-    # (bin tiles, frame tiles, batch)
-    if length >= 2**31 or batch > _GRID_MAX_YZ or frames > _FRAMES_PER_BLOCK * _GRID_MAX_YZ:
+    # (frame groups, batch)
+    if length >= 2**31 or batch > _GRID_MAX_Y:
         raise ValueError(f"audio [{batch}, {length}] exceeds the kernel's launch grid")
     device = padded_audio.device
-    basis = _device_basis(n_fft, win, device)
-    out = torch.empty((batch, frames, n_freq), dtype=torch.float32, device=device)
+    window, twiddle, w32 = _device_tables(n_fft, win, device)
+    out = torch.empty((batch, frames, n_fft // 2 + 1), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _library().stft_magnitude_f32(
-        padded_audio.data_ptr(), basis.data_ptr(), out.data_ptr(),
-        batch, length, frames, n_fft, hop, n_freq, device.index or 0, stream,
+        padded_audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(), ctypes.addressof(w32),
+        out.data_ptr(), batch, length, frames, n_fft, hop, device.index or 0, stream,
     )
     if err != 0:
         raise RuntimeError(f"stft kernel launch failed with CUDA error {err}")

@@ -230,6 +230,103 @@ def test_mrf_stage_matches_pallas(c, t_len, dtype):
         _close_bf16(out, ref)
 
 
+def _window_model(x, length, packed, pos0, rows, ranges, dt):
+    """One K3 block's window in plain torch: x [T, C] (values of `dt`), the
+    window rows pos0 .. pos0 + rows, conv j computed only on its window rows
+    ranges[j] = [lo, hi) and NaN on every other row (where the kernel leaves
+    stale values), zeros read past the window's edges as from the kernel's
+    zero row.  Returns the mean of the branches on every window row."""
+    t_len, c = x.shape
+    pos = pos0 + torch.arange(rows)
+    live = ((pos >= 0) & (pos < length)).float()[:, None]
+    x0 = torch.zeros(rows, c)
+    inside = (pos >= 0) & (pos < t_len)
+    x0[inside] = x[pos[inside]].float()
+    x0 = x0 * live
+    w, b = packed["w"], packed["b"]
+    acc = torch.zeros(rows, c)
+    tap = conv = 0
+
+    def run(operand, taps, bias, d, rng, epilogue):
+        y = mrf_cuda._conv_plain(operand[None], taps, bias, d)[0]
+        out = torch.full((rows, c), float("nan"))
+        lo, hi = rng
+        out[lo:hi] = epilogue(y[lo:hi], slice(lo, hi))
+        return out
+
+    for k, dils in zip(packed["kernel_sizes"], packed["dilation_sizes"]):
+        xb = x0
+        for d in dils:
+            a = mrf_cuda.lrelu_plain(xb, mrf_cuda.LRELU_SLOPE, dt) * live
+            xt = run(a, w[tap:tap + k], b[conv], d, ranges[conv], lambda y, r: torch.where(
+                live[r] > 0, mrf_cuda.lrelu_plain(y.to(dt).float(), mrf_cuda.LRELU_SLOPE, dt), 0.0))
+            xb = run(xt, w[tap + k:tap + 2 * k], b[conv + 1], 1, ranges[conv + 1], lambda y, r, xb=xb: torch.where(
+                live[r] > 0, (xb[r] + y.to(dt).float()).to(dt).float(), 0.0))
+            tap += 2 * k
+            conv += 2
+        acc = acc + xb * live
+    return acc / len(packed["kernel_sizes"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@torch.inference_mode()
+def test_mrf_trimmed_rows_keep_the_stage(dtype):
+    """K3 computes each conv only on the rows `mrf_cuda.conv_ranges` gives
+    (the kept tile widened by the reaches of the convs after it).  A window
+    computed so, with NaN on every other row, keeps its tile finite and equal
+    to `mrf_stage_plain` (and so to the Pallas kernel), and each range is
+    the least that suffices: a row fewer on either side reaches the tile."""
+    c, t_len, length, tile = 16, 700, 650, 40
+    rng = np.random.default_rng(16)
+    jrbs = _random_resblocks(rng, c)
+    x = (rng.standard_normal((1, t_len, c)) * 0.5).astype(np.float32)
+    halo = mrf_cuda.stage_halo(KS, DILS)
+    rows = tile + 2 * halo
+    ranges = mrf_cuda.conv_ranges(KS, DILS, halo, tile)
+    assert len(ranges) == 18 and ranges[-1] == (halo, halo + tile) and ranges[12] == (5, rows - 5)
+
+    jdt = JDT[dtype]
+    w_all, b_all, _ = jmrf.pack_stage_weights(jrbs, KS, DILS, dtype=jdt)
+    pallas = jmrf.fused_mrf_stage(jnp.asarray(x, jdt), jnp.asarray([length], np.int32), w_all, b_all,
+                                  kernel_sizes=KS, dilation_sizes=DILS, interpret=True)
+    packed = mrf_cuda.pack_stage_weights(_torch_resblocks(jrbs, c), dtype)
+    xt = t(x).to(dtype)
+    plain = mrf_cuda.mrf_stage_plain(xt, t(np.asarray([length])), packed)
+    close = (lambda o, r: _close_f32(o, r, 1e-4, 1e-4)) if dtype == torch.float32 else _close_bf16
+    close(plain, pallas)
+
+    # windows at the clip's start, inside it, and across its length and end
+    for pos0 in (-halo, 100, length - halo - tile // 2, t_len - halo - tile // 2):
+        got = _window_model(xt[0], length, packed, pos0, rows, ranges, dtype)[halo:halo + tile]
+        n = min(tile, t_len - pos0 - halo)
+        assert bool(torch.isfinite(got).all())
+        close(got[:n].to(dtype), plain[0, pos0 + halo:pos0 + halo + n].float().numpy())
+
+    # a fully live window: shrinking any conv's range by one row spoils the tile
+    pos0 = 100
+    for j, (lo, hi) in enumerate(ranges):
+        for shrunk in ((lo + 1, hi), (lo, hi - 1)):
+            trial = ranges[:j] + [shrunk] + ranges[j + 1:]
+            got = _window_model(xt[0], length, packed, pos0, rows, trial, dtype)[halo:halo + tile]
+            assert not bool(torch.isfinite(got).all()), (j, shrunk)
+
+
+def test_mrf_conv_chunks_cover_the_ranges():
+    """The 16-row chunks the kernel is given cover each range, with an even
+    count inside the window; at the V2 windows they issue 0.70x (C = 256) and
+    0.85x (C = 128) of the products of computing every conv on every row."""
+    halo = mrf_cuda.stage_halo(KS, DILS)
+    for rows, want in ((192, 0.70), (384, 0.85), (160, None), (128, None)):
+        tile = rows - 2 * halo
+        chunks = mrf_cuda.conv_chunks(KS, DILS, halo, tile, rows)
+        for (lo, hi), (first, count) in zip(mrf_cuda.conv_ranges(KS, DILS, halo, tile), chunks):
+            assert count % 2 == 0 and first >= 0 and (first + count) * 16 <= rows
+            assert first * 16 <= lo and hi <= (first + count) * 16
+        issued = sum(count * KS[i // 6] for i, (_, count) in enumerate(chunks))
+        if want is not None:
+            assert round(issued / (sum(KS) * 6 * rows / 16), 2) == want
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("c_in,c_out,t_in,last", [(128, 64, 301, False), (64, 32, 403, True)],
                          ids=["middle", "last"])

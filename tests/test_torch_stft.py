@@ -59,3 +59,67 @@ def test_stft_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
     with pytest.raises(err):
         stft_cuda.stft_magnitude(bad, 1024, 256, 1024)
 
+
+
+def _four_step(frames: np.ndarray, window: np.ndarray, twiddle: np.ndarray, w32: np.ndarray) -> np.ndarray:
+    """csrc/stft.cu's algorithm in numpy on its float32 tables: n = n1 + 32·n2,
+    a 32-point DFT over n2, the per-lane twiddles, a 32-point DFT over n1;
+    bin f = k2 + 32·k1.  Returns the one-sided spectrum [..., 513]."""
+    r = stft_cuda.RADIX
+    w = w32[0].astype(np.float64) + 1j * w32[1]
+    w_full = np.concatenate([w, -w])                       # W32^j for j = 0..31
+    dft32 = w_full[(np.arange(r)[:, None] * np.arange(r)[None, :]) % r]  # [k, n]
+    x = (frames * window).reshape(*frames.shape[:-1], r, r)  # [..., n2, n1]
+    y = np.einsum("kn,...nm->...km", dft32, x)             # [..., k2, n1]
+    z = y * (twiddle[..., 0] + 1j * twiddle[..., 1])        # twiddle is [k2, n1]
+    big = np.einsum("kn,...jn->...kj", dft32, z)           # [..., k1, k2]
+    return big.reshape(*frames.shape[:-1], r * r)[..., : r * r // 2 + 1]
+
+
+@pytest.mark.parametrize("win", [1024, 800])
+def test_fft_tables_give_the_spectrum(win):
+    """The tables the K5 wrapper hands the kernel, against numpy in float64:
+    the window is `stft_basis`'s, the twiddles are the roots of unity, and
+    the windowed frames give the plain version's and the Pallas kernel's
+    magnitudes through numpy.fft.rfft and through the kernel's four steps."""
+    window, twiddle, w32 = stft_cuda.fft_tables(1024, win)
+    assert window.dtype == twiddle.dtype == w32.dtype == np.float32
+    assert window.shape == (1024,) and twiddle.shape == (32, 32, 2) and w32.shape == (2, 16)
+    ref_window = np.hanning(win + 1)[:-1]
+    ref_window = np.pad(ref_window, ((1024 - win) // 2, 1024 - win - (1024 - win) // 2))
+    np.testing.assert_allclose(window, ref_window, atol=6e-8, rtol=0)
+    k2, n1 = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    roots = np.exp(-2j * np.pi * n1 * k2 / 1024)
+    np.testing.assert_allclose(twiddle[..., 0] + 1j * twiddle[..., 1], roots, atol=6e-8, rtol=0)
+    np.testing.assert_allclose(w32[0] + 1j * w32[1], np.exp(-2j * np.pi * np.arange(16) / 32), atol=6e-8, rtol=0)
+
+    rng = np.random.default_rng(win)
+    padded = _padded((rng.standard_normal((2, 7000)) * 0.3).astype(np.float32))
+    frames = tstft.frame_signal(t(padded), 1024, 256).numpy().astype(np.float64)
+    plain = tstft.stft_magnitude_plain(t(padded), 1024, 256, win).numpy()
+    pallas = np.asarray(stft_magnitude_pallas(jnp.asarray(padded), 1024, 256, win, interpret=True))
+    for spec in (np.fft.rfft(frames * window, axis=-1), _four_step(frames, window, twiddle, w32)):
+        mag = np.sqrt(np.abs(spec) ** 2 + 1e-6)
+        np.testing.assert_allclose(mag, plain, atol=1e-4)
+        np.testing.assert_allclose(mag, pallas, atol=1e-4)
+
+
+def test_fft_sizes_outside_the_kernel_are_refused():
+    for n_fft in (512, 2048, 1000):
+        with pytest.raises(ValueError, match=f"n_fft={n_fft}"):
+            stft_cuda.check_fft_size(n_fft)
+        with pytest.raises(ValueError, match=f"n_fft={n_fft}"):
+            stft_cuda.fft_tables(n_fft, n_fft)
+    stft_cuda.check_fft_size(1024)
+    # on the CPU the plain version takes any size, as the tiny configurations need
+    assert stft_cuda.stft_magnitude(torch.zeros(1, 600), 256, 64, 256).shape == (1, 6, 129)
+
+
+@pytest.mark.cuda
+def test_unsupported_n_fft_raises_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    before = stft_cuda.launches
+    with pytest.raises(ValueError, match="n_fft=512"):
+        stft_cuda.stft_magnitude(torch.zeros(1, 4096, device="cuda"), 512, 128, 512)
+    assert stft_cuda.launches == before
