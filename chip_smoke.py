@@ -4,7 +4,8 @@
     python3 chip_smoke.py          # from the repository root, one NVIDIA H100
     python3 chip_smoke.py --sweep [wn coupling mrf tail]
                                    # instead: time K1-K4 (or those named) over
-                                   # tile sizes, warps and K3's ring depth
+                                   # tile sizes, warps, K2's cluster size and
+                                   # B prefetch, and K3's ring depth
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -403,8 +404,13 @@ def coupling_check(kind: str, gen) -> dict:
         trip, peak = float((back.float() - x.float()).abs().max()), float(x.float().abs().max())
         print(f"{label} forward then reverse: max |back - x| {trip:.3e} (bar {ROUND_TRIP_TOL * peak:.3e})")
         check(trip <= ROUND_TRIP_TOL * peak, f"{label}: the flow does not invert")
-        timed = timed or (x, g, lens, g_all)
-    x, g, lens, g_all = timed
+        launch = dict(cc.last_launch)
+        print(f"{label} cluster launch: R {launch['ranks']}, rows/tile {launch['rows']}/{launch['tile']}, "
+              f"{launch['ctas']} CTAs launched, cudaOccupancyMaxActiveClusters {launch['max_clusters']} "
+              f"({cc._THREADS} threads, B {cc._B_AHEAD} k-tiles ahead)")
+        check(launch["max_clusters"] >= 1, "no cluster fits on the card")
+        timed = timed or (x, g, lens, g_all, launch)
+    x, g, lens, g_all, launch = timed
     mask = (torch.arange(BUCKET, device="cuda") < FRAMES).to(torch.bfloat16)[None, None]
     x_bct, g_t = x.transpose(1, 2).contiguous(), g.transpose(1, 2)
     stock = flow16(x_bct, mask, g_t).transpose(1, 2)
@@ -419,11 +425,12 @@ def coupling_check(kind: str, gen) -> dict:
     flop = 2 * n_flows * (wn_flop(FRAMES, n_layers, k, h) + 2.0 * FRAMES * 2 * (c // 2) * h)
     weights = numel(packed[False], ("wp", "bp", "w_in", "b_in", "w_rs", "b_rs", "wq", "bq"))
     nbytes = 2 * 2 * (FRAMES * c + BUCKET * c + g_all[False].numel() + weights)
-    return kernel_entry(
+    entry = kernel_entry(
         kind, "coupling_block", "openvoice_tpu_torch/csrc/coupling.cu",
         "openvoice_tpu/ops/coupling_pallas.py:212", max_err, time_ms(both(cc.coupling_block)),
         time_ms(both(cc.coupling_block), cold=False), time_ms(both(cc.coupling_block_plain), 5),
         time_ms(lambda: flow16(flow16(x_bct, mask, g_t), mask, g_t, reverse=True)), flop, nbytes)
+    return {**entry, "cluster": launch}
 
 
 # -- K3 / K4 -------------------------------------------------------------------
@@ -571,9 +578,16 @@ def sweep(kind: str, only: list[str]) -> None:
     def knobs(pairs):
         return [{"_TILE_TARGET": tile, "_THREADS": th} for tile, th in pairs]
 
+    # K2: cluster size × tile × threads, the cluster form alone and with B
+    # 4 k-tiles ahead (512 threads leave too few registers for that), and
+    # one unsplit launch (a cluster of one CTA) beside them
+    coupling = [{"_RANKS": r, "_TILE_TARGET": tile, "_THREADS": th, "_B_AHEAD": ahead}
+                for ahead in (0, 4) for r in (2, 4) for tile in (32, 64) for th in (288, 384, 512)
+                if th <= (384 if ahead else 512)]
+    coupling.append({"_RANKS": 1, "_TILE_TARGET": 32, "_THREADS": 512, "_B_AHEAD": 0})
     grids = [
         (wn_check, "wn_cuda", knobs((tile, th) for tile in (16, 32, 64) for th in (256, 384, 512))),
-        (coupling_check, "coupling_cuda", knobs((tile, th) for tile in (16, 32) for th in (256, 384, 512))),
+        (coupling_check, "coupling_cuda", coupling),
         (mrf_check, "mrf_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384))
          + [{"_RING_RESERVE": n} for n in (3, 4, 6, 8)]),
         (tail_check, "tail_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384, 512))),
@@ -591,16 +605,17 @@ def sweep(kind: str, only: list[str]) -> None:
             gen = torch.Generator().manual_seed(SEED + 2)  # the same inputs for every variant
             entry = fn(kind, gen)
             table.append((entry["name"], {**default, **variant}, entry["ms"], entry.get("stage_ms", []),
-                          entry["stock_bf16_ms"], {**default, **variant} == default))
+                          entry["stock_bf16_ms"], {**default, **variant} == default, entry.get("cluster")))
         for k, v in default.items():
             setattr(mod, k, v)
     if not only or "mrf" in only:
         mrf_one_tile()
     phase("sweep: kernel ms at the convert shapes (K2 both directions, K3 and K4 both stages)")
-    for name, knob, ms, stage_ms, stock_ms, is_default in table:
+    for name, knob, ms, stage_ms, stock_ms, is_default, cluster in table:
         stages = f" = {' + '.join(f'{t:.4f}' for t in stage_ms)}" if stage_ms else ""
         setting = "  ".join(f"{k.strip('_').lower()} {v}" for k, v in knob.items())
-        print(f"  {name:15s} {setting}: {ms:8.4f} ms{stages}  "
+        clusters = (f"  [{cluster['ctas']} CTAs, {cluster['max_clusters']} clusters fit]" if cluster else "")
+        print(f"  {name:15s} {setting}: {ms:8.4f} ms{stages}{clusters}  "
               f"(stock bf16 layers {stock_ms:.4f} ms){'  <- default' if is_default else ''}")
     print_windows()
 

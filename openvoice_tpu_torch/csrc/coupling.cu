@@ -12,44 +12,196 @@
 //
 // What bounds it: operations, as K1 (15 GFLOP a direction at T=1024, C=H=192,
 // S=4, L=4, K=5, against 3.7 MB of weights), in one dependent chain of
-// S*(L+2) products.
+// S*(L+2) products.  At B = 1 the chain's latency is what takes the time.
 //
-// Design: as K1, time tiles with a recomputed halo, here S*L*(K-1)/2 frames a
-// side because every step's WaveNet widens the reach.  A block holds the
-// [rows, C] state, the WaveNet's residual and gate buffers and an f32 skip
-// sum of the whole window in shared memory, which is what limits the window
-// to 96 rows at C = H = 192.
+// Design: time tiles with a recomputed halo of S*L*(K-1)/2 frames a side,
+// each tile on a cluster of R CTAs (thread-block cluster, R = 4 by default)
+// on R SMs.  Every CTA keeps its own copy of the window's bf16 buffers (the
+// [rows, C] state, the WaveNet's residual `hs` and gate output `acts`) and
+// computes a 1/R share of every product's output columns, as the host's
+// plan says (ops/coupling_cuda.py::cluster_bounds): rank r owns C-column
+// tiles [c[r], c[r+1]) of the post product and H-channel tiles [h[r], h[r+1])
+// of the pre, gate and res|skip products, for gate and res|skip those
+// channels of both halves (a gate pair's tanh and sigmoid columns, a
+// channel's res and skip columns, stay with one warp).  A warp stores its
+// finished tile into its own copy, then copies it into the peers' copies
+// through distributed shared memory, 16 bytes a lane and row, and a cluster
+// barrier (release / acquire) follows every product, so each product reads a
+// complete local copy.  A read-modify-write reads the local copy and stores
+// the same bits everywhere, so the copies stay identical.  The f32 skip sum
+// holds the CTA's own channels only; on the last layer it is final, and its
+// rounded, masked value goes to `hs`, which the post product reads (the gate
+// is the last reader of `hs` before it).  So one barrier per product: 2L + 2
+// a step.  Each warp's chain of k-tiles waits on its B fragments from L2;
+// the product loop can load them up to 4 k-tiles ahead (warp_gemm_ahead).
 
-#include "wn_layer.cuh"
+#include <cooperative_groups.h>
+
+#include "mma_tile.cuh"
 
 using namespace ovt;
+namespace cg = cooperative_groups;
 
 namespace {
 
-__global__ void __launch_bounds__(512, 1)
+constexpr int MAX_RANKS = 8;  // the largest portable cluster
+
+// The cluster's column plan: rank r owns C-column tiles [c[r], c[r + 1]) and
+// H-channel tiles [h[r], h[r + 1]).
+struct Split {
+    int c[MAX_RANKS + 1];
+    int h[MAX_RANKS + 1];
+};
+
+// Every thread of every CTA in the cluster arrives; the stores to shared
+// memory (local and remote) made before it are seen by all after it.
+__device__ __forceinline__ void cluster_barrier() {
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
+    *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(v0, v1);
+}
+
+// Copies the warp's finished tiles, rows row0 .. row0 + 32 of the 8-column
+// tiles tiles[j] of buf (tiles[j] < 0: none), from this CTA's shared memory
+// to the same place in every peer's: `mapa` finds the place in rank q's
+// shared memory, and each lane stores one row of a tile, 16 bytes, there.
+__device__ __forceinline__ void push_tiles(const bf16* buf, int ld, int row0, const int (&tiles)[NT], int ranks,
+                                           int rank) {
+    __syncwarp();  // the warp's own stores of the tiles first
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+        if (tiles[j] < 0) continue;
+        const bf16* p = buf + static_cast<size_t>(row0 + lane) * ld + tiles[j] * 8;
+        const uint4 v = *reinterpret_cast<const uint4*>(p);
+        const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+        for (int q = 0; q < ranks; ++q) {
+            if (q == rank) continue;
+            uint32_t remote;
+            asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(q));
+            asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "r"(v.x), "r"(v.y),
+                         "r"(v.z), "r"(v.w)
+                         : "memory");
+        }
+    }
+}
+
+// warp_gemm (mma_tile.cuh) over the n_taps taps of a convolution (tap i
+// reads A from row row0 + i against W[i]; the taps' fragment words follow one
+// another), with the B fragments loaded D k-tiles ahead in a ring of
+// registers: the loads of step i + D are issued right after the products of
+// step i, across tap boundaries.
+template <int D>
+__device__ __forceinline__ void warp_gemm_ahead(Acc& acc, const bf16* __restrict__ a, int lda, int a_rows,
+                                                int row0, const bf16* __restrict__ zero_row, int cin,
+                                                const uint2* __restrict__ wfrag, int n_taps, int n_tiles,
+                                                const int (&nt)[NT]) {
+    const int lane = threadIdx.x & 31;
+    const int lrow = lane & 15;
+    const int lcol = (lane >> 4) * 8;
+    const int k_tiles = cin >> 4, steps = n_taps * k_tiles;
+    const size_t step_words = static_cast<size_t>(n_tiles) * 32;
+    const uint2* wl = wfrag + lane;
+    int loaded = 0;
+    auto load = [&](uint2 (&dst)[NT]) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+            dst[j] = (loaded < steps && nt[j] >= 0) ? __ldg(wl + nt[j] * 32) : make_uint2(0u, 0u);
+        ++loaded;
+        wl += step_words;
+    };
+    const bf16* arow[MT];
+    auto rows_of = [&](int tap) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+            const int row = row0 + tap + mt * 16 + lrow;
+            arow[mt] = (row >= 0 && row < a_rows) ? a + static_cast<size_t>(row) * lda + lcol : zero_row + lcol;
+        }
+    };
+    uint2 b[D][NT];
+#pragma unroll
+    for (int d = 0; d < D; ++d) load(b[d]);
+    int tap = 0, kt = 0;
+    rows_of(0);
+    for (int i0 = 0; i0 < steps; i0 += D) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            if (i0 + d >= steps) break;
+            uint32_t af[MT][4];
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(af[mt], arow[mt] + kt * 16);
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                if (nt[j] < 0) continue;
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt) mma_16816(acc[mt][j], af[mt], b[d][j]);
+            }
+            load(b[d]);
+            if (++kt == k_tiles) {
+                kt = 0;
+                rows_of(++tap);
+            }
+        }
+    }
+}
+
+// acc += the n_taps-tap product: B loaded AHEAD k-tiles ahead, or (AHEAD 0)
+// each tap by warp_gemm as the other kernels take it.
+template <int AHEAD>
+__device__ __forceinline__ void gemm(Acc& acc, const bf16* a, int lda, int a_rows, int row0,
+                                     const bf16* zero_row, int cin, const uint2* wfrag, int n_taps, int n_tiles,
+                                     const int (&nt)[NT]) {
+    if constexpr (AHEAD > 0) {
+        warp_gemm_ahead<AHEAD>(acc, a, lda, a_rows, row0, zero_row, cin, wfrag, n_taps, n_tiles, nt);
+    } else {
+        const size_t tap_words = static_cast<size_t>(cin >> 4) * n_tiles * 32;
+        for (int i = 0; i < n_taps; ++i)
+            warp_gemm<false>(acc, a, lda, a_rows, row0 + i, zero_row, cin, wfrag + i * tap_words, n_tiles, nt,
+                             no_slope());
+    }
+}
+
+// B loaded ahead takes more registers than 512 threads leave a thread (128)
+__host__ __device__ constexpr int max_threads(int ahead) { return ahead > 0 ? 384 : 512; }
+
+template <int AHEAD>
+__global__ void __launch_bounds__(max_threads(AHEAD), 1)
 coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
                 const uint2* __restrict__ wp, const bf16* __restrict__ bp,
                 const uint2* __restrict__ w_in, const bf16* __restrict__ b_in,
                 const bf16* __restrict__ g_all, const uint2* __restrict__ w_rs,
                 const bf16* __restrict__ b_rs, const uint2* __restrict__ wq,
                 const bf16* __restrict__ bq, bf16* __restrict__ out, int t_len, int chan, int hidden,
-                int ksize, int n_layers, int n_steps, int rows, int tile) {
+                int ksize, int n_layers, int n_steps, int rows, int tile, Split split, int skip_ld) {
     extern __shared__ __align__(16) unsigned char smem[];
+    const cg::cluster_group cluster = cg::this_cluster();
+    const int ranks = static_cast<int>(cluster.num_blocks());
+    const int rank = static_cast<int>(cluster.block_rank());
     const int ldc = chan + LD_PAD, ldh = hidden + LD_PAD;
     const int ldz = max(ldc, ldh);
     bf16* zero_row = reinterpret_cast<bf16*>(smem);
     bf16* state = zero_row + ldz;
     bf16* hs = state + static_cast<size_t>(rows) * ldc;
     bf16* acts = hs + static_cast<size_t>(rows) * ldh;
-    float* skip = reinterpret_cast<float*>(acts + static_cast<size_t>(rows) * ldh);
+    float* skip = reinterpret_cast<float*>(acts + static_cast<size_t>(rows) * ldh);  // [rows][skip_ld]
 
     const int b = blockIdx.y;
     const int halo = (rows - tile) / 2;
-    const int t0 = blockIdx.x * tile;
+    const int t0 = static_cast<int>(blockIdx.x / ranks) * tile;
     const int frame0 = t0 - halo;
     const int length = min(lengths[b], t_len);
     const int tid = threadIdx.x, n_threads = blockDim.x;
+    const int warp = tid >> 5, n_warps = n_threads >> 5, lane = tid & 31;
+    const int m_chunks = rows / TILE_ROWS;
+    const int h_tiles = hidden / 8, c_tiles = chan / 8;
+    const int h0 = split.h[rank], nh = split.h[rank + 1] - h0;
+    const int c0 = split.c[rank], nc = split.c[rank + 1] - c0;
+    const int pad = (ksize - 1) / 2;
 
+    // every CTA loads the whole window into its own copy
     for (int i = tid; i < ldz; i += n_threads) zero_row[i] = __float2bfloat16_rn(0.f);
     const int vec = chan / 8;
     const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
@@ -61,61 +213,181 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
             v = *reinterpret_cast<const uint4*>(x + (static_cast<size_t>(b) * t_len + frame) * chan + c8);
         *reinterpret_cast<uint4*>(state + static_cast<size_t>(row) * ldc + c8) = v;
     }
-    __syncthreads();
+    // also: no CTA stores into a peer's shared memory before the peer runs
+    cluster_barrier();
 
-    WnWindow w;
-    w.xs = hs; w.acts = acts; w.skip = skip; w.zero_row = zero_row;
-    w.rows = rows; w.ld = ldh; w.hidden = hidden; w.ksize = ksize;
-    w.skip_row0 = 0; w.skip_rows = rows;
-    w.frame0 = frame0; w.length = length;
     auto live = [&](int row) { const int f = frame0 + row; return f >= 0 && f < length; };
-
-    const size_t pre_words = static_cast<size_t>(chan / 16) * (hidden / 8) * 32;
-    const size_t post_words = static_cast<size_t>(hidden / 16) * (chan / 8) * 32;
-    const size_t in_words = static_cast<size_t>(ksize) * (hidden / 16) * (2 * hidden / 8) * 32;
-    const size_t rs_words = static_cast<size_t>(hidden / 16) * (2 * hidden / 8) * 32;
+    const size_t pre_words = static_cast<size_t>(chan / 16) * h_tiles * 32;
+    const size_t post_words = static_cast<size_t>(hidden / 16) * c_tiles * 32;
+    const size_t tap_words = static_cast<size_t>(hidden / 16) * (2 * h_tiles) * 32;
+    const size_t in_words = static_cast<size_t>(ksize) * tap_words;
 
     for (int s = 0; s < n_steps; ++s) {
-        // pre 1x1 (flip and half-select folded into the matrix)
-        conv_rows<false>(state, ldc, rows, 0, rows / TILE_ROWS, chan, zero_row, wp + s * pre_words,
-                         hidden, 1, 0, 0, 0, 0, bp + s * hidden, no_slope(),
-              [&](int row, int col, float v0, float v1) {
-                  const bool ok = live(row);
-                  *reinterpret_cast<bf162*>(hs + static_cast<size_t>(row) * ldh + col) =
-                      __floats2bfloat162_rn(ok ? v0 : 0.f, ok ? v1 : 0.f);
-              });
-        __syncthreads();
+        // pre 1x1 (flip and half-select folded into the matrix): state -> hs
+        const int pre_groups = (nh + NT - 1) / NT;
+        for (int item = warp; item < m_chunks * pre_groups; item += n_warps) {
+            const int gi = item / m_chunks, mc = item % m_chunks;
+            int nt[NT];
+#pragma unroll
+            for (int j = 0; j < NT; ++j) nt[j] = gi * NT + j < nh ? h0 + gi * NT + j : -1;
+            Acc acc;
+            zero_acc(acc);
+            gemm<AHEAD>(acc, state, ldc, rows, mc * TILE_ROWS, zero_row, chan, wp + s * pre_words, 1, h_tiles, nt);
+            const bf16* bias = bp + s * hidden;
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                if (nt[j] < 0) continue;
+                const int col = nt[j] * 8 + (lane & 3) * 2;
+                const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        const int row = mc * TILE_ROWS + mt * 16 + (lane >> 2) + half * 8;
+                        const bool ok = live(row);
+                        store_pair(hs + static_cast<size_t>(row) * ldh + col, ok ? acc[mt][j][2 * half] + b0 : 0.f,
+                                   ok ? acc[mt][j][2 * half + 1] + b1 : 0.f);
+                    }
+            }
+            push_tiles(hs, ldh, mc * TILE_ROWS, nt, ranks, rank);
+        }
+        cluster_barrier();
+
         for (int l = 0; l < n_layers; ++l) {
             const size_t sl = static_cast<size_t>(s) * n_layers + l;
-            wn_layer(w, w_in + sl * in_words, b_in + sl * 2 * hidden,
-                     g_all + ((static_cast<size_t>(b) * n_steps + s) * n_layers + l) * 2 * hidden,
-                     w_rs + sl * rs_words, b_rs + sl * 2 * hidden, l == 0, l == n_layers - 1);
+            const bool first = l == 0, last = l == n_layers - 1;
+            const uint2* wl = w_in + sl * in_words;
+            const bf16* bl = b_in + sl * 2 * hidden;
+            const bf16* g = g_all + ((static_cast<size_t>(b) * n_steps + s) * n_layers + l) * 2 * hidden;
+
+            // dilated conv + gate: hs -> acts.  A warp tile pairs two of the
+            // rank's tanh column tiles with the sigmoid tiles of the same channels.
+            const int gate_groups = (nh + 1) / 2;
+            for (int item = warp; item < m_chunks * gate_groups; item += n_warps) {
+                const int gg = item / m_chunks, mc = item % m_chunks;
+                const int ta = h0 + 2 * gg, tb = 2 * gg + 1 < nh ? ta + 1 : -1;
+                const int nt[NT] = {ta, tb, h_tiles + ta, tb < 0 ? -1 : h_tiles + tb};
+                Acc acc;
+                zero_acc(acc);
+                gemm<AHEAD>(acc, hs, ldh, rows, mc * TILE_ROWS - pad, zero_row, hidden, wl, ksize, 2 * h_tiles, nt);
+#pragma unroll
+                for (int j = 0; j < 2; ++j) {
+                    if (nt[j] < 0) continue;
+                    const int col = nt[j] * 8 + (lane & 3) * 2;
+                    const float bt0 = __bfloat162float(bl[col]), bt1 = __bfloat162float(bl[col + 1]);
+                    const float bs0 = __bfloat162float(bl[hidden + col]), bs1 = __bfloat162float(bl[hidden + col + 1]);
+                    const float gt0 = __bfloat162float(g[col]), gt1 = __bfloat162float(g[col + 1]);
+                    const float gs0 = __bfloat162float(g[hidden + col]), gs1 = __bfloat162float(g[hidden + col + 1]);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int half = 0; half < 2; ++half) {
+                            const int row = mc * TILE_ROWS + mt * 16 + (lane >> 2) + half * 8;
+                            const float a0 = tanhf(acc[mt][j][2 * half] + bt0 + gt0) *
+                                             sigmoidf_(acc[mt][j + 2][2 * half] + bs0 + gs0);
+                            const float a1 = tanhf(acc[mt][j][2 * half + 1] + bt1 + gt1) *
+                                             sigmoidf_(acc[mt][j + 2][2 * half + 1] + bs1 + gs1);
+                            store_pair(acts + static_cast<size_t>(row) * ldh + col, a0, a1);
+                        }
+                }
+                push_tiles(acts, ldh, mc * TILE_ROWS, {ta, tb, -1, -1}, ranks, rank);
+            }
+            cluster_barrier();
+
+            // res|skip 1x1: acts -> the rank's residual channels of hs (not on
+            // the last layer, whose res half is packed as zeros) and its skip sum
+            const uint2* wr = w_rs + sl * tap_words;
+            const bf16* br = b_rs + sl * 2 * hidden;
+            const int n_own = last ? nh : 2 * nh;
+            const int rs_groups = (n_own + NT - 1) / NT;
+            for (int item = warp; item < m_chunks * rs_groups; item += n_warps) {
+                const int gi = item / m_chunks, mc = item % m_chunks;
+                int nt[NT];
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+                    const int i = gi * NT + j;
+                    nt[j] = i >= n_own ? -1 : last ? h_tiles + h0 + i : i < nh ? h0 + i : h_tiles + h0 + i - nh;
+                }
+                Acc acc;
+                zero_acc(acc);
+                gemm<AHEAD>(acc, acts, ldh, rows, mc * TILE_ROWS, zero_row, hidden, wr, 1, 2 * h_tiles, nt);
+#pragma unroll
+                for (int j = 0; j < NT; ++j) {
+                    if (nt[j] < 0) continue;
+                    const int col = nt[j] * 8 + (lane & 3) * 2;
+                    const float b0 = __bfloat162float(br[col]), b1 = __bfloat162float(br[col + 1]);
+#pragma unroll
+                    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                        for (int half = 0; half < 2; ++half) {
+                            const int row = mc * TILE_ROWS + mt * 16 + (lane >> 2) + half * 8;
+                            const float v0 = acc[mt][j][2 * half] + b0, v1 = acc[mt][j][2 * half + 1] + b1;
+                            const bool ok = live(row);
+                            if (col < hidden) {
+                                bf16* px = hs + static_cast<size_t>(row) * ldh + col;
+                                const float2 cur = __bfloat1622float2(*reinterpret_cast<const bf162*>(px));
+                                store_pair(px, ok ? cur.x + round_bf16(v0) : 0.f, ok ? cur.y + round_bf16(v1) : 0.f);
+                                continue;
+                            }
+                            float* ps = skip + static_cast<size_t>(row) * skip_ld + (col - hidden - h0 * 8);
+                            const float s0 = first ? v0 : ps[0] + v0, s1 = first ? v1 : ps[1] + v1;
+                            if (last) {
+                                // the WaveNet's output, rounded once and masked: the post product's operand
+                                store_pair(hs + static_cast<size_t>(row) * ldh + (col - hidden), ok ? s0 : 0.f,
+                                           ok ? s1 : 0.f);
+                            } else {
+                                ps[0] = s0;
+                                ps[1] = s1;
+                            }
+                        }
+                }
+                // the res tiles, or on the last layer the finished skip tiles, go to the peers
+                int to_hs[NT];
+#pragma unroll
+                for (int j = 0; j < NT; ++j)
+                    to_hs[j] = nt[j] < 0 ? -1 : nt[j] < h_tiles ? nt[j] : last ? nt[j] - h_tiles : -1;
+                push_tiles(hs, ldh, mc * TILE_ROWS, to_hs, ranks, rank);
+            }
+            cluster_barrier();
         }
-        // the WaveNet's output, rounded once and masked, is the post product's operand
-        for (int i = tid; i < rows * (hidden / 2); i += n_threads) {
-            const int row = i / (hidden / 2), c = (i % (hidden / 2)) * 2;
-            const bool ok = live(row);
-            const float v0 = ok ? skip[static_cast<size_t>(row) * hidden + c] : 0.f;
-            const float v1 = ok ? skip[static_cast<size_t>(row) * hidden + c + 1] : 0.f;
-            *reinterpret_cast<bf162*>(acts + static_cast<size_t>(row) * ldh + c) = __floats2bfloat162_rn(v0, v1);
+
+        // post 1x1 (target half and sign folded in): hs -> the rank's state columns
+        const int post_groups = (nc + NT - 1) / NT;
+        for (int item = warp; item < m_chunks * post_groups; item += n_warps) {
+            const int gi = item / m_chunks, mc = item % m_chunks;
+            int nt[NT];
+#pragma unroll
+            for (int j = 0; j < NT; ++j) nt[j] = gi * NT + j < nc ? c0 + gi * NT + j : -1;
+            Acc acc;
+            zero_acc(acc);
+            gemm<AHEAD>(acc, hs, ldh, rows, mc * TILE_ROWS, zero_row, hidden, wq + s * post_words, 1, c_tiles, nt);
+            const bf16* bias = bq + s * chan;
+#pragma unroll
+            for (int j = 0; j < NT; ++j) {
+                if (nt[j] < 0) continue;
+                const int col = nt[j] * 8 + (lane & 3) * 2;
+                const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+#pragma unroll
+                for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                    for (int half = 0; half < 2; ++half) {
+                        const int row = mc * TILE_ROWS + mt * 16 + (lane >> 2) + half * 8;
+                        bf16* ps = state + static_cast<size_t>(row) * ldc + col;
+                        const float2 cur = __bfloat1622float2(*reinterpret_cast<const bf162*>(ps));
+                        const bool ok = live(row);
+                        store_pair(ps, ok ? cur.x + round_bf16(acc[mt][j][2 * half] + b0) : 0.f,
+                                   ok ? cur.y + round_bf16(acc[mt][j][2 * half + 1] + b1) : 0.f);
+                    }
+            }
+            push_tiles(state, ldc, mc * TILE_ROWS, nt, ranks, rank);
         }
-        __syncthreads();
-        // post 1x1, scattered into the target half (sign folded in), and the state update
-        conv_rows<false>(acts, ldh, rows, 0, rows / TILE_ROWS, hidden, zero_row, wq + s * post_words,
-                         chan, 1, 0, 0, 0, 0, bq + s * chan, no_slope(),
-              [&](int row, int col, float v0, float v1) {
-                  bf162* ps = reinterpret_cast<bf162*>(state + static_cast<size_t>(row) * ldc + col);
-                  if (live(row)) {
-                      const float2 cur = __bfloat1622float2(*ps);
-                      *ps = __floats2bfloat162_rn(cur.x + round_bf16(v0), cur.y + round_bf16(v1));
-                  } else {
-                      *ps = __float2bfloat162_rn(0.f);
-                  }
-              });
-        __syncthreads();
+        // the last of these barriers is also the one every CTA passes before
+        // it exits: after it no peer stores into its shared memory
+        cluster_barrier();
     }
 
-    for (int i = tid; i < tile * vec; i += n_threads) {
+    // the copies are identical: the ranks share out the kept rows
+    for (int i = tid + rank * n_threads; i < tile * vec; i += n_threads * ranks) {
         const int r = i / vec, c8 = (i % vec) * 8;
         const int frame = t0 + r;
         if (frame >= t_len) continue;
@@ -124,37 +396,102 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
     }
 }
 
+typedef void (*Kernel)(const bf16*, const int*, const uint2*, const bf16*, const uint2*, const bf16*,
+                       const bf16*, const uint2*, const bf16*, const uint2*, const bf16*, bf16*, int, int, int,
+                       int, int, int, int, int, Split, int);
+
+// The kernel that loads B `ahead` k-tiles ahead (0: warp_gemm), or null.
+Kernel kernel_for(int ahead) {
+    switch (ahead) {
+        case 0: return coupling_kernel<0>;
+        case 4: return coupling_kernel<4>;
+        default: return nullptr;
+    }
+}
+
+// The kernel's shared-memory limit, and a cluster launch of it.
+cudaError_t launch_config(Kernel kernel, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, dim3 grid,
+                          int threads, int smem, int ranks, cudaStream_t stream) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    cfg = cudaLaunchConfig_t{};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = ranks;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return cudaSuccess;
+}
+
 }  // namespace
 
-// Shared memory of one block, in bytes.
-extern "C" int coupling_smem_bytes(int chan, int hidden, int rows) {
+// Shared memory of one CTA, in bytes: the bf16 window (state, hs, acts and a
+// zero row) and the f32 skip sum of skip_cols channels.
+extern "C" int coupling_smem_bytes(int chan, int hidden, int rows, int skip_cols) {
     const int ldc = chan + LD_PAD, ldh = hidden + LD_PAD;
-    return ((ldc > ldh ? ldc : ldh) + rows * ldc + 2 * rows * ldh) * 2 + rows * hidden * 4;
+    return ((ldc > ldh ? ldc : ldh) + rows * ldc + 2 * rows * ldh) * 2 + rows * skip_cols * 4;
+}
+
+// cudaOccupancyMaxActiveClusters for a launch of `threads` threads a CTA and
+// clusters of `ranks` CTAs: how many clusters the card holds at once (0: the
+// launch cannot run).  Returns the CUDA error (0 on success).
+extern "C" int coupling_max_clusters(int chan, int hidden, int rows, int skip_cols, int threads, int ranks,
+                                     int ahead, int device, int* clusters) {
+    const Kernel kernel = kernel_for(ahead);
+    if (!kernel || threads > max_threads(ahead) || ranks < 1 || ranks > MAX_RANKS)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = launch_config(kernel, cfg, attr, dim3(ranks), threads, coupling_smem_bytes(chan, hidden, rows, skip_cols),
+                        ranks, nullptr);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
 }
 
 // x, out [batch, t_len, chan] bf16; lengths [batch] int32; per step s: wp
 // [S][C/16][H/8][32] fragment words, bp [S][H], w_in [S][L][K][H/16][2H/8][32],
 // b_in, b_rs [S][L][2H], w_rs [S][L][H/16][2H/8][32], wq [S][H/16][C/8][32],
-// bq [S][C]; g_all [batch][S][L][2H].  chan % 16 == hidden % 16 == 0; rows %
-// 32 == 0; rows - tile is twice the halo, at least S*L*(K-1).  Returns the
-// CUDA error of the launch (0 on success).
+// bq [S][C]; g_all [batch][S][L][2H].  c_bounds, h_bounds: ranks + 1 tile
+// boundaries each (the column plan); skip_cols is 8 times the most H tiles a
+// rank owns.  chan % 16 == hidden % 16 == 0; rows % 32 == 0; rows - tile is
+// twice the halo, at least S*L*(K-1); 1 <= ranks <= 8; ahead is 0 or 4
+// (threads at most 384 with 4).  One cluster of `ranks` CTAs per time tile
+// and batch row.  Returns the CUDA error of the launch (0 on success).
 extern "C" int coupling_block_bf16(const void* x, const int* lengths, const void* wp, const void* bp,
                                    const void* w_in, const void* b_in, const void* g_all,
                                    const void* w_rs, const void* b_rs, const void* wq, const void* bq,
-                                   void* out, int batch, int t_len, int chan, int hidden, int ksize,
-                                   int n_layers, int n_steps, int rows, int tile, int threads,
-                                   int device, void* stream) {
+                                   void* out, const int* c_bounds, const int* h_bounds, int batch, int t_len,
+                                   int chan, int hidden, int ksize, int n_layers, int n_steps, int rows,
+                                   int tile, int skip_cols, int threads, int ranks, int ahead, int device,
+                                   void* stream) {
+    const Kernel kernel = kernel_for(ahead);
+    if (!kernel || threads > max_threads(ahead) || ranks < 1 || ranks > MAX_RANKS)
+        return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int smem = coupling_smem_bytes(chan, hidden, rows);
-    err = cudaFuncSetAttribute(coupling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    Split split{};
+    for (int r = 0; r <= ranks; ++r) {
+        split.c[r] = c_bounds[r];
+        split.h[r] = h_bounds[r];
+    }
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute attr;
+    err = launch_config(kernel, cfg, attr, dim3(((t_len + tile - 1) / tile) * ranks, batch), threads,
+                        coupling_smem_bytes(chan, hidden, rows, skip_cols), ranks, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((t_len + tile - 1) / tile, batch);
-    coupling_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const bf16*>(x), lengths, static_cast<const uint2*>(wp),
-        static_cast<const bf16*>(bp), static_cast<const uint2*>(w_in), static_cast<const bf16*>(b_in),
-        static_cast<const bf16*>(g_all), static_cast<const uint2*>(w_rs),
-        static_cast<const bf16*>(b_rs), static_cast<const uint2*>(wq), static_cast<const bf16*>(bq),
-        static_cast<bf16*>(out), t_len, chan, hidden, ksize, n_layers, n_steps, rows, tile);
+    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x), lengths, static_cast<const uint2*>(wp),
+                             static_cast<const bf16*>(bp), static_cast<const uint2*>(w_in),
+                             static_cast<const bf16*>(b_in), static_cast<const bf16*>(g_all),
+                             static_cast<const uint2*>(w_rs), static_cast<const bf16*>(b_rs),
+                             static_cast<const uint2*>(wq), static_cast<const bf16*>(bq), static_cast<bf16*>(out),
+                             t_len, chan, hidden, ksize, n_layers, n_steps, rows, tile, split, skip_cols);
+    if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,7 @@
 """K2: one direction of the coupling flow as one hand-written CUDA kernel
-(``csrc/coupling.cu``).
+(``csrc/coupling.cu``), launched as thread-block clusters: each time tile
+is split over the R CTAs of one cluster, which share the window through
+distributed shared memory (`cluster_bounds` is the column plan).
 
 Replaces ``openvoice_tpu/ops/coupling_pallas.py::fused_coupling_block`` with
 its packers (`_exec_order`, `pack_coupling_block`, `coupling_g_stack`).  The
@@ -24,13 +26,46 @@ from openvoice_tpu_torch.ops.wn_cuda import stack_wn_params, wn_layers_plain
 
 launches = 0
 
-# Frames a block keeps (it recomputes S·L·(K−1)/2 more a side; shared memory
-# holds no more than a 96-row window at C = H = 192) and its threads: 16 warps
-# were faster than 12 and 8 on one H100 (``python3 chip_smoke.py --sweep``),
-# though 12 would share the window's 36 warp tiles evenly: the kernel waits on
-# latency.
-_TILE_TARGET = 32
-_THREADS = 512
+# CTAs a cluster splits a time tile over, frames a tile keeps (the window
+# recomputes S·L·(K−1)/2 more a side), threads a CTA, and how many k-tiles
+# ahead the product loop loads B (0: as the other kernels do).  On one H100
+# (``python3 chip_smoke.py --sweep coupling``, PERF.md) a 64-frame tile on 4
+# CTAs with 12 warps was fastest: 16 clusters of 128 rows fit in one wave
+# (30 clusters of 4 fit on the card, so 32 of 96 rows take two), and 12
+# warps hold a CTA's 12 gate tiles.
+_RANKS = 4
+_TILE_TARGET = 64
+_THREADS = 384
+_B_AHEAD = 4
+_AHEAD_THREADS = {0: 512, 4: 384}  # the depths the kernel has, with their most threads
+
+# what the last launch ran: ranks, rows, tile, CTAs, and
+# cudaOccupancyMaxActiveClusters for its CTA size
+last_launch: dict = {}
+_MAX_CLUSTERS: dict[tuple, int] = {}
+
+
+def cluster_bounds(n_tiles: int, ranks: int) -> list[int]:
+    """Rank r of a cluster owns the 8-column tiles [b[r], b[r + 1]) of a
+    product with `n_tiles` column tiles: contiguous shares that differ by
+    at most one tile.  The kernel takes these boundaries as they are."""
+    if ranks < 1:
+        raise ValueError(f"a cluster has at least one CTA, got {ranks}")
+    return [r * n_tiles // ranks for r in range(ranks + 1)]
+
+
+def cluster_columns(n_out: int, ranks: int, paired: bool = False) -> list[list[int]]:
+    """The output columns each rank computes of an `n_out`-wide product.
+    `paired`: the product's two halves are split alike, so that column i of
+    the first half and column i of the second have one owner (the gate's
+    tanh and sigmoid of a channel; a channel's res and skip)."""
+    width = n_out // 2 if paired else n_out
+    if width % 8:
+        raise ValueError(f"columns come in tiles of 8, got {width}")
+    bounds = cluster_bounds(width // 8, ranks)
+    halves = (0, width) if paired else (0,)
+    return [[off + col for off in halves for col in range(8 * bounds[r], 8 * bounds[r + 1])]
+            for r in range(ranks)]
 
 
 def _exec_order(n_couplings: int, reverse: bool) -> list[tuple[int, int]]:
@@ -138,11 +173,30 @@ def coupling_block_plain(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
 
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("coupling")
-    lib.coupling_block_bf16.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    lib.coupling_block_bf16.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_int)] * 2
+                                        + [ctypes.c_int] * 14 + [ctypes.c_void_p])
     lib.coupling_block_bf16.restype = ctypes.c_int
-    lib.coupling_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.coupling_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.coupling_smem_bytes.restype = ctypes.c_int
+    lib.coupling_max_clusters.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.coupling_max_clusters.restype = ctypes.c_int
     return lib
+
+
+def _max_clusters(lib, c: int, h: int, rows: int, skip_cols: int, device: int) -> int:
+    """cudaOccupancyMaxActiveClusters for the wrapper's knobs, asked once per
+    sizes; raises when no cluster fits (there is no single-CTA fallback)."""
+    key = (c, h, rows, skip_cols, _THREADS, _RANKS, _B_AHEAD, device)
+    if key not in _MAX_CLUSTERS:
+        n = ctypes.c_int(0)
+        err = lib.coupling_max_clusters(c, h, rows, skip_cols, _THREADS, _RANKS, _B_AHEAD, device,
+                                        ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {err}")
+        if n.value < 1:
+            raise RuntimeError(f"no cluster of {_RANKS} CTAs ({_THREADS} threads, {rows} rows) fits on the card")
+        _MAX_CLUSTERS[key] = n.value
+    return _MAX_CLUSTERS[key]
 
 
 def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
@@ -184,19 +238,30 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
         raise ValueError(f"batch {batch} exceeds the launch grid")
     lengths = _frag.check_lengths(lengths, batch, x.device)
 
+    if _THREADS > _AHEAD_THREADS.get(_B_AHEAD, 0):
+        raise ValueError(f"B {_B_AHEAD} k-tiles ahead with {_THREADS} threads: the kernel has depths "
+                         f"{_AHEAD_THREADS} with their most threads")
     lib = _library()
     halo = n_steps * n_layers * (k - 1) // 2
-    rows, tile = _frag.window(("coupling", c, h), halo, t, _TILE_TARGET, lambda r, tl: lib.coupling_smem_bytes(c, h, r))
+    c_bounds, h_bounds = cluster_bounds(c // 8, _RANKS), cluster_bounds(h // 8, _RANKS)
+    skip_cols = 8 * max(b - a for a, b in zip(h_bounds, h_bounds[1:]))
+    rows, tile = _frag.window(("coupling", c, h, _RANKS), halo, t, _TILE_TARGET,
+                              lambda r, tl: lib.coupling_smem_bytes(c, h, r, skip_cols))
+    device = x.device.index or 0
+    clusters = _max_clusters(lib, c, h, rows, skip_cols, device)
     out = torch.empty_like(x)
     err = lib.coupling_block_bf16(
         x.data_ptr(), lengths.data_ptr(), packed["wp_frag"].data_ptr(), packed["bp"].data_ptr(),
         packed["w_in_frag"].data_ptr(), packed["b_in"].data_ptr(), g_all.data_ptr(),
         packed["w_rs_frag"].data_ptr(), packed["b_rs"].data_ptr(), packed["wq_frag"].data_ptr(),
         packed["bq"].data_ptr(), out.data_ptr(),
-        batch, t, c, h, k, n_layers, n_steps, rows, tile, _THREADS, x.device.index or 0,
+        (ctypes.c_int * len(c_bounds))(*c_bounds), (ctypes.c_int * len(h_bounds))(*h_bounds),
+        batch, t, c, h, k, n_layers, n_steps, rows, tile, skip_cols, _THREADS, _RANKS, _B_AHEAD, device,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"coupling kernel launch failed with CUDA error {err}")
     launches += 1
+    last_launch.update(ranks=_RANKS, rows=rows, tile=tile, ctas=-(-t // tile) * _RANKS * batch,
+                       max_clusters=clusters)
     return out

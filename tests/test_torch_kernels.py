@@ -12,6 +12,8 @@ tighter mean).  On the CPU each wrapper runs its plain version, so these
 tests go through the wrappers.
 """
 
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -178,6 +180,115 @@ def test_coupling_exec_order_and_g_stack_follow_jax(flow_case):
         ours = coupling_cuda.coupling_g_stack(flow, t(g), reverse=reverse)
         ref = jcp.coupling_g_stack(jflow, jnp.asarray(g), reverse=reverse, dtype=jnp.float32)
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("ranks", [1, 2, 4])
+def test_coupling_cluster_columns_partition(ranks):
+    """Every output column of every product of K2 has exactly one owner in
+    the cluster, a gate pair (tanh, sigmoid) and a channel's (res, skip)
+    have the same one, and each rank owns whole 8-column tiles, contiguous
+    in each half."""
+    from openvoice_tpu_torch.config import V2_CONVERTER_CONFIG as V2
+
+    for c, h in [(V2.inter_channels, V2.hidden_channels), (TINY["inter_channels"], TINY["hidden_channels"])]:
+        products = {"pre": (h, False), "gate": (2 * h, True), "res|skip": (2 * h, True), "post": (c, False)}
+        for name, (n_out, paired) in products.items():
+            owned = coupling_cuda.cluster_columns(n_out, ranks, paired=paired)
+            assert len(owned) == ranks
+            flat = sorted(col for cols in owned for col in cols)
+            assert flat == list(range(n_out)), f"{name}: a column without one owner"
+            width = n_out // 2 if paired else n_out
+            for cols in owned:
+                halves = [sorted(col for col in cols if col < width), sorted(col - width for col in cols if col >= width)]
+                if paired:
+                    assert halves[0] == halves[1], f"{name}: a pair split between ranks"
+                own = halves[0]
+                if own:
+                    assert own == list(range(own[0], own[-1] + 1)), f"{name}: not contiguous"
+                    assert own[0] % 8 == 0 and len(own) % 8 == 0, f"{name}: not whole tiles"
+            sizes = [len(cols) for cols in owned]
+            assert max(sizes) - min(sizes) <= (16 if paired else 8), f"{name}: shares {sizes}"
+
+
+def _cluster_split_model(x, lengths, packed, g_all, ranks):
+    """coupling_block as the cluster kernel (csrc/coupling.cu) computes it.
+    Each of the `ranks` CTAs keeps its own copy of the state, hs and acts;
+    in every product each rank reads its own copy and computes only its
+    columns (`cluster_columns`), and only after all ranks have computed are
+    the results stored into every copy (the cluster barrier).  The skip sum
+    holds a rank's own channels; on the last layer it goes, rounded and
+    masked, into hs, which the post product reads.  Products in f32, in the
+    kernel's rounding points."""
+    dt = x.dtype
+    b, t_len, c = x.shape
+    n_steps, n_layers, k, h, _ = packed["w_in"].shape
+    pad = (k - 1) // 2
+    mask = _frag.length_mask(lengths, t_len)
+    own_h = [torch.tensor(cols) for cols in coupling_cuda.cluster_columns(h, ranks)]
+    own_c = [torch.tensor(cols) for cols in coupling_cuda.cluster_columns(c, ranks)]
+    state = [x.float() * mask for _ in range(ranks)]
+    hs = [torch.zeros(b, t_len, h) for _ in range(ranks)]
+    acts = [torch.zeros(b, t_len, h) for _ in range(ranks)]
+
+    def store_all(copies, writes):
+        for cols, v in writes:
+            for copy_ in copies:
+                copy_[..., cols] = v
+
+    for s in range(n_steps):
+        wp, bp = packed["wp"][s].float(), packed["bp"][s].float()
+        store_all(hs, [(ch, (state[r] @ wp[:, ch] + bp[ch]).to(dt).float() * mask)
+                       for r, ch in enumerate(own_h)])
+        skip = [None] * ranks
+        for layer in range(n_layers):
+            w_in, b_in = packed["w_in"][s, layer].float(), packed["b_in"][s, layer].float()
+            w_rs, b_rs = packed["w_rs"][s, layer].float(), packed["b_rs"][s, layer].float()
+            g = g_all[:, s, layer : layer + 1].float()
+            last = layer == n_layers - 1
+            writes = []
+            for r, ch in enumerate(own_h):
+                xp = torch.nn.functional.pad(hs[r], (0, 0, pad, pad))
+                tanh_in = sum(xp[:, j : j + t_len] @ w_in[j][:, ch] for j in range(k)) + b_in[ch] + g[..., ch]
+                sig_in = sum(xp[:, j : j + t_len] @ w_in[j][:, h + ch] for j in range(k)) + b_in[h + ch] + g[..., h + ch]
+                writes.append((ch, (torch.tanh(tanh_in) * torch.sigmoid(sig_in)).to(dt).float()))
+            store_all(acts, writes)
+            writes = []
+            for r, ch in enumerate(own_h):
+                rs_skip = acts[r] @ w_rs[:, h + ch] + b_rs[h + ch]
+                skip[r] = rs_skip if layer == 0 else skip[r] + rs_skip
+                if last:
+                    writes.append((ch, skip[r].to(dt).float() * mask))
+                else:
+                    res = (acts[r] @ w_rs[:, ch] + b_rs[ch]).to(dt).float()
+                    writes.append((ch, (hs[r][..., ch] + res).to(dt).float() * mask))
+            store_all(hs, writes)
+        wq, bq = packed["wq"][s].float(), packed["bq"][s].float()
+        store_all(state, [(cols, (state[r][..., cols] + (hs[r] @ wq[:, cols] + bq[cols]).to(dt).float()).to(dt).float()
+                           * mask) for r, cols in enumerate(own_c)])
+    for copies in (state, hs, acts):
+        assert all(torch.equal(copies[0], other) for other in copies[1:]), "the copies diverged"
+    return state[0].to(dt)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@torch.inference_mode()
+def test_coupling_cluster_split_matches_pallas(flow_case, dtype, reverse):
+    """The kernel's split, modelled rank by rank, is the plain version bit
+    for bit, and the Pallas kernel at the bars of the test above."""
+    out, ref = _flow_both(flow_case, dtype, reverse)
+    _, flow, x, lengths, g = flow_case
+    packed = coupling_cuda.pack_coupling_block(flow, reverse=reverse, dtype=dtype)
+    convs = [copy.deepcopy(layer.enc.cond_layer).to(dtype) for layer in flow.flows[::2]]
+    g_all = coupling_cuda.coupling_g_stack(flow, t(g).to(dtype), reverse=reverse, convs=convs)
+    for ranks in (1, 2, 4):
+        split = _cluster_split_model(t(x).to(dtype), t(lengths), packed, g_all, ranks)
+        assert torch.equal(split, out), f"R = {ranks}: the split differs from coupling_block_plain"
+        assert bool((split[1, lengths[1]:] == 0).all())
+        if dtype == torch.float32:
+            _close_f32(split, ref, 2e-4, 1e-3)
+        else:
+            _close_bf16(split, ref)
 
 
 # -- K3 / K4 -------------------------------------------------------------------
