@@ -407,7 +407,7 @@ def coupling_check(kind: str, gen) -> dict:
         launch = dict(cc.last_launch)
         print(f"{label} cluster launch: R {launch['ranks']}, rows/tile {launch['rows']}/{launch['tile']}, "
               f"{launch['ctas']} CTAs launched, cudaOccupancyMaxActiveClusters {launch['max_clusters']} "
-              f"({cc._THREADS} threads, B {cc._B_AHEAD} k-tiles ahead)")
+              f"({cc._THREADS} threads)")
         check(launch["max_clusters"] >= 1, "no cluster fits on the card")
         timed = timed or (x, g, lens, g_all, launch)
     x, g, lens, g_all, launch = timed
@@ -578,13 +578,12 @@ def sweep(kind: str, only: list[str]) -> None:
     def knobs(pairs):
         return [{"_TILE_TARGET": tile, "_THREADS": th} for tile, th in pairs]
 
-    # K2: cluster size × tile × threads, the cluster form alone and with B
-    # 4 k-tiles ahead (512 threads leave too few registers for that), and
-    # one unsplit launch (a cluster of one CTA) beside them
-    coupling = [{"_RANKS": r, "_TILE_TARGET": tile, "_THREADS": th, "_B_AHEAD": ahead}
-                for ahead in (0, 4) for r in (2, 4) for tile in (32, 64) for th in (288, 384, 512)
-                if th <= (384 if ahead else 512)]
-    coupling.append({"_RANKS": 1, "_TILE_TARGET": 32, "_THREADS": 512, "_B_AHEAD": 0})
+    # K2: cluster size × tile × threads (at most 384: the kernel's ring of
+    # B fragments leaves too few registers for 512), and one unsplit launch
+    # (a cluster of one CTA) beside them
+    coupling = [{"_RANKS": r, "_TILE_TARGET": tile, "_THREADS": th}
+                for r in (2, 4) for tile in (32, 64) for th in (288, 384)]
+    coupling.append({"_RANKS": 1, "_TILE_TARGET": 32, "_THREADS": 384})
     grids = [
         (wn_check, "wn_cuda", knobs((tile, th) for tile in (16, 32, 64) for th in (256, 384, 512))),
         (coupling_check, "coupling_cuda", coupling),

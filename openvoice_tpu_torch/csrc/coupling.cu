@@ -33,7 +33,7 @@
 // rounded, masked value goes to `hs`, which the post product reads (the gate
 // is the last reader of `hs` before it).  So one barrier per product: 2L + 2
 // a step.  Each warp's chain of k-tiles waits on its B fragments from L2;
-// the product loop can load them up to 4 k-tiles ahead (warp_gemm_ahead).
+// the product loop loads them B_AHEAD k-tiles ahead (warp_gemm_ahead).
 
 #include <cooperative_groups.h>
 
@@ -45,6 +45,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int MAX_RANKS = 8;  // the largest portable cluster
+constexpr int B_AHEAD = 4;    // k-tiles of B fragments a warp loads ahead
+// the ring of B fragments takes more registers than 512 threads leave a thread (128)
+constexpr int MAX_THREADS = 384;
 
 // The cluster's column plan: rank r owns C-column tiles [c[r], c[r + 1]) and
 // H-channel tiles [h[r], h[r + 1]).
@@ -89,16 +92,16 @@ __device__ __forceinline__ void push_tiles(const bf16* buf, int ld, int row0, co
     }
 }
 
-// warp_gemm (mma_tile.cuh) over the n_taps taps of a convolution (tap i
-// reads A from row row0 + i against W[i]; the taps' fragment words follow one
-// another), with the B fragments loaded D k-tiles ahead in a ring of
-// registers: the loads of step i + D are issued right after the products of
-// step i, across tap boundaries.
-template <int D>
+// acc += warp_gemm (mma_tile.cuh) over the n_taps taps of a convolution
+// (tap i reads A from row row0 + i against W[i]; the taps' fragment words
+// follow one another), with the B fragments loaded D = B_AHEAD k-tiles ahead
+// in a ring of registers: the loads of step i + D are issued right after the
+// products of step i, across tap boundaries.
 __device__ __forceinline__ void warp_gemm_ahead(Acc& acc, const bf16* __restrict__ a, int lda, int a_rows,
                                                 int row0, const bf16* __restrict__ zero_row, int cin,
                                                 const uint2* __restrict__ wfrag, int n_taps, int n_tiles,
                                                 const int (&nt)[NT]) {
+    constexpr int D = B_AHEAD;
     const int lane = threadIdx.x & 31;
     const int lrow = lane & 15;
     const int lcol = (lane >> 4) * 8;
@@ -148,27 +151,7 @@ __device__ __forceinline__ void warp_gemm_ahead(Acc& acc, const bf16* __restrict
     }
 }
 
-// acc += the n_taps-tap product: B loaded AHEAD k-tiles ahead, or (AHEAD 0)
-// each tap by warp_gemm as the other kernels take it.
-template <int AHEAD>
-__device__ __forceinline__ void gemm(Acc& acc, const bf16* a, int lda, int a_rows, int row0,
-                                     const bf16* zero_row, int cin, const uint2* wfrag, int n_taps, int n_tiles,
-                                     const int (&nt)[NT]) {
-    if constexpr (AHEAD > 0) {
-        warp_gemm_ahead<AHEAD>(acc, a, lda, a_rows, row0, zero_row, cin, wfrag, n_taps, n_tiles, nt);
-    } else {
-        const size_t tap_words = static_cast<size_t>(cin >> 4) * n_tiles * 32;
-        for (int i = 0; i < n_taps; ++i)
-            warp_gemm<false>(acc, a, lda, a_rows, row0 + i, zero_row, cin, wfrag + i * tap_words, n_tiles, nt,
-                             no_slope());
-    }
-}
-
-// B loaded ahead takes more registers than 512 threads leave a thread (128)
-__host__ __device__ constexpr int max_threads(int ahead) { return ahead > 0 ? 384 : 512; }
-
-template <int AHEAD>
-__global__ void __launch_bounds__(max_threads(AHEAD), 1)
+__global__ void __launch_bounds__(MAX_THREADS, 1)
 coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
                 const uint2* __restrict__ wp, const bf16* __restrict__ bp,
                 const uint2* __restrict__ w_in, const bf16* __restrict__ b_in,
@@ -232,7 +215,7 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
             for (int j = 0; j < NT; ++j) nt[j] = gi * NT + j < nh ? h0 + gi * NT + j : -1;
             Acc acc;
             zero_acc(acc);
-            gemm<AHEAD>(acc, state, ldc, rows, mc * TILE_ROWS, zero_row, chan, wp + s * pre_words, 1, h_tiles, nt);
+            warp_gemm_ahead(acc, state, ldc, rows, mc * TILE_ROWS, zero_row, chan, wp + s * pre_words, 1, h_tiles, nt);
             const bf16* bias = bp + s * hidden;
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
@@ -269,7 +252,7 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
                 const int nt[NT] = {ta, tb, h_tiles + ta, tb < 0 ? -1 : h_tiles + tb};
                 Acc acc;
                 zero_acc(acc);
-                gemm<AHEAD>(acc, hs, ldh, rows, mc * TILE_ROWS - pad, zero_row, hidden, wl, ksize, 2 * h_tiles, nt);
+                warp_gemm_ahead(acc, hs, ldh, rows, mc * TILE_ROWS - pad, zero_row, hidden, wl, ksize, 2 * h_tiles, nt);
 #pragma unroll
                 for (int j = 0; j < 2; ++j) {
                     if (nt[j] < 0) continue;
@@ -310,7 +293,7 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
                 }
                 Acc acc;
                 zero_acc(acc);
-                gemm<AHEAD>(acc, acts, ldh, rows, mc * TILE_ROWS, zero_row, hidden, wr, 1, 2 * h_tiles, nt);
+                warp_gemm_ahead(acc, acts, ldh, rows, mc * TILE_ROWS, zero_row, hidden, wr, 1, 2 * h_tiles, nt);
 #pragma unroll
                 for (int j = 0; j < NT; ++j) {
                     if (nt[j] < 0) continue;
@@ -360,7 +343,7 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
             for (int j = 0; j < NT; ++j) nt[j] = gi * NT + j < nc ? c0 + gi * NT + j : -1;
             Acc acc;
             zero_acc(acc);
-            gemm<AHEAD>(acc, hs, ldh, rows, mc * TILE_ROWS, zero_row, hidden, wq + s * post_words, 1, c_tiles, nt);
+            warp_gemm_ahead(acc, hs, ldh, rows, mc * TILE_ROWS, zero_row, hidden, wq + s * post_words, 1, c_tiles, nt);
             const bf16* bias = bq + s * chan;
 #pragma unroll
             for (int j = 0; j < NT; ++j) {
@@ -396,23 +379,10 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
     }
 }
 
-typedef void (*Kernel)(const bf16*, const int*, const uint2*, const bf16*, const uint2*, const bf16*,
-                       const bf16*, const uint2*, const bf16*, const uint2*, const bf16*, bf16*, int, int, int,
-                       int, int, int, int, int, Split, int);
-
-// The kernel that loads B `ahead` k-tiles ahead (0: warp_gemm), or null.
-Kernel kernel_for(int ahead) {
-    switch (ahead) {
-        case 0: return coupling_kernel<0>;
-        case 4: return coupling_kernel<4>;
-        default: return nullptr;
-    }
-}
-
 // The kernel's shared-memory limit, and a cluster launch of it.
-cudaError_t launch_config(Kernel kernel, cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, dim3 grid,
+cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, dim3 grid,
                           int threads, int smem, int ranks, cudaStream_t stream) {
-    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    const cudaError_t err = cudaFuncSetAttribute(coupling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     cfg = cudaLaunchConfig_t{};
     cfg.gridDim = grid;
@@ -441,18 +411,17 @@ extern "C" int coupling_smem_bytes(int chan, int hidden, int rows, int skip_cols
 // clusters of `ranks` CTAs: how many clusters the card holds at once (0: the
 // launch cannot run).  Returns the CUDA error (0 on success).
 extern "C" int coupling_max_clusters(int chan, int hidden, int rows, int skip_cols, int threads, int ranks,
-                                     int ahead, int device, int* clusters) {
-    const Kernel kernel = kernel_for(ahead);
-    if (!kernel || threads > max_threads(ahead) || ranks < 1 || ranks > MAX_RANKS)
+                                     int device, int* clusters) {
+    if (threads > MAX_THREADS || ranks < 1 || ranks > MAX_RANKS)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    err = launch_config(kernel, cfg, attr, dim3(ranks), threads, coupling_smem_bytes(chan, hidden, rows, skip_cols),
+    err = launch_config(cfg, attr, dim3(ranks), threads, coupling_smem_bytes(chan, hidden, rows, skip_cols),
                         ranks, nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, coupling_kernel, &cfg));
 }
 
 // x, out [batch, t_len, chan] bf16; lengths [batch] int32; per step s: wp
@@ -461,18 +430,17 @@ extern "C" int coupling_max_clusters(int chan, int hidden, int rows, int skip_co
 // bq [S][C]; g_all [batch][S][L][2H].  c_bounds, h_bounds: ranks + 1 tile
 // boundaries each (the column plan); skip_cols is 8 times the most H tiles a
 // rank owns.  chan % 16 == hidden % 16 == 0; rows % 32 == 0; rows - tile is
-// twice the halo, at least S*L*(K-1); 1 <= ranks <= 8; ahead is 0 or 4
-// (threads at most 384 with 4).  One cluster of `ranks` CTAs per time tile
+// twice the halo, at least S*L*(K-1); 1 <= ranks <= 8; threads at most
+// 384.  One cluster of `ranks` CTAs per time tile
 // and batch row.  Returns the CUDA error of the launch (0 on success).
 extern "C" int coupling_block_bf16(const void* x, const int* lengths, const void* wp, const void* bp,
                                    const void* w_in, const void* b_in, const void* g_all,
                                    const void* w_rs, const void* b_rs, const void* wq, const void* bq,
                                    void* out, const int* c_bounds, const int* h_bounds, int batch, int t_len,
                                    int chan, int hidden, int ksize, int n_layers, int n_steps, int rows,
-                                   int tile, int skip_cols, int threads, int ranks, int ahead, int device,
+                                   int tile, int skip_cols, int threads, int ranks, int device,
                                    void* stream) {
-    const Kernel kernel = kernel_for(ahead);
-    if (!kernel || threads > max_threads(ahead) || ranks < 1 || ranks > MAX_RANKS)
+    if (threads > MAX_THREADS || ranks < 1 || ranks > MAX_RANKS)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -483,10 +451,10 @@ extern "C" int coupling_block_bf16(const void* x, const int* lengths, const void
     }
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    err = launch_config(kernel, cfg, attr, dim3(((t_len + tile - 1) / tile) * ranks, batch), threads,
+    err = launch_config(cfg, attr, dim3(((t_len + tile - 1) / tile) * ranks, batch), threads,
                         coupling_smem_bytes(chan, hidden, rows, skip_cols), ranks, static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const bf16*>(x), lengths, static_cast<const uint2*>(wp),
+    err = cudaLaunchKernelEx(&cfg, coupling_kernel, static_cast<const bf16*>(x), lengths, static_cast<const uint2*>(wp),
                              static_cast<const bf16*>(bp), static_cast<const uint2*>(w_in),
                              static_cast<const bf16*>(b_in), static_cast<const bf16*>(g_all),
                              static_cast<const uint2*>(w_rs), static_cast<const bf16*>(b_rs),

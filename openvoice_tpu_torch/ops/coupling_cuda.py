@@ -27,17 +27,15 @@ from openvoice_tpu_torch.ops.wn_cuda import stack_wn_params, wn_layers_plain
 launches = 0
 
 # CTAs a cluster splits a time tile over, frames a tile keeps (the window
-# recomputes S·L·(K−1)/2 more a side), threads a CTA, and how many k-tiles
-# ahead the product loop loads B (0: as the other kernels do).  On one H100
-# (``python3 chip_smoke.py --sweep coupling``, PERF.md) a 64-frame tile on 4
-# CTAs with 12 warps was fastest: 16 clusters of 128 rows fit in one wave
-# (30 clusters of 4 fit on the card, so 32 of 96 rows take two), and 12
-# warps hold a CTA's 12 gate tiles.
+# recomputes S·L·(K−1)/2 more a side), and threads a CTA (at most 384:
+# MAX_THREADS in csrc/coupling.cu).  On one H100 (``python3 chip_smoke.py
+# --sweep coupling``, PERF.md) a 64-frame tile on 4 CTAs with 12 warps was
+# fastest: 16 clusters of 128 rows fit in one wave (30 clusters of 4 fit on
+# the card, so 32 of 96 rows take two), and 12 warps hold a CTA's 12 gate
+# tiles.
 _RANKS = 4
 _TILE_TARGET = 64
 _THREADS = 384
-_B_AHEAD = 4
-_AHEAD_THREADS = {0: 512, 4: 384}  # the depths the kernel has, with their most threads
 
 # what the last launch ran: ranks, rows, tile, CTAs, and
 # cudaOccupancyMaxActiveClusters for its CTA size
@@ -174,11 +172,11 @@ def coupling_block_plain(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("coupling")
     lib.coupling_block_bf16.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_int)] * 2
-                                        + [ctypes.c_int] * 14 + [ctypes.c_void_p])
+                                        + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     lib.coupling_block_bf16.restype = ctypes.c_int
     lib.coupling_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.coupling_smem_bytes.restype = ctypes.c_int
-    lib.coupling_max_clusters.argtypes = [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+    lib.coupling_max_clusters.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
     lib.coupling_max_clusters.restype = ctypes.c_int
     return lib
 
@@ -186,11 +184,10 @@ def _library() -> ctypes.CDLL:
 def _max_clusters(lib, c: int, h: int, rows: int, skip_cols: int, device: int) -> int:
     """cudaOccupancyMaxActiveClusters for the wrapper's knobs, asked once per
     sizes; raises when no cluster fits (there is no single-CTA fallback)."""
-    key = (c, h, rows, skip_cols, _THREADS, _RANKS, _B_AHEAD, device)
+    key = (c, h, rows, skip_cols, _THREADS, _RANKS, device)
     if key not in _MAX_CLUSTERS:
         n = ctypes.c_int(0)
-        err = lib.coupling_max_clusters(c, h, rows, skip_cols, _THREADS, _RANKS, _B_AHEAD, device,
-                                        ctypes.byref(n))
+        err = lib.coupling_max_clusters(c, h, rows, skip_cols, _THREADS, _RANKS, device, ctypes.byref(n))
         if err != 0:
             raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {err}")
         if n.value < 1:
@@ -238,9 +235,6 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
         raise ValueError(f"batch {batch} exceeds the launch grid")
     lengths = _frag.check_lengths(lengths, batch, x.device)
 
-    if _THREADS > _AHEAD_THREADS.get(_B_AHEAD, 0):
-        raise ValueError(f"B {_B_AHEAD} k-tiles ahead with {_THREADS} threads: the kernel has depths "
-                         f"{_AHEAD_THREADS} with their most threads")
     lib = _library()
     halo = n_steps * n_layers * (k - 1) // 2
     c_bounds, h_bounds = cluster_bounds(c // 8, _RANKS), cluster_bounds(h // 8, _RANKS)
@@ -256,7 +250,7 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
         packed["w_rs_frag"].data_ptr(), packed["b_rs"].data_ptr(), packed["wq_frag"].data_ptr(),
         packed["bq"].data_ptr(), out.data_ptr(),
         (ctypes.c_int * len(c_bounds))(*c_bounds), (ctypes.c_int * len(h_bounds))(*h_bounds),
-        batch, t, c, h, k, n_layers, n_steps, rows, tile, skip_cols, _THREADS, _RANKS, _B_AHEAD, device,
+        batch, t, c, h, k, n_layers, n_steps, rows, tile, skip_cols, _THREADS, _RANKS, device,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
