@@ -4,8 +4,8 @@
     python3 chip_smoke.py          # from the repository root, one NVIDIA H100
     python3 chip_smoke.py --sweep [wn coupling mrf tail]
                                    # instead: time K1-K4 (or those named) over
-                                   # tile sizes, warps, K2's cluster size and
-                                   # B prefetch, and K3's ring depth
+                                   # tile sizes, warps, K2's cluster size
+                                   # and K3's ring depth
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -165,8 +165,10 @@ def build() -> None:
     print(f"built {names} in {time.perf_counter() - t0:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                print(f"  {name}: {line.split(chr(39))[1]}")
+            elif "registers" in line or "spill" in line:
+                print(f"  {name}:   {line.strip()}")
         _nvcc.load(name)
 
 
@@ -210,13 +212,31 @@ def stft_check(name: str) -> dict:
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"{label}: bad output")
         check(err <= STFT_TOL and host_err <= STFT_TOL, f"{label}: kernel disagrees with its plain version")
         max_err = max(max_err, err)
-    # the kernel has an FFT for n_fft 1024 only: another size must raise on the
-    # card, not fall back to the plain version
+    # the other instances, n_fft 512 (32 x 16) and 2048 (32 x 64), at hop
+    # n_fft / 4 on a 1024-frame bucket, against numpy float64 and the plain
+    # version; each is timed cold
+    size_ms = {}
+    for n_fft in (512, 2048):
+        hop = n_fft // 4
+        x = torch.from_numpy((rng.standard_normal((1, (BUCKET - 1) * hop + n_fft)) * 0.3).astype(np.float32)).cuda()
+        out = stft_cuda.stft_magnitude(x, n_fft, hop, n_fft)
+        ref = stft_magnitude_plain(x, n_fft, hop, n_fft)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        host_err = float(np.abs(out[0].cpu().numpy() - host_spectrogram(x[0].cpu().numpy(), n_fft, hop, n_fft)).max())
+        size_ms[n_fft] = time_ms(lambda: stft_cuda.stft_magnitude(x, n_fft, hop, n_fft))
+        print(f"n_fft {n_fft} hop {hop} B=1: out {tuple(out.shape)}  max|kernel - plain| {err:.3e}  "
+              f"max|kernel - numpy f64| {host_err:.3e}  (bar {STFT_TOL}); kernel {size_ms[n_fft]:.4f} ms cold")
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"n_fft {n_fft}: bad output")
+        check(err <= STFT_TOL and host_err <= STFT_TOL, f"n_fft {n_fft}: kernel disagrees with its plain version")
+        max_err = max(max_err, err)
+    # a size without an instance must raise on the card, not fall back to the
+    # plain version
     before = stft_cuda.launches
     try:
-        stft_cuda.stft_magnitude(cases[0][1], 512, 128, 512)
+        stft_cuda.stft_magnitude(cases[0][1], 768, 256, 768)
     except ValueError as e:
-        print(f"n_fft 512 on the card raises: {e}")
+        print(f"n_fft 768 on the card raises: {e}")
     else:
         raise SmokeFailure("an n_fft without an FFT in the kernel did not raise")
     check(stft_cuda.launches == before, "a refused n_fft launched the kernel")
@@ -239,8 +259,8 @@ def stft_check(name: str) -> dict:
     # the function's least work: a real FFT a frame and the magnitudes; the
     # audio in, the bins out, the window and the twiddles once
     ops = b * frames * (2.5 * 1024 * math.log2(1024) + 5 * n_freq)
-    window_, twiddle, w32 = stft_cuda.fft_tables(1024, 1024)
-    nbytes = 4 * (b * length + b * frames * n_freq) + window_.nbytes + twiddle.nbytes + w32.nbytes
+    window_, twiddle, roots = stft_cuda.fft_tables(1024, 1024)
+    nbytes = 4 * (b * length + b * frames * n_freq) + window_.nbytes + twiddle.nbytes + roots.nbytes
     op_ms, byte_ms = ops / flop_rate * 1e3, nbytes / byte_rate * 1e3
     bound_ms = max(op_ms, byte_ms)
     print(f"[{b}, {length}] → [{b}, {frames}, {n_freq}]: kernel {ms:.4f} ms ({hot_ms:.4f} with a hot L2)  "
@@ -254,7 +274,7 @@ def stft_check(name: str) -> dict:
         "replaces": "openvoice_tpu/ops/stft_pallas.py:75",
         "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-        "library_ms": library_ms, "hot_ms": hot_ms,
+        "library_ms": library_ms, "hot_ms": hot_ms, "n_fft_ms": {"512": size_ms[512], "2048": size_ms[2048]},
     }
 
 
@@ -502,6 +522,7 @@ def tail_check(kind: str, gen) -> dict:
 
     phase("3e. kernel check: K4 tail_stage (csrc/tail.cu) vs its plain version")
     max_err, ms, hot_ms, plain_ms, stock_ms, flop, nbytes, stage_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, []
+    launches_ = []
     u, k_up = 2, 4
     # V2 stages 2 (128 → 64 channels) and 3 (64 → 32, then conv_post and tanh)
     for c_in, c, rate_in, last in [(128, 64, 64, False), (64, 32, 128, True)]:
@@ -519,8 +540,28 @@ def tail_check(kind: str, gen) -> dict:
             # the audio has no mask after conv_post: zeros start 3 samples late
             max_err = max(max_err, agree(label, out, tail_cuda.tail_stage_plain(x, lens, packed), MRF_MEAN_TOL,
                                          lengths, zero_after=3 if last else 0))
-            timed = timed or (x, lens, t_in, lengths[0])
-        x, lens, t_in, n = timed
+            timed = timed or (x, lens, t_in, lengths[0], {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(
+                tail_cuda.last_launch["smem"])})
+        x, lens, t_in, n, launch = timed
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        live = tail_cuda.live_tiles(n, launch["tile"], 3 if last else 0, t_in * u)
+        slots = max(launch["blocks_per_sm"], 1) * sms
+        print(f"K4 launch {c_in}→{c}: rows/kept {launch['rows']}/{launch['tile']} (halo {launch['halo']}), "
+              f"{launch['threads']} threads, {launch['registers']} registers, "
+              f"{launch['spill_bytes']} bytes spilled a thread; {launch['tiles']} tiles, of which the exit rule "
+              f"leaves {live} live at {FRAMES} frames (computed on the host from the rule, not measured); "
+              f"{launch['blocks_per_sm']} block(s) an SM × {sms} SMs: {-(-live // slots)} waves ({live / slots:.2f})")
+        check(launch["blocks_per_sm"] >= 1, "no K4 block fits on an SM")
+        # the early exit, measured: at length 0 every tile (on the last stage
+        # every tile but the first, which conv_post's reach keeps) lies past
+        # the length, returns before any product and leaves exact zeros.
+        # Without the exit the launch would do the whole grid's work, more
+        # than the run at the true length does.
+        lens0 = lens_on_card([0])
+        out0 = tail_cuda.tail_stage(x, lens0, packed)
+        torch.cuda.synchronize()
+        check(bool((out0 == 0).all()), f"K4 {c_in}→{c} at length 0: output not all zero")
+        empty_ms = time_ms(lambda: tail_cuda.tail_stage(x, lens0, packed), 10)
         mask_in = (torch.arange(t_in, device="cuda") < n // u).to(torch.bfloat16)[None, None]
         mask = (torch.arange(t_in * u, device="cuda") < n).to(torch.bfloat16)[None, None]
         x_bct = (x.transpose(1, 2) * mask_in).contiguous()
@@ -534,17 +575,21 @@ def tail_check(kind: str, gen) -> dict:
         times = (time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10),
                  time_ms(lambda: tail_cuda.tail_stage_plain(x, lens, packed), 3), time_ms(stock, 10),
                  time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10, cold=False))
-        print(f"{c_in}→{c} T_in={t_in}: kernel {times[0]:.4f} ms ({times[3]:.4f} with a hot L2)  "
-              f"plain {times[1]:.4f} ms  stock bf16 layers {times[2]:.4f} ms")
+        print(f"{c_in}→{c} T_in={t_in}: kernel {times[0]:.4f} ms ({times[3]:.4f} with a hot L2), "
+              f"{empty_ms:.4f} ms at length 0 (the tiles past it exit)  plain {times[1]:.4f} ms  "
+              f"stock bf16 layers {times[2]:.4f} ms")
+        check(empty_ms < 0.5 * times[0], f"K4 {c_in}→{c}: at length 0 the tiles do not exit early "
+              f"({empty_ms:.4f} ms against {times[0]:.4f} at {n} samples)")
         ms, plain_ms, stock_ms, hot_ms = ms + times[0], plain_ms + times[1], stock_ms + times[2], hot_ms + times[3]
         stage_ms.append(times[0])
+        launches_.append({**launch, "empty_ms": empty_ms})
         flop += 2.0 * n * (N_TAPS * c * c + (k_up // u) * c_in * c + (7 * c if last else 0))
         weights = numel(packed, ("w", "b", "up_w", "up_b")) + (packed["post_w"].numel() if last else 0)
         nbytes += 2 * ((n // u) * c_in + t_in * u * (1 if last else c) + weights)
     entry = kernel_entry(kind, "tail_stage", "openvoice_tpu_torch/csrc/tail.cu",
                          "openvoice_tpu/ops/mrf_pallas.py:731", max_err, ms, hot_ms, plain_ms, stock_ms, flop,
                          nbytes)
-    return {**entry, "stage_ms": stage_ms}
+    return {**entry, "stage_ms": stage_ms, "stage_launch": launches_}
 
 
 def print_windows() -> None:
@@ -589,7 +634,9 @@ def sweep(kind: str, only: list[str]) -> None:
         (coupling_check, "coupling_cuda", coupling),
         (mrf_check, "mrf_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384))
          + [{"_RING_RESERVE": n} for n in (3, 4, 6, 8)]),
-        (tail_check, "tail_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384, 512))),
+        # K4: the tile a block keeps (the windows it gives: stage 2 384, 448
+        # and 512 rows, stage 3 384, 512, 704 and 960) and threads
+        (tail_check, "tail_cuda", knobs((tile, th) for tile in (256, 328, 576, 4096) for th in (384, 512))),
     ]
     if only:
         grids = [grid for grid in grids if grid[1].removesuffix("_cuda") in only]
@@ -604,16 +651,28 @@ def sweep(kind: str, only: list[str]) -> None:
             gen = torch.Generator().manual_seed(SEED + 2)  # the same inputs for every variant
             entry = fn(kind, gen)
             table.append((entry["name"], {**default, **variant}, entry["ms"], entry.get("stage_ms", []),
-                          entry["stock_bf16_ms"], {**default, **variant} == default, entry.get("cluster")))
+                          entry["stock_bf16_ms"], {**default, **variant} == default,
+                          entry.get("cluster") or entry.get("stage_launch")))
         for k, v in default.items():
             setattr(mod, k, v)
     if not only or "mrf" in only:
         mrf_one_tile()
+    if not only or "tail" in only:
+        tail_one_tile()
+        tail_lengths()
     phase("sweep: kernel ms at the convert shapes (K2 both directions, K3 and K4 both stages)")
-    for name, knob, ms, stage_ms, stock_ms, is_default, cluster in table:
+    for name, knob, ms, stage_ms, stock_ms, is_default, launch in table:
         stages = f" = {' + '.join(f'{t:.4f}' for t in stage_ms)}" if stage_ms else ""
         setting = "  ".join(f"{k.strip('_').lower()} {v}" for k, v in knob.items())
-        clusters = (f"  [{cluster['ctas']} CTAs, {cluster['max_clusters']} clusters fit]" if cluster else "")
+        if isinstance(launch, dict):  # K2's cluster line
+            clusters = f"  [{launch['ctas']} CTAs, {launch['max_clusters']} clusters fit]"
+        elif launch:                  # K4's launch per stage
+            clusters = "  [" + "; ".join(
+                f"{st['rows']}/{st['tile']} rows, {st['tiles']} tiles, {st['registers']} regs, "
+                f"{st['spill_bytes']} B spilled, {st['blocks_per_sm']}/SM, {st['empty_ms']:.4f} ms at length 0"
+                for st in launch) + "]"
+        else:
+            clusters = ""
         print(f"  {name:15s} {setting}: {ms:8.4f} ms{stages}{clusters}  "
               f"(stock bf16 layers {stock_ms:.4f} ms){'  <- default' if is_default else ''}")
     print_windows()
@@ -637,6 +696,70 @@ def mrf_one_tile() -> None:
             x, lens = rand_bf16(gen, 1, t, c), lens_on_card([t])
             ms = time_ms(lambda: mrf_cuda.mrf_stage(x, lens, packed), 10)
             print(f"  K3 C={c} T={t:6d} ({-(-t // one)} blocks): {ms:.4f} ms")
+
+
+def tail_one_tile() -> None:
+    """K4 at its default knobs on one block's tile against the whole convert
+    shape: when one block alone takes as long as each wave of the grid,
+    blocks do not contend for L2 and the time is in each block's own path."""
+    import torch
+
+    from openvoice_tpu_torch.nn.conv import conv1d, conv_transpose1d
+    from openvoice_tpu_torch.ops import tail_cuda
+
+    phase("sweep: K4 on one tile and on the convert shape")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for c_in, c, rate_in, last in [(128, 64, 64, False), (64, 32, 128, True)]:
+        post = redraw(conv1d(c, 1, 7, bias=False), gen) if last else None
+        packed = tail_cuda.pack_tail_weights(redraw(conv_transpose1d(c_in, c, 4, 2), gen), list(resblocks(c, gen)),
+                                             post)
+        t_full = BUCKET * rate_in
+        x = rand_bf16(gen, 1, t_full, c_in)
+        lens = lens_on_card([FRAMES * rate_in * 2])
+        tail_cuda.tail_stage(x, lens, packed)
+        launch = {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(tail_cuda.last_launch["smem"])}
+        full = time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10)
+        live = tail_cuda.live_tiles(FRAMES * rate_in * 2, launch["tile"], 3 if last else 0, t_full * 2)
+        waves = -(-live // (launch["blocks_per_sm"] * sms))
+        one_x = x[:, : launch["tile"] // 2].contiguous()
+        one_lens = lens_on_card([launch["tile"]])
+        one = time_ms(lambda: tail_cuda.tail_stage(one_x, one_lens, packed), 10)
+        print(f"  K4 {c_in}→{c}: one {launch['rows']}/{launch['tile']}-row tile {one:.4f} ms; convert shape "
+              f"{full:.4f} ms = {waves} waves of {full / waves:.4f} ms ({live} live tiles)")
+
+
+def tail_lengths() -> None:
+    """K4 at its default knobs, B = 1, cold, on clips of other lengths and
+    buckets than the main path's: the time of both stages beside the tiles,
+    the live tiles the exit rule leaves (computed on the host) and the waves
+    they take."""
+    import torch
+
+    from openvoice_tpu_torch.nn.conv import conv1d, conv_transpose1d
+    from openvoice_tpu_torch.ops import tail_cuda
+
+    phase("sweep: K4 at other lengths (bucket, true frames)")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    stages = []
+    for c_in, c, rate_in, last in [(128, 64, 64, False), (64, 32, 128, True)]:
+        post = redraw(conv1d(c, 1, 7, bias=False), gen) if last else None
+        stages.append((c_in, c, rate_in, last, tail_cuda.pack_tail_weights(
+            redraw(conv_transpose1d(c_in, c, 4, 2), gen), list(resblocks(c, gen)), post)))
+    for bucket, frames in [(512, 430), (1024, 512), (1024, FRAMES), (1024, 1024), (2048, 1722)]:
+        total, parts = 0.0, []
+        for c_in, c, rate_in, last, packed in stages:
+            t_in, n = bucket * rate_in, frames * rate_in * 2
+            x, lens = rand_bf16(gen, 1, t_in, c_in), lens_on_card([n])
+            tail_cuda.tail_stage(x, lens, packed)
+            launch = {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(tail_cuda.last_launch["smem"])}
+            ms = time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10)
+            live = tail_cuda.live_tiles(n, launch["tile"], 3 if last else 0, t_in * 2)
+            parts.append(f"{c_in}→{c} {ms:.4f} ms, {launch['tiles']} tiles, {live} live, "
+                         f"{live / (launch['blocks_per_sm'] * sms):.2f} waves")
+            total += ms
+        print(f"  K4 bucket {bucket}, {frames} frames: {total:.4f} ms = " + "; ".join(parts))
 
 
 def voice(seconds: float, f0: float, seed: int) -> np.ndarray:

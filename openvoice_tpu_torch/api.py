@@ -19,11 +19,13 @@ import torch
 
 from openvoice_tpu_torch.audio.io import load_audio, write_wav
 from openvoice_tpu_torch.ckpt.from_jax import load_ckpt as _load_reference_ckpt
+from openvoice_tpu_torch.ckpt.from_jax import load_params_npz, synthesizer_from_jax
 from openvoice_tpu_torch.config import HParams, SynthesizerConfig, load_hparams
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
 from openvoice_tpu_torch.pipeline import watermark as wm
 from openvoice_tpu_torch.pipeline.se_extractor import split_audio_vad
+from openvoice_tpu_torch.pipeline.whisper_seg import make_segmenter, split_audio_whisper
 from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
 
 
@@ -83,12 +85,18 @@ class ToneColorConverter:
         self.set_model(model)
 
     def load_ckpt(self, ckpt_path: str) -> dict:
-        """Load a reference ``.pth``; returns the missing/unexpected report
-        (strict=False semantics, api.py:35-39)."""
-        model = S.Synthesizer(self.cfg)
-        result = model.load_state_dict(_load_reference_ckpt(ckpt_path), strict=False)
+        """Load a reference ``.pth`` or a JAX-package ``.npz`` (its
+        ``ckpt/native_io.py::save_npz``); returns the missing/unexpected
+        report (strict=False semantics, api.py:35-39; an ``.npz`` loads
+        strictly and reports nothing, as in the JAX package)."""
+        if ckpt_path.endswith(".npz"):
+            model = synthesizer_from_jax(load_params_npz(ckpt_path), self.cfg)
+            report = {"missing": [], "unexpected": []}
+        else:
+            model = S.Synthesizer(self.cfg)
+            result = model.load_state_dict(_load_reference_ckpt(ckpt_path), strict=False)
+            report = {"missing": list(result.missing_keys), "unexpected": list(result.unexpected_keys)}
         self.set_model(model)
-        report = {"missing": list(result.missing_keys), "unexpected": list(result.unexpected_keys)}
         print(f"Loaded checkpoint '{ckpt_path}'")
         print("missing/unexpected keys:", report["missing"], report["unexpected"])
         return report
@@ -127,13 +135,20 @@ class ToneColorConverter:
         return out
 
     def extract_se_from_file(self, audio_path: str, vad: bool = True) -> np.ndarray:
-        """Segment a reference recording with the energy VAD, batch the
-        segments through ref_enc, mean → [1, gin, 1] (the get_se fast path).
-        Whisper-mode segmentation (vad=False) is not ported yet."""
-        if not vad:
-            raise NotImplementedError("whisper-mode segmentation is not ported yet")
+        """Segment a reference recording, batch the segments through ref_enc,
+        mean → [1, gin, 1] (the get_se fast path).
+
+        vad=True: the energy-VAD splitter (the served default).  vad=False:
+        whisper-mode segmentation (reference se_extractor.py:19-74) when
+        cached ASR weights exist, else the whole file as one segment, as the
+        JAX package does (openvoice_tpu/api.py:157-178)."""
         audio, sr = load_audio(audio_path, sr=self.cfg.sampling_rate)
-        se = self._se_from_audio_batch(split_audio_vad(audio, sr))
+        if vad:
+            segments = split_audio_vad(audio, sr)
+        else:
+            seg = make_segmenter(prefer_whisper=True)
+            segments = (split_audio_whisper(audio, sr, seg) if seg else []) or [audio]
+        se = self._se_from_audio_batch(segments)
         return se[None, :, None].astype(np.float32)
 
     @torch.inference_mode()

@@ -11,6 +11,8 @@
   cache, so that a test starts both packages from the same arrays.
 * `load_ckpt`: a reference-format ``.pth`` checkpoint → a state dict with
   weight norm folded into plain weights, ready for ``load_state_dict``.
+* `load_params_npz`: an ``.npz`` the JAX package wrote
+  (``ckpt/native_io.py::save_npz``) → the pytree, for `synthesizer_from_jax`.
 
 Only numpy arrays cross the boundary: nothing here imports JAX.
 """
@@ -137,3 +139,27 @@ def load_ckpt(path: str) -> dict[str, torch.Tensor]:
     checkpoint = torch.load(path, map_location="cpu", weights_only=True)
     sd = checkpoint["model"] if "model" in checkpoint else checkpoint
     return fold_weight_norm({k: v for k, v in sd.items() if isinstance(v, torch.Tensor)})
+
+
+def load_params_npz(path: str) -> dict:
+    """The nested pytree (dicts and lists of numpy arrays) of an ``.npz``
+    whose keys are dotted paths, as ``openvoice_tpu/ckpt/torch_import.py::
+    load_params_npz`` rebuilds it, without the conversion to JAX arrays."""
+    root: dict = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            parts = key.split(".")
+            node = root
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = flat[key]
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        keys = list(node)
+        if keys and all(k.isdigit() for k in keys):
+            return [listify(node[k]) for k in sorted(keys, key=int)]
+        return {k: listify(v) for k, v in node.items()}
+
+    return listify(root)

@@ -128,50 +128,6 @@ __device__ __forceinline__ void warp_gemm(Acc& acc, const bf16* __restrict__ a, 
     }
 }
 
-// A block-wide convolution over rows: for output rows r in [0, 32 * m_chunks)
-// and columns n in [0, n_out),
-//   y[r, n] = bias[n] + sum_i A[a_row0 + r + shift0 + i * shift_step, :] @ W[tap0 + i * tap_step][:, n]
-// with W[t] the t-th [cin, n_out] matrix of `wfrag` (fragment order).  The
-// block's warps share the 32 x 32 tiles; each element pair (r, n), (r, n + 1)
-// goes once through store(r, n, y0, y1).  No barrier inside.
-template <bool LRELU, typename Store>
-__device__ __forceinline__ void conv_rows(const bf16* a, int lda, int a_rows, int a_row0, int m_chunks,
-                                          int cin, const bf16* zero_row,
-                                          const uint2* __restrict__ wfrag, int n_out, int n_taps,
-                                          int shift0, int shift_step, int tap0, int tap_step,
-                                          const bf16* __restrict__ bias, bf162 slope, Store store) {
-    const int warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5, lane = threadIdx.x & 31;
-    const int n_tiles = n_out >> 3, n_groups = (n_tiles + NT - 1) / NT;
-    const size_t tap_words = static_cast<size_t>(cin >> 4) * n_tiles * 32;
-    // neighbouring warps take the same columns of neighbouring row chunks, so
-    // they read the same weight lines at about the same time
-    for (int item = warp; item < m_chunks * n_groups; item += n_warps) {
-        const int ng = item / m_chunks, mc = item % m_chunks;
-        int nt[NT];
-#pragma unroll
-        for (int j = 0; j < NT; ++j) nt[j] = (ng * NT + j < n_tiles) ? ng * NT + j : -1;
-        Acc acc;
-        zero_acc(acc);
-        for (int i = 0; i < n_taps; ++i)
-            warp_gemm<LRELU>(acc, a, lda, a_rows, a_row0 + mc * TILE_ROWS + shift0 + i * shift_step,
-                             zero_row, cin, wfrag + (tap0 + i * tap_step) * tap_words, n_tiles, nt,
-                             slope);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-            if (nt[j] < 0) continue;
-            const int col = nt[j] * 8 + (lane & 3) * 2;
-            const float b0 = bias ? __bfloat162float(bias[col]) : 0.f;
-            const float b1 = bias ? __bfloat162float(bias[col + 1]) : 0.f;
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                for (int half = 0; half < 2; ++half)
-                    store(mc * TILE_ROWS + mt * 16 + (lane >> 2) + half * 8, col,
-                          acc[mt][j][2 * half] + b0, acc[mt][j][2 * half + 1] + b1);
-        }
-    }
-}
-
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
 __device__ __forceinline__ bf162 no_slope() { return __float2bfloat162_rn(0.f); }

@@ -272,8 +272,11 @@ __device__ __forceinline__ void conv_ring(const bf16* a, int lda, int a_rows, in
     }
 }
 
-// mrf_branch.cuh::mrf_branches with each conv on its own rows (`chunks`)
-// and its weights streamed through `ring`.
+// The branch chains of mrf_branch.cuh with each conv on its own rows
+// (`chunks`) and its weights streamed through `ring`.  load_x0() fills w.xb
+// with the masked stage input; result(row, col, m0, m1) receives the stage's
+// result for rows acc_row0 .. acc_row0 + acc_rows, once per element pair.
+// Ends with a barrier.
 template <typename LoadX0, typename Result>
 __device__ __forceinline__ void stage_branches(const MrfWindow& w, const MrfMeta& meta, const ConvChunks& chunks,
                                                WeightRing& ring, const bf16* __restrict__ bias, LoadX0 load_x0,
@@ -315,8 +318,9 @@ __device__ __forceinline__ void stage_branches(const MrfWindow& w, const MrfMeta
                     *px = __floats2bfloat162_rn(n0, n1);
                     const int arow = row - w.acc_row0;
                     if (last_pair && arow >= 0 && arow < w.acc_rows) {
-                        // as in mrf_branches: parked as bf16, summed in f32 in
-                        // order by the last branch, each thread its own values
+                        // a finished branch's output is parked as bf16 and
+                        // summed in f32, in order, by the last branch; each
+                        // thread reads back only what it wrote itself
                         bf16* park = w.parked + static_cast<size_t>(arow) * c + col;
                         const size_t slot = static_cast<size_t>(w.acc_rows) * c;
                         if (br < meta.n_branches - 1) {

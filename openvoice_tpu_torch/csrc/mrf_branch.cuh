@@ -22,7 +22,10 @@
 // (every use of it is masked) and lets the first conv of a pair apply its
 // leaky ReLU to the A fragments in registers instead of to a third buffer.
 // Rows near the window's edge go stale by each conv's reach; the caller's
-// halo (stage_halo in ops/mrf_cuda.py) covers the deepest branch.
+// halo (stage_halo in ops/mrf_cuda.py) covers the deepest branch.  Each
+// kernel runs the chains with its own product loop and computes each conv
+// only on the rows the later convs of its branch read (mrf.cu's
+// stage_branches, tail.cu's tail_branches).
 
 #pragma once
 
@@ -48,81 +51,6 @@ struct MrfWindow {
     int acc_row0, acc_rows;  // window rows whose result is kept
     int pos0, length;
 };
-
-// wfrag: every conv's taps in execution order (branch, pair, first | second
-// conv), each tap a [C/16][C/8][32] fragment matrix; bias [n_convs][C] bf16.
-// load_x0() fills w.xb with the masked stage input (every thread calls it; no
-// barrier needed inside).  result(row, col, m0, m1) receives the stage's
-// result for rows acc_row0 .. acc_row0 + acc_rows, once per element pair.
-// Ends with a barrier.
-template <typename LoadX0, typename Result>
-__device__ __forceinline__ void mrf_branches(const MrfWindow& w, const MrfMeta& meta,
-                                             const uint2* __restrict__ wfrag,
-                                             const bf16* __restrict__ bias, LoadX0 load_x0,
-                                             Result result) {
-    const int c = w.chan;
-    const size_t tap_words = static_cast<size_t>(c >> 4) * (c >> 3) * 32;
-    const int m_chunks = w.rows / TILE_ROWS;
-    const float slope_f = __bfloat162float(__float2bfloat16_rn(0.1f));
-    const bf162 slope = __float2bfloat162_rn(0.1f);
-    const float n_br = static_cast<float>(meta.n_branches);
-    auto live = [&](int row) { const int p = w.pos0 + row; return p >= 0 && p < w.length; };
-
-    for (int br = 0; br < meta.n_branches; ++br) {
-        load_x0();
-        __syncthreads();
-        const int k = meta.ksize[br], half = (k - 1) / 2;
-        for (int pair = 0; pair < meta.n_pairs; ++pair) {
-            const int d = meta.dilation[br][pair];
-            conv_rows<true>(w.xb, w.ld, w.rows, 0, m_chunks, c, w.zero_row, wfrag, c, k, -half * d, d,
-                            0, 1, bias, slope, [&](int row, int col, float v0, float v1) {
-                                const bool ok = live(row);
-                                const float a0 = ok ? lrelu_bf16(round_bf16(v0), slope_f) : 0.f;
-                                const float a1 = ok ? lrelu_bf16(round_bf16(v1), slope_f) : 0.f;
-                                *reinterpret_cast<bf162*>(w.xt + static_cast<size_t>(row) * w.ld + col) =
-                                    __floats2bfloat162_rn(a0, a1);
-                            });
-            wfrag += k * tap_words;
-            bias += c;
-            __syncthreads();
-            const bool last_pair = pair == meta.n_pairs - 1;
-            conv_rows<false>(w.xt, w.ld, w.rows, 0, m_chunks, c, w.zero_row, wfrag, c, k, -half, 1, 0,
-                             1, bias, slope, [&](int row, int col, float v0, float v1) {
-                                 bf162* px = reinterpret_cast<bf162*>(w.xb + static_cast<size_t>(row) * w.ld + col);
-                                 float n0 = 0.f, n1 = 0.f;
-                                 if (live(row)) {
-                                     const float2 cur = __bfloat1622float2(*px);
-                                     n0 = round_bf16(cur.x + round_bf16(v0));
-                                     n1 = round_bf16(cur.y + round_bf16(v1));
-                                 }
-                                 *px = __floats2bfloat162_rn(n0, n1);
-                                 const int arow = row - w.acc_row0;
-                                 if (last_pair && arow >= 0 && arow < w.acc_rows) {
-                                     // a finished branch's output is parked as the bf16 it
-                                     // is; the last branch adds them up in f32, in order.
-                                     // Each thread reads back only what it wrote itself.
-                                     bf16* park = w.parked + static_cast<size_t>(arow) * c + col;
-                                     const size_t slot = static_cast<size_t>(w.acc_rows) * c;
-                                     if (br < meta.n_branches - 1) {
-                                         *reinterpret_cast<bf162*>(park + br * slot) = __floats2bfloat162_rn(n0, n1);
-                                     } else {
-                                         float s0 = 0.f, s1 = 0.f;
-                                         for (int i = 0; i < br; ++i) {
-                                             const float2 p = __bfloat1622float2(
-                                                 *reinterpret_cast<const bf162*>(park + i * slot));
-                                             s0 += p.x;
-                                             s1 += p.y;
-                                         }
-                                         result(row, col, (s0 + n0) / n_br, (s1 + n1) / n_br);
-                                     }
-                                 }
-                             });
-            wfrag += k * tap_words;
-            bias += c;
-            __syncthreads();
-        }
-    }
-}
 
 inline MrfMeta make_meta(int n_branches, int n_pairs, const int* ksizes, const int* dilations) {
     MrfMeta meta;

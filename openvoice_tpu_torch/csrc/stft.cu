@@ -19,50 +19,63 @@
 // possible.  (The DFT as a product with a basis would be 2.15 GFLOP of fp32
 // FMA, since the 1e-4 parity bar rules out TF32.)
 //
-// Design, n_fft = 1024 = 32 x 32, n = n1 + 32 n2, f = k2 + 32 k1:
-//   1. lane n1 loads x[n1 + 32 n2] * w[n1 + 32 n2] for n2 = 0..31: each n2 is
-//      one 128-byte read of the warp;
-//   2. lane n1: Y[k2] = sum_n2 x[n1 + 32 n2] W32^(n2 k2), a 32-point FFT in
+// Design, n_fft = R1 x R2 with R1 = 32 (the lanes of a warp) and R2 = 16, 32
+// or 64 (n_fft 512, 1024, 2048), n = n1 + 32 n2, f = k2 + R2 k1:
+//   1. lane n1 loads x[n1 + 32 n2] * w[n1 + 32 n2] for n2 = 0..R2-1: each n2
+//      is one 128-byte read of the warp;
+//   2. lane n1: Y[k2] = sum_n2 x[n1 + 32 n2] W_R2^(n2 k2), an R2-point FFT in
 //      registers;
-//   3. lane n1: Z[n1][k2] = Y[k2] W1024^(n1 k2);
-//   4. the warp transposes Z through shared memory (one 32 x 33 float tile a
-//      warp, real part then imaginary part), so lane k2 holds Z[.][k2];
-//   5. lane k2: X[k2 + 32 k1] = sum_n1 Z[n1][k2] W32^(n1 k1), a second
-//      32-point FFT;
-//   6. for k1 = 0..15 the warp writes bins 32 k1 .. 32 k1 + 31, coalesced;
-//      lane 0 writes bin 512.
+//   3. lane n1: Z[n1][k2] = Y[k2] W_N^(n1 k2);
+//   4. the warp transposes Z through shared memory (one R2 x 33 float tile a
+//      warp, real part then imaginary part), so that lane l holds the columns
+//      k2 = l + 32 c (c < R2 / 32; at R2 = 16 lanes 16..31 hold none);
+//   5. for each of its columns: X[k2 + R2 k1] = sum_n1 Z[n1][k2] W_32^(n1 k1),
+//      a 32-point FFT;
+//   6. for k1 = 0..15 the lanes write bins k2 + R2 k1, coalesced; the lane of
+//      column 0 writes bin n_fft/2.
 // Only __syncwarp orders the exchange: warps never wait on each other.  The
-// window, the per-lane twiddles W1024^(n1 k2) and the 32-point twiddles come
+// window, the per-lane twiddles W_N^(n1 k2) and the small FFTs' roots come
 // from the host, computed in float64 and rounded once to float32; the
-// per-lane ones are read through the read-only cache, the 32-point ones,
-// the same on every lane, are kernel parameters.
+// per-lane ones are read through the read-only cache, the roots, the same on
+// every lane, are kernel parameters.  At R2 = 64 a lane holds 64 complex
+// values in each step (128 floats); ptxas reports each instance's registers
+// and spills at build time.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int RADIX = 32;              // n_fft = RADIX * RADIX
-constexpr int N_FFT = RADIX * RADIX;
-constexpr int N_FREQ = N_FFT / 2 + 1;  // 513
-constexpr int WARPS = 8;               // frames a block
+constexpr int R1 = 32;     // lanes of a warp: step 2 runs R1 FFTs, step 5 FFTs of R1 points
+constexpr int MAX_R = 64;  // the largest radix of an instance
 
-// exp(-2 pi i j / 32), j = 0..15
-struct Twiddle32 {
-    float re[RADIX / 2], im[RADIX / 2];
+// exp(-2 pi i j / M), j = 0..M/2-1, M = max(R1, R2): the roots of every small
+// FFT of an instance (W_R^e = W_M^(e M / R))
+struct Roots {
+    float re[MAX_R / 2], im[MAX_R / 2];
 };
 
-__device__ __forceinline__ constexpr int bit_reverse5(int i) {
-    return ((i & 1) << 4) | ((i & 2) << 2) | (i & 4) | ((i & 8) >> 2) | ((i & 16) >> 4);
+template <int R2>
+struct Instance {
+    static constexpr int N = R1 * R2;
+    static constexpr int M = R2 > R1 ? R2 : R1;
+    static constexpr int COLS = (R2 + R1 - 1) / R1;  // step-5 columns a lane
+    static constexpr int WARPS = R2 > 32 ? 4 : 8;    // frames a block: at most 33.8 KB of tiles
+};
+
+__device__ __forceinline__ constexpr int bit_reverse(int i, int n) {
+    int r = 0;
+    for (int m = n >> 1; m; m >>= 1, i >>= 1) r = (r << 1) | (i & 1);
+    return r;
 }
 
-// One radix-2 stage of fft32: butterflies of span HALF.
-template <int HALF>
-__device__ __forceinline__ void fft32_stage(float (&re)[RADIX], float (&im)[RADIX], const Twiddle32& w) {
+// One radix-2 stage of an N-point FFT: butterflies of span HALF.
+template <int N, int M, int HALF>
+__device__ __forceinline__ void fft_stage(float (&re)[N], float (&im)[N], const Roots& w) {
 #pragma unroll
-    for (int base = 0; base < RADIX; base += 2 * HALF) {
+    for (int base = 0; base < N; base += 2 * HALF) {
 #pragma unroll
         for (int j = 0; j < HALF; ++j) {
-            const int e = j * (RADIX / 2 / HALF);  // W_{2 HALF}^j = W_32^e
+            const int e = j * (M / 2 / HALF);  // W_{2 HALF}^j = W_M^e
             const int p = base + j, q = p + HALF;
             const float tr = re[q] * w.re[e] - im[q] * w.im[e];
             const float ti = re[q] * w.im[e] + im[q] * w.re[e];
@@ -72,98 +85,130 @@ __device__ __forceinline__ void fft32_stage(float (&re)[RADIX], float (&im)[RADI
             im[p] += ti;
         }
     }
+    if constexpr (2 * HALF < N) fft_stage<N, M, 2 * HALF>(re, im, w);
 }
 
-// In-place 32-point forward DFT of (re, im) in registers, natural order in
+// In-place N-point forward DFT of (re, im) in registers, natural order in
 // and out: a radix-2 decimation in time whose every index is a compile-time
 // constant, so the arrays stay in registers.
-__device__ __forceinline__ void fft32(float (&re)[RADIX], float (&im)[RADIX], const Twiddle32& w) {
+template <int N, int M>
+__device__ __forceinline__ void fft(float (&re)[N], float (&im)[N], const Roots& w) {
 #pragma unroll
-    for (int i = 0; i < RADIX; ++i) {
-        const int j = bit_reverse5(i);
+    for (int i = 0; i < N; ++i) {
+        const int j = bit_reverse(i, N);
         if (i < j) {
             const float r = re[i], m = im[i];
             re[i] = re[j]; im[i] = im[j];
             re[j] = r; im[j] = m;
         }
     }
-    fft32_stage<1>(re, im, w);
-    fft32_stage<2>(re, im, w);
-    fft32_stage<4>(re, im, w);
-    fft32_stage<8>(re, im, w);
-    fft32_stage<16>(re, im, w);
+    fft_stage<N, M, 1>(re, im, w);
 }
 
-__global__ void __launch_bounds__(WARPS * 32)
-stft_fft1024_kernel(const float* __restrict__ audio, const float* __restrict__ window,
-                    const float2* __restrict__ twiddle, float* __restrict__ out, int length,
-                    int frames, int hop, Twiddle32 w32) {
-    __shared__ float exchange[WARPS][RADIX][RADIX + 1];
+template <int R2>
+__global__ void __launch_bounds__(Instance<R2>::WARPS * 32)
+stft_fft_kernel(const float* __restrict__ audio, const float* __restrict__ window,
+                const float2* __restrict__ twiddle, float* __restrict__ out, int length,
+                int frames, int hop, Roots roots) {
+    using I = Instance<R2>;
+    __shared__ float exchange[I::WARPS][R2][R1 + 1];
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int t = blockIdx.x * WARPS + warp;
+    const int t = blockIdx.x * I::WARPS + warp;
     if (t >= frames) return;  // the whole warp leaves; no barrier follows
     const int b = blockIdx.y;
     const float* a = audio + static_cast<long long>(b) * length + static_cast<long long>(t) * hop + lane;
 
-    float re[RADIX], im[RADIX];
+    float re[R2], im[R2];
 #pragma unroll
-    for (int n2 = 0; n2 < RADIX; ++n2) {
-        re[n2] = __ldg(a + RADIX * n2) * __ldg(window + lane + RADIX * n2);
+    for (int n2 = 0; n2 < R2; ++n2) {
+        re[n2] = __ldg(a + R1 * n2) * __ldg(window + lane + R1 * n2);
         im[n2] = 0.f;
     }
-    fft32(re, im, w32);
+    fft<R2, I::M>(re, im, roots);
     // twiddle is [k2][n1]: the lanes of a warp read one contiguous line
 #pragma unroll
-    for (int k2 = 0; k2 < RADIX; ++k2) {
-        const float2 tw = __ldg(twiddle + k2 * RADIX + lane);
+    for (int k2 = 0; k2 < R2; ++k2) {
+        const float2 tw = __ldg(twiddle + k2 * R1 + lane);
         const float r = re[k2] * tw.x - im[k2] * tw.y;
         im[k2] = re[k2] * tw.y + im[k2] * tw.x;
         re[k2] = r;
     }
-    // lane n1 writes row k2, column n1; lane k2 then reads its row.  The row
-    // stride of 33 words keeps both free of bank conflicts.
-    float (*x)[RADIX + 1] = exchange[warp];
+    // lane n1 writes row k2, column n1; the lane of column k2 then reads its
+    // row.  The row stride of 33 words keeps both free of bank conflicts.
+    float (*x)[R1 + 1] = exchange[warp];
+    float zr[I::COLS][R1], zi[I::COLS][R1];
+    auto has = [&](int c) { return R2 % R1 == 0 || lane + R1 * c < R2; };
 #pragma unroll
-    for (int k2 = 0; k2 < RADIX; ++k2) x[k2][lane] = re[k2];
+    for (int k2 = 0; k2 < R2; ++k2) x[k2][lane] = re[k2];
     __syncwarp();
 #pragma unroll
-    for (int n1 = 0; n1 < RADIX; ++n1) re[n1] = x[lane][n1];
+    for (int c = 0; c < I::COLS; ++c)
+        if (has(c)) {
+#pragma unroll
+            for (int n1 = 0; n1 < R1; ++n1) zr[c][n1] = x[lane + R1 * c][n1];
+        }
     __syncwarp();
 #pragma unroll
-    for (int k2 = 0; k2 < RADIX; ++k2) x[k2][lane] = im[k2];
+    for (int k2 = 0; k2 < R2; ++k2) x[k2][lane] = im[k2];
     __syncwarp();
 #pragma unroll
-    for (int n1 = 0; n1 < RADIX; ++n1) im[n1] = x[lane][n1];
-    fft32(re, im, w32);
+    for (int c = 0; c < I::COLS; ++c)
+        if (has(c)) {
+#pragma unroll
+            for (int n1 = 0; n1 < R1; ++n1) zi[c][n1] = x[lane + R1 * c][n1];
+        }
 
-    float* o = out + (static_cast<long long>(b) * frames + t) * N_FREQ;
+    float* o = out + (static_cast<long long>(b) * frames + t) * (I::N / 2 + 1);
 #pragma unroll
-    for (int k1 = 0; k1 < RADIX / 2; ++k1)
-        o[RADIX * k1 + lane] = sqrtf(re[k1] * re[k1] + im[k1] * im[k1] + 1e-6f);
-    if (lane == 0) o[N_FFT / 2] = sqrtf(re[RADIX / 2] * re[RADIX / 2] + im[RADIX / 2] * im[RADIX / 2] + 1e-6f);
+    for (int c = 0; c < I::COLS; ++c) {
+        if (!has(c)) continue;
+        fft<R1, I::M>(zr[c], zi[c], roots);
+        const int k2 = lane + R1 * c;
+#pragma unroll
+        for (int k1 = 0; k1 < R1 / 2; ++k1)
+            o[k2 + R2 * k1] = sqrtf(zr[c][k1] * zr[c][k1] + zi[c][k1] * zi[c][k1] + 1e-6f);
+        if (k2 == 0)
+            o[I::N / 2] = sqrtf(zr[c][R1 / 2] * zr[c][R1 / 2] + zi[c][R1 / 2] * zi[c][R1 / 2] + 1e-6f);
+    }
+}
+
+template <int R2>
+cudaError_t launch(const float* audio, const float* window, const float* twiddle, float* out, int batch,
+                   int length, int frames, int hop, const Roots& roots, cudaStream_t stream) {
+    constexpr int warps = Instance<R2>::WARPS;
+    const dim3 grid((frames + warps - 1) / warps, batch);
+    stft_fft_kernel<R2><<<grid, warps * 32, 0, stream>>>(
+        audio, window, reinterpret_cast<const float2*>(twiddle), out, length, frames, hop, roots);
+    return cudaGetLastError();
 }
 
 }  // namespace
 
-// audio [batch, length], window [n_fft], twiddle [32][32] complex (k2, n1) =
+// audio [batch, length], window [n_fft], twiddle [R2][32] complex (k2, n1) =
 // exp(-2 pi i n1 k2 / n_fft) and out [batch, frames, n_fft/2 + 1] are
-// contiguous float32 on `device`; w32 (host memory) holds exp(-2 pi i j / 32)
-// for j = 0..15 as 16 real parts, then 16 imaginary parts.  The launch goes on
+// contiguous float32 on `device`, n_fft = 32 R2 with R2 in {16, 32, 64};
+// roots (host memory) holds exp(-2 pi i j / M) for j = 0..M/2-1, M = max(32,
+// R2), as M/2 real parts, then M/2 imaginary parts.  The launch goes on
 // `stream`.  Returns the CUDA error of the launch (0 on success), -1 for an
-// n_fft other than 1024.
+// n_fft without an instance.
 extern "C" int stft_magnitude_f32(const float* audio, const float* window, const float* twiddle,
-                                  const float* w32, float* out, int batch, int length, int frames,
+                                  const float* roots, float* out, int batch, int length, int frames,
                                   int n_fft, int hop, int device, void* stream) {
-    if (n_fft != N_FFT) return -1;
+    const int r2 = n_fft / R1;
+    if (n_fft % R1 || (r2 != 16 && r2 != 32 && r2 != 64)) return -1;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    Twiddle32 tw;
-    for (int j = 0; j < RADIX / 2; ++j) {
-        tw.re[j] = w32[j];
-        tw.im[j] = w32[RADIX / 2 + j];
+    const int half = (r2 > R1 ? r2 : R1) / 2;
+    Roots w;
+    for (int j = 0; j < MAX_R / 2; ++j) {
+        w.re[j] = j < half ? roots[j] : 0.f;
+        w.im[j] = j < half ? roots[half + j] : 0.f;
     }
-    const dim3 grid((frames + WARPS - 1) / WARPS, batch);
-    stft_fft1024_kernel<<<grid, WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-        audio, window, reinterpret_cast<const float2*>(twiddle), out, length, frames, hop, tw);
-    return static_cast<int>(cudaGetLastError());
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (r2) {
+        case 16: err = launch<16>(audio, window, twiddle, out, batch, length, frames, hop, w, s); break;
+        case 32: err = launch<32>(audio, window, twiddle, out, batch, length, frames, hop, w, s); break;
+        default: err = launch<64>(audio, window, twiddle, out, batch, length, frames, hop, w, s); break;
+    }
+    return static_cast<int>(err);
 }

@@ -11,8 +11,6 @@ lane ``l = 4·g + t`` holds ``W[16·kt + 2t + {0, 1, 8, 9}, 8·nt + g]``.
 
 from __future__ import annotations
 
-import math
-
 import torch
 
 SMEM_MAX = 232_448      # bytes of shared memory one block may ask for on sm_90
@@ -70,13 +68,6 @@ def check_lengths(lengths: torch.Tensor, batch: int, device: torch.device) -> to
 def length_mask(lengths: torch.Tensor, t: int) -> torch.Tensor:
     """[B] → float32 [B, T, 1]: 1 where the position is below the length."""
     return (torch.arange(t, device=lengths.device)[None, :] < lengths[:, None]).float()[..., None]
-
-
-def even_rows(n_out: int, threads: int) -> int:
-    """The smallest row count whose warp tiles (32 rows × 32 columns of an
-    n_out-wide result) share out evenly among a block's warps."""
-    warps, groups = threads // 32, -(-n_out // 32)
-    return TILE_ROWS * warps // math.gcd(warps, groups)
 
 
 _WINDOWS: dict[tuple, tuple[int, int]] = {}

@@ -7,7 +7,8 @@ wrapper takes pre-reflect-padded audio [B, L] and returns magnitudes
 CPU tensor goes to the plain version
 (`openvoice_tpu_torch.audio.stft.stft_magnitude_plain`).  Nothing falls back:
 a failed build or launch raises, and so does an n_fft the kernel has no FFT
-for (it takes 1024 = 32 × 32, the size of every shipped configuration).
+for: it takes n_fft = 32·R2 for R2 = 16, 32 and 64 (`FFT_SIZES`: 512, 1024,
+the size of every shipped configuration, and 2048).
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
 launched and nowhere else.
@@ -25,8 +26,8 @@ from openvoice_tpu_torch.ops import _nvcc
 
 launches = 0
 
-RADIX = 32                     # RADIX in csrc/stft.cu: the kernel's n_fft is RADIX²
-FFT_SIZES = (RADIX * RADIX,)   # the n_fft values the kernel takes
+R1 = 32                        # R1 in csrc/stft.cu: a warp's lanes; n_fft = R1 · R2
+FFT_SIZES = (512, 1024, 2048)  # the n_fft values the kernel has an instance for (R2 16, 32, 64)
 _GRID_MAX_Y = 65535
 
 _TABLES: dict[tuple[int, int, torch.device], tuple[torch.Tensor, torch.Tensor, ctypes.Array]] = {}
@@ -41,21 +42,24 @@ def _library() -> ctypes.CDLL:
 
 
 def fft_tables(n_fft: int, win: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """What the kernel reads beside the audio, computed in float64 and
-    rounded once to float32:
+    """What the kernel's instance for `n_fft` = R1·R2 reads beside the audio,
+    computed in float64 and rounded once to float32:
 
       window  [n_fft]          the window of `stft_basis`
-      twiddle [32, 32, 2]      (k2, n1) → exp(−2πi·n1·k2 / n_fft) as (re, im)
-      w32     [2, 16]          exp(−2πi·j / 32), j = 0..15: real, imaginary
+      twiddle [R2, R1, 2]      (k2, n1) → exp(−2πi·n1·k2 / n_fft) as (re, im)
+      roots   [2, M/2]         exp(−2πi·j / M), j < M/2, M = max(R1, R2): the
+                               roots of both small FFTs, real then imaginary
     """
     check_fft_size(n_fft)
-    k2, n1 = np.meshgrid(np.arange(RADIX), np.arange(RADIX), indexing="ij")
+    r2 = n_fft // R1
+    k2, n1 = np.meshgrid(np.arange(r2), np.arange(R1), indexing="ij")
     ang = -2.0 * np.pi * n1 * k2 / n_fft
     twiddle = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
-    j = -2.0 * np.pi * np.arange(RADIX // 2) / RADIX
-    w32 = np.stack([np.cos(j), np.sin(j)])
+    m = max(R1, r2)
+    j = -2.0 * np.pi * np.arange(m // 2) / m
+    roots = np.stack([np.cos(j), np.sin(j)])
     return (stft_window(n_fft, win).astype(np.float32), twiddle.astype(np.float32),
-            w32.astype(np.float32))
+            roots.astype(np.float32))
 
 
 def check_fft_size(n_fft: int) -> None:
@@ -68,9 +72,9 @@ def _device_tables(n_fft: int, win: int, device: torch.device):
     key = (n_fft, win, device)
     tables = _TABLES.get(key)
     if tables is None:
-        window, twiddle, w32 = fft_tables(n_fft, win)
+        window, twiddle, roots = fft_tables(n_fft, win)
         tables = (torch.from_numpy(window).to(device), torch.from_numpy(twiddle).to(device),
-                  (ctypes.c_float * w32.size)(*w32.ravel().tolist()))
+                  (ctypes.c_float * roots.size)(*roots.ravel().tolist()))
         _TABLES[key] = tables
     return tables
 
@@ -102,11 +106,11 @@ def stft_magnitude(padded_audio: torch.Tensor, n_fft: int, hop: int, win: int) -
     if length >= 2**31 or batch > _GRID_MAX_Y:
         raise ValueError(f"audio [{batch}, {length}] exceeds the kernel's launch grid")
     device = padded_audio.device
-    window, twiddle, w32 = _device_tables(n_fft, win, device)
+    window, twiddle, roots = _device_tables(n_fft, win, device)
     out = torch.empty((batch, frames, n_fft // 2 + 1), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _library().stft_magnitude_f32(
-        padded_audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(), ctypes.addressof(w32),
+        padded_audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(), ctypes.addressof(roots),
         out.data_ptr(), batch, length, frames, n_fft, hop, device.index or 0, stream,
     )
     if err != 0:

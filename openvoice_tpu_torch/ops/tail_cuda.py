@@ -3,8 +3,10 @@
 
 Replaces ``openvoice_tpu/ops/mrf_pallas.py::fused_tail_stage``: leaky ReLU →
 ConvTranspose1d → mask → the MRF stage of K3, and on the last stage leaky
-ReLU 0.01 → conv_post → tanh, which gives the audio.  A CUDA tensor goes to
-the kernel, a CPU tensor to `tail_stage_plain`; nothing falls back.
+ReLU 0.01 → conv_post → tanh, which gives the audio.  Each MRF conv runs on
+the window rows `tail_chunks` gives, and a tile wholly past the true length
+(`live_tiles`) writes its zeros and returns.  A CUDA tensor goes to the kernel, a CPU tensor
+to `tail_stage_plain`; nothing falls back.
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
 launched and nowhere else.
@@ -13,22 +15,29 @@ launched and nowhere else.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 import torch.nn.functional as F
 
 from openvoice_tpu_torch.ops import _frag, _nvcc
 from openvoice_tpu_torch.ops.mrf_cuda import (
-    LRELU_SLOPE, check_stage, check_stage_cuda, lrelu_plain, mrf_branches_plain, pack_stage_weights,
-    stage_halo,
+    LRELU_SLOPE, check_stage, check_stage_cuda, conv_chunks, lrelu_plain, mrf_branches_plain,
+    pack_stage_weights, stage_halo,
 )
 
 launches = 0
 
 POST_SLOPE = 0.01   # the last activation uses torch's default slope
-_THREADS = 512       # 16 warps, as K3: more warps hide more of the latency it waits on
-_TILE_TARGET = 4096  # as many samples as shared memory holds (see mrf_cuda)
+# the launch's knobs (``python3 chip_smoke.py --sweep tail`` times them):
+# threads a block (a multiple of 32 up to 512, the kernel's launch bound,
+# which leaves a thread 128 registers), and the samples a block keeps (the
+# window grows to it, or to what shared memory holds)
+_THREADS = 512
+_TILE_TARGET = 328
+# what the last launch ran: window rows and tile, halo, threads, tiles in the
+# grid, shared memory a block
+last_launch: dict = {}
+_PLANS: dict[tuple, tuple] = {}
 
 
 def pack_tail_weights(up, resblocks, conv_post=None, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -91,15 +100,76 @@ def _in_margin(k_up: int, stride: int, pad_up: int) -> int:
     return reach
 
 
+def tail_halo(kernel_sizes, dilation_sizes, k_post: int, stride: int) -> int:
+    """Recomputed rows a side of a window: the branches' reach, plus
+    conv_post's on the last stage (k_post > 0), kept a multiple of the
+    stride so that windows start on an input sample."""
+    halo = stage_halo(kernel_sizes, dilation_sizes) + max(k_post - 1, 0) // 2
+    return -(-halo // stride) * stride
+
+
+def tail_chunks(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int,
+                post_half: int) -> list[tuple[int, int]]:
+    """The 16-row chunks (first, count) each MRF conv computes, in execution
+    order: `mrf_cuda.conv_chunks` of the kept rows, which on the last stage
+    reach `post_half` rows past the tile a side because conv_post reads them."""
+    return conv_chunks(kernel_sizes, dilation_sizes, halo - post_half, tile + 2 * post_half, rows)
+
+
+def live_tiles(len_out: int, tile: int, post_half: int, t_out: int) -> int:
+    """How many of a row's tiles the kernel computes: tile i (first sample
+    t0 = i·tile) returns at once, with its output all zero, when
+    t0 − post_half ≥ len_out; the tiles before it compute."""
+    return min(-(-(min(len_out, t_out) + post_half) // tile), -(-t_out // tile))
+
+
+def launch_plan(cin: int, c: int, t_out: int, stride: int, margin: int, k_post: int,
+                kernel_sizes, dilation_sizes) -> tuple:
+    """(rows, tile, halo, chunks, smem bytes) of a launch: the largest window (up to
+    `_TILE_TARGET` kept rows, rows a multiple of 32·stride, which the
+    upsample's phases need) that fits one block's shared memory, and
+    `tail_chunks` of it as the kernel's ctypes array.  Computed once per
+    sizes and knobs."""
+    key = (cin, c, min(_TILE_TARGET, max(t_out, 1)), stride, margin, k_post, kernel_sizes, dilation_sizes,
+           _TILE_TARGET)
+    if key not in _PLANS:
+        lib = _library()
+        halo = tail_halo(kernel_sizes, dilation_sizes, k_post, stride)
+        n_convs = 2 * sum(len(d) for d in dilation_sizes)
+        rows, tile = _frag.window(
+            ("tail", cin, c, stride, margin, n_convs), halo, t_out, _TILE_TARGET,
+            lambda r, tl: lib.tail_stage_smem_bytes(cin, c, stride, margin, r, n_convs),
+            multiples=(_frag.TILE_ROWS * stride,))
+        chunks = [v for rng in tail_chunks(kernel_sizes, dilation_sizes, halo, tile, rows,
+                                           max(k_post - 1, 0) // 2) for v in rng]
+        smem = lib.tail_stage_smem_bytes(cin, c, stride, margin, rows, n_convs)
+        _PLANS[key] = (rows, tile, halo, (ctypes.c_int * len(chunks))(*chunks), smem)
+    return _PLANS[key]
+
+
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("tail")
     lib.tail_stage_bf16.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)] * 2
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)] * 3
         + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.tail_stage_bf16.restype = ctypes.c_int
-    lib.tail_stage_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.tail_stage_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.tail_stage_smem_bytes.restype = ctypes.c_int
+    lib.tail_stage_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.tail_stage_attributes.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes(smem: int, device: int = 0) -> dict:
+    """What the kernel takes on the card: registers and spilled bytes a
+    thread (cudaFuncGetAttributes), and how many blocks of `_THREADS` threads
+    and `smem` bytes an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    err = _library().tail_stage_attributes(_THREADS, smem, device, ctypes.byref(regs), ctypes.byref(local),
+                                           ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"tail kernel attributes failed with error {err} ({_THREADS} threads)")
+    return {"registers": regs.value, "spill_bytes": local.value, "blocks_per_sm": blocks.value}
 
 
 def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Tensor:
@@ -143,30 +213,26 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
     lib = _library()
     k_post = post_w.shape[0] if post_w is not None else 0
     margin = _in_margin(k_up, stride, pad_up)
-    # the branches' reach, plus conv_post's on the last stage, kept a multiple
-    # of the stride so that windows start on an input sample
-    halo = stage_halo(packed["kernel_sizes"], packed["dilation_sizes"]) + max(k_post - 1, 0) // 2
-    halo = -(-halo // stride) * stride
-    rows, tile = _frag.window(
-        ("tail", cin, c, stride, margin), halo, t_in * stride, _TILE_TARGET,
-        lambda r, tl: lib.tail_stage_smem_bytes(cin, c, stride, margin, r),
-        multiples=(math.lcm(_frag.even_rows(c, _THREADS), _frag.TILE_ROWS * stride), _frag.TILE_ROWS * stride))
     t_out = t_in * stride
+    rows, tile, halo, chunks, smem = launch_plan(cin, c, t_out, stride, margin, k_post, packed["kernel_sizes"],
+                                                 packed["dilation_sizes"])
     out = torch.empty((batch, t_out, 1 if post_w is not None else c), dtype=x.dtype, device=x.device)
     # where the finished branches' outputs wait for the last one: a tile (and
     # conv_post's reach) a block
     scratch = torch.empty(batch * -(-t_out // tile) * (len(packed["kernel_sizes"]) - 1)
                           * (tile + max(k_post - 1, 0)) * c, dtype=torch.bfloat16, device=x.device)
+    device = x.device.index or 0
     err = lib.tail_stage_bf16(
         x.data_ptr(), lengths.data_ptr(), packed["up_w_frag"].data_ptr(), packed["up_b"].data_ptr(),
         packed["w_frag"].data_ptr(), packed["b"].data_ptr(),
         post_w.data_ptr() if post_w is not None else None, out.data_ptr(), scratch.data_ptr(),
         batch, t_in, cin, c, stride, k_up, pad_up, margin, k_post,
-        len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils,
-        rows, tile, _THREADS, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils, chunks,
+        rows, tile, _THREADS, device, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"tail kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"tail kernel launch failed with error {err} (CUDA's, or -1: a launch the kernel "
+                           f"cannot take, {_THREADS} threads)")
     launches += 1
+    last_launch.update(rows=rows, tile=tile, halo=halo, threads=_THREADS, tiles=-(-t_out // tile), smem=smem)
     return out

@@ -1,1 +1,2 @@
-"""Host-side pipeline pieces of the PyTorch port: watermark and VAD."""
+"""Host-side pipeline pieces of the PyTorch port: watermark, VAD and
+whisper-mode segmentation."""

@@ -4,7 +4,7 @@
 
 Reference audio → energy VAD → concatenated speech → ~10 s uniform segments,
 which `ToneColorConverter.extract_se_from_file` batches through the
-reference encoder.  Whisper-mode segmentation is not ported yet.
+reference encoder.  Whisper-mode segmentation is `pipeline/whisper_seg.py`.
 """
 
 from __future__ import annotations

@@ -12,7 +12,7 @@ from openvoice_tpu.api import ToneColorConverter as JaxConverter
 from openvoice_tpu.models import synthesizer as JS
 from openvoice_tpu.pipeline import watermark as jwm
 from openvoice_tpu_torch.api import ToneColorConverter
-from openvoice_tpu_torch.audio.io import write_wav
+from openvoice_tpu_torch.audio.io import load_audio, write_wav
 from openvoice_tpu_torch.models import synthesizer as TS
 from openvoice_tpu_torch.pipeline import watermark as twm
 from tests._regen_golden import GOLDEN_DIR
@@ -112,6 +112,46 @@ def test_extract_se_from_file_vad_matches_jax(converters, tmp_path):
     write_wav(path, audio, SR)
     np.testing.assert_allclose(tconv.extract_se_from_file(path), jconv.extract_se_from_file(path),
                                atol=1e-4)
+
+
+def test_extract_se_from_file_whisper_mode_matches_jax(converters, tmp_path, monkeypatch):
+    """vad=False with no cached ASR weights: both packages find no whisper
+    segmenter and take the whole file as one segment."""
+    from openvoice_tpu.pipeline import whisper_seg as jseg
+    from openvoice_tpu_torch.pipeline import whisper_seg as tseg
+
+    monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))  # an empty cache: no weights to find
+    monkeypatch.setattr(jseg, "_SEGMENTER_CACHE", {})
+    monkeypatch.setattr(tseg, "_SEGMENTER_CACHE", {})
+    jconv, tconv = converters
+    audio = np.concatenate([_voice(1.3, 170.0, 3), np.zeros(SR, np.float32), _voice(0.9, 130.0, 4)])
+    path = str(tmp_path / "ref.wav")
+    write_wav(path, audio, SR)
+    se = tconv.extract_se_from_file(path, vad=False)
+    assert tseg.make_segmenter(prefer_whisper=True) is None
+    assert se.shape == (1, TINY_API["gin_channels"], 1)
+    np.testing.assert_allclose(se, jconv.extract_se_from_file(path, vad=False), atol=1e-4)
+    whole = tconv._se_from_audio_batch([load_audio(path, sr=SR)[0]])
+    np.testing.assert_array_equal(se[0, :, 0], whole.astype(np.float32))
+
+
+def test_npz_checkpoint_from_jax_loads_and_converts(tmp_path):
+    """An .npz written by the JAX package's `save_npz` loads in the port,
+    which then converts as JAX does from the same file (f32, 5e-4)."""
+    from openvoice_tpu.ckpt.native_io import save_npz
+
+    path = str(tmp_path / "conv.npz")
+    save_npz(path, jax_params(TINY_API, seed=41))
+    jconv = JaxConverter(cfg=jax_cfg(TINY_API))
+    tconv = ToneColorConverter(cfg=torch_cfg(TINY_API), device="cpu")
+    assert tconv.load_ckpt(path) == jconv.load_ckpt(path) == {"missing": [], "unexpected": []}
+    rng = np.random.default_rng(5)
+    se_src, se_tgt = (rng.standard_normal((1, TINY_API["gin_channels"], 1)).astype(np.float32) for _ in range(2))
+    src = _voice(1.7, 140.0, seed=6)
+    out = tconv.convert(src, se_src, se_tgt, tau=0.3, seed=2, message="")
+    ref = jconv.convert(src, se_src, se_tgt, tau=0.3, seed=2, message="")
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=5e-4)
 
 
 def test_add_watermark_bit_equal_to_jax():

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from openvoice_tpu.nn.conv import conv1d as jconv1d
 from openvoice_tpu.ops import coupling_pallas as jcp
@@ -482,6 +483,142 @@ def test_tail_stage_matches_pallas(c_in, c_out, t_in, last, dtype):
         _close_f32(out, ref, 1e-4, 1e-4)
     else:
         _close_bf16(out, ref)
+
+
+def _tail_packed(rng, c_in, c_out, last, dtype):
+    """A tail stage's packed weights from seeded numpy draws: upsample ×2
+    (k 4), the V2 branches, and conv_post (k 7) on the last stage."""
+    up = {"w": (rng.standard_normal((4, c_in, c_out)) * 0.1).astype(np.float32),
+          "b": (rng.standard_normal(c_out) * 0.1).astype(np.float32)}
+    sd: dict = {}
+    from_jax._conv_transpose(up, "up", sd)
+    up_mod = _load(conv_transpose1d(c_in, c_out, 4, 2), {key[3:]: v for key, v in sd.items()})
+    post_mod = None
+    if last:
+        sd = {}
+        from_jax._conv({"w": (rng.standard_normal((7, c_out, 1)) * 0.1).astype(np.float32), "b": None}, "post", sd)
+        post_mod = _load(conv1d(c_out, 1, 7, bias=False), {key[5:]: v for key, v in sd.items()})
+    return tail_cuda.pack_tail_weights(up_mod, _torch_resblocks(_random_resblocks(rng, c_out), c_out), post_mod,
+                                       dtype)
+
+
+def _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dt):
+    """One K4 block (csrc/tail.cu) in plain torch: the tile starting at
+    output sample t0 with its window of `rows` rows around it.  Every value
+    the block holds lives on a canvas of the whole batch's shape, so that
+    each conv runs as `tail_stage_plain` runs it; canvas rows outside the
+    window are 0 (the kernel's zero row), and window rows a conv does not
+    compute (outside its `chunks`) are NaN, where the kernel leaves stale
+    values.  The staged input covers the input rows the upsample's phases
+    reach.  Returns the block's output rows [B, tile, C] (or the audio
+    [B, tile, 1] on the last stage)."""
+    batch, t_in, _ = x.shape
+    stride, post = packed["stride"], packed["post_w"]
+    t_out = t_in * stride
+    post_half = (post.shape[0] - 1) // 2 if post is not None else 0
+    halo = (rows - tile) // 2
+    pos0 = t0 - halo
+    margin = tail_cuda._in_margin(packed["up_w"].shape[0], stride, packed["pad_up"])
+    mask_in = _frag.length_mask(lengths // stride, t_in)
+    mask = _frag.length_mask(lengths, t_out)
+    pos = torch.arange(t_out)[None, :, None]
+    window = (pos >= pos0) & (pos < pos0 + rows)
+
+    def rows_of(lo, hi):  # window rows [lo, hi) on the canvas
+        return (pos >= pos0 + lo) & (pos < pos0 + hi)
+
+    m = torch.arange(t_in)[None, :, None]
+    staged = (m >= pos0 // stride - margin) & (m < (pos0 + rows) // stride + margin)
+    xin = torch.where(staged, mrf_cuda.lrelu_plain(x.float(), mrf_cuda.LRELU_SLOPE, dt) * mask_in, 0.0)
+    y = F.conv_transpose1d(xin.transpose(1, 2), packed["up_w"].float().permute(1, 2, 0), packed["up_b"].float(),
+                           stride=stride, padding=packed["pad_up"]).transpose(1, 2)
+    x0 = torch.where(window, y.to(dt).float() * mask, 0.0)
+
+    def conv(operand, taps, bias, d, chunk, epilogue):
+        lo, hi = chunk[0] * 16, (chunk[0] + chunk[1]) * 16
+        out = mrf_cuda._conv_plain(operand, taps, bias, d)
+        return torch.where(rows_of(lo, hi), epilogue(out), torch.where(window, float("nan"), 0.0))
+
+    w, b = packed["w"], packed["b"]
+    acc = torch.zeros_like(x0)
+    tap = cv = 0
+    for k, dils in zip(packed["kernel_sizes"], packed["dilation_sizes"]):
+        xb = x0
+        for d in dils:
+            xt = conv(mrf_cuda.lrelu_plain(xb, mrf_cuda.LRELU_SLOPE, dt), w[tap:tap + k], b[cv], d, chunks[cv],
+                      lambda v: mrf_cuda.lrelu_plain(v.to(dt).float(), mrf_cuda.LRELU_SLOPE, dt) * mask)
+            xb = conv(xt, w[tap + k:tap + 2 * k], b[cv + 1], 1, chunks[cv + 1],
+                      lambda v, xb=xb: (xb + v.to(dt).float()).to(dt).float() * mask)
+            tap += 2 * k
+            cv += 2
+        acc = acc + xb * mask
+    mean = acc / len(packed["kernel_sizes"])
+    if post is None:
+        return mean.to(dt)[:, t0:t0 + tile]
+    kept = rows_of(halo - post_half, halo + tile + post_half)
+    ym = torch.where(kept, mrf_cuda.lrelu_plain(mean.to(dt).float(), tail_cuda.POST_SLOPE, dt),
+                     torch.where(window, float("nan"), 0.0))
+    audio = F.conv1d(ym.transpose(1, 2), post.float().t()[None], padding=post_half)
+    return torch.tanh(audio).transpose(1, 2).to(dt)[:, t0:t0 + tile]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("c_in,c_out,t_in,last", [(128, 64, 301, False), (64, 32, 403, True)],
+                         ids=["middle", "last"])
+@torch.inference_mode()
+def test_tail_trimmed_rows_keep_the_stage(c_in, c_out, t_in, last, dtype):
+    """K4 computes each MRF conv only on the chunks `tail_cuda.tail_chunks`
+    gives (on the last stage the kept rows reach conv_post's half width past
+    the tile).  Blocks computed so, with NaN on every other row of their
+    windows, give `tail_stage_plain` bit for bit on every tile, and on the
+    last stage the chunks of the tile alone let NaN reach the audio."""
+    rng = np.random.default_rng(c_in + t_in + 7)
+    packed = _tail_packed(rng, c_in, c_out, last, dtype)
+    lengths = torch.tensor([t_in * 2, (t_in - 111) * 2])
+    x = torch.from_numpy((rng.standard_normal((2, t_in, c_in)) * 0.5).astype(np.float32)).to(dtype)
+    plain = tail_cuda.tail_stage(x, lengths, packed)
+    post_half = 3 if last else 0
+    rows = 256
+    halo = tail_cuda.tail_halo(KS, DILS, 7 if last else 0, 2)
+    assert halo == (64 if last else 60)
+    tile = rows - 2 * halo
+    chunks = tail_cuda.tail_chunks(KS, DILS, halo, tile, rows, post_half)
+    # each branch's last conv computes the same chunks (the kernel's threads
+    # park and sum their own elements), around the kept rows
+    (first, count), = set(chunks[5::6])
+    assert first * 16 <= halo - post_half and halo + tile + post_half <= (first + count) * 16
+    t_out = t_in * 2
+    for t0 in range(0, t_out, tile):
+        got = _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dtype)
+        n = min(tile, t_out - t0)
+        assert bool(torch.isfinite(got[:, :n].float()).all()), t0
+        assert torch.equal(got[:, :n], plain[:, t0:t0 + n]), t0
+    if last:
+        narrow = tail_cuda.tail_chunks(KS, DILS, halo, tile, rows, 0)
+        got = _tail_window_model(x, lengths, packed, tile, rows, tile, narrow, dtype)
+        assert not bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.parametrize("last,len_out,live", [
+    (False, 640, 5), (False, 641, 6), (False, 639, 5),
+    (True, 640 - 3, 5), (True, 640 - 2, 6), (True, 640 + 1, 6), (True, 639 - 3, 5)],
+    ids=["middle-at", "middle-past", "middle-before", "last-at", "last-reach", "last-past", "last-before"])
+@torch.inference_mode()
+def test_tail_tiles_past_the_length_are_zero(last, len_out, live):
+    """The kernel's early exit: a tile whose first sample, less conv_post's
+    reach on the last stage, lies at or past the length returns with its
+    output set to 0.  The plain version gives exactly 0 on every such tile
+    and not on the tile just before it, which `live_tiles` counts."""
+    c_in, c_out, tile, t_in = (64, 32, 128, 500) if last else (128, 64, 128, 500)
+    rng = np.random.default_rng(len_out)
+    packed = _tail_packed(rng, c_in, c_out, last, torch.float32)
+    x = torch.from_numpy((rng.standard_normal((1, t_in, c_in)) * 0.5).astype(np.float32))
+    out = tail_cuda.tail_stage(x, torch.tensor([len_out]), packed)
+    t_out = t_in * 2
+    assert tail_cuda.live_tiles(len_out, tile, 3 if last else 0, t_out) == live
+    for i in range(-(-t_out // tile)):
+        block = out[0, i * tile:(i + 1) * tile]
+        assert bool((block == 0).all()) == (i >= live), (i, live)
 
 
 # -- the kernels' weight layout ------------------------------------------------

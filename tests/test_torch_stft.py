@@ -61,56 +61,70 @@ def test_stft_wrapper_rejects_what_the_kernel_does_not_take(bad, err):
 
 
 
-def _four_step(frames: np.ndarray, window: np.ndarray, twiddle: np.ndarray, w32: np.ndarray) -> np.ndarray:
-    """csrc/stft.cu's algorithm in numpy on its float32 tables: n = n1 + 32·n2,
-    a 32-point DFT over n2, the per-lane twiddles, a 32-point DFT over n1;
-    bin f = k2 + 32·k1.  Returns the one-sided spectrum [..., 513]."""
-    r = stft_cuda.RADIX
-    w = w32[0].astype(np.float64) + 1j * w32[1]
-    w_full = np.concatenate([w, -w])                       # W32^j for j = 0..31
-    dft32 = w_full[(np.arange(r)[:, None] * np.arange(r)[None, :]) % r]  # [k, n]
-    x = (frames * window).reshape(*frames.shape[:-1], r, r)  # [..., n2, n1]
-    y = np.einsum("kn,...nm->...km", dft32, x)             # [..., k2, n1]
+def _four_step(frames: np.ndarray, window: np.ndarray, twiddle: np.ndarray, roots: np.ndarray) -> np.ndarray:
+    """csrc/stft.cu's algorithm in numpy on its float32 tables, for
+    n_fft = R1·R2: n = n1 + R1·n2, an R2-point DFT over n2, the per-lane
+    twiddles, an R1-point DFT over n1; bin f = k2 + R2·k1.  Returns the
+    one-sided spectrum [..., n_fft/2 + 1]."""
+    r2, r1 = twiddle.shape[:2]
+    m = 2 * roots.shape[1]
+    w = roots[0].astype(np.float64) + 1j * roots[1]
+    w_full = np.concatenate([w, -w])                       # W_M^j for j = 0..M-1
+
+    def dft(r):                                            # [k, n] → W_r^(k·n) = W_M^(k·n·M/r)
+        return w_full[(np.arange(r)[:, None] * np.arange(r)[None, :] * (m // r)) % m]
+
+    x = (frames * window).reshape(*frames.shape[:-1], r2, r1)  # [..., n2, n1]
+    y = np.einsum("kn,...nm->...km", dft(r2), x)           # [..., k2, n1]
     z = y * (twiddle[..., 0] + 1j * twiddle[..., 1])        # twiddle is [k2, n1]
-    big = np.einsum("kn,...jn->...kj", dft32, z)           # [..., k1, k2]
-    return big.reshape(*frames.shape[:-1], r * r)[..., : r * r // 2 + 1]
+    big = np.einsum("kn,...jn->...kj", dft(r1), z)         # [..., k1, k2]
+    return big.reshape(*frames.shape[:-1], r1 * r2)[..., : r1 * r2 // 2 + 1]
 
 
-@pytest.mark.parametrize("win", [1024, 800])
-def test_fft_tables_give_the_spectrum(win):
-    """The tables the K5 wrapper hands the kernel, against numpy in float64:
-    the window is `stft_basis`'s, the twiddles are the roots of unity, and
-    the windowed frames give the plain version's and the Pallas kernel's
-    magnitudes through numpy.fft.rfft and through the kernel's four steps."""
-    window, twiddle, w32 = stft_cuda.fft_tables(1024, win)
-    assert window.dtype == twiddle.dtype == w32.dtype == np.float32
-    assert window.shape == (1024,) and twiddle.shape == (32, 32, 2) and w32.shape == (2, 16)
+@pytest.mark.parametrize("n_fft,win", [(1024, 1024), (1024, 800), (512, 512), (512, 400), (2048, 2048),
+                                       (2048, 1600)],
+                         ids=["1024", "800", "n512", "n512-w400", "n2048", "n2048-w1600"])
+def test_fft_tables_give_the_spectrum(n_fft, win):
+    """The tables the K5 wrapper hands the kernel's instance for n_fft,
+    against numpy in float64: the window is `stft_basis`'s, the twiddles are
+    the roots of unity, and the windowed frames give the plain version's and
+    the Pallas kernel's magnitudes through numpy.fft.rfft and through the
+    kernel's four steps."""
+    r1, r2 = 32, n_fft // 32
+    hop = n_fft // 4
+    window, twiddle, roots = stft_cuda.fft_tables(n_fft, win)
+    assert window.dtype == twiddle.dtype == roots.dtype == np.float32
+    m = max(r1, r2)
+    assert window.shape == (n_fft,) and twiddle.shape == (r2, r1, 2) and roots.shape == (2, m // 2)
     ref_window = np.hanning(win + 1)[:-1]
-    ref_window = np.pad(ref_window, ((1024 - win) // 2, 1024 - win - (1024 - win) // 2))
+    ref_window = np.pad(ref_window, ((n_fft - win) // 2, n_fft - win - (n_fft - win) // 2))
     np.testing.assert_allclose(window, ref_window, atol=6e-8, rtol=0)
-    k2, n1 = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
-    roots = np.exp(-2j * np.pi * n1 * k2 / 1024)
-    np.testing.assert_allclose(twiddle[..., 0] + 1j * twiddle[..., 1], roots, atol=6e-8, rtol=0)
-    np.testing.assert_allclose(w32[0] + 1j * w32[1], np.exp(-2j * np.pi * np.arange(16) / 32), atol=6e-8, rtol=0)
+    k2, n1 = np.meshgrid(np.arange(r2), np.arange(r1), indexing="ij")
+    ref_twiddle = np.exp(-2j * np.pi * n1 * k2 / n_fft)
+    np.testing.assert_allclose(twiddle[..., 0] + 1j * twiddle[..., 1], ref_twiddle, atol=6e-8, rtol=0)
+    np.testing.assert_allclose(roots[0] + 1j * roots[1], np.exp(-2j * np.pi * np.arange(m // 2) / m),
+                               atol=6e-8, rtol=0)
 
-    rng = np.random.default_rng(win)
-    padded = _padded((rng.standard_normal((2, 7000)) * 0.3).astype(np.float32))
-    frames = tstft.frame_signal(t(padded), 1024, 256).numpy().astype(np.float64)
-    plain = tstft.stft_magnitude_plain(t(padded), 1024, 256, win).numpy()
-    pallas = np.asarray(stft_magnitude_pallas(jnp.asarray(padded), 1024, 256, win, interpret=True))
-    for spec in (np.fft.rfft(frames * window, axis=-1), _four_step(frames, window, twiddle, w32)):
+    rng = np.random.default_rng(win + n_fft)
+    x = (rng.standard_normal((2, 7000)) * 0.3).astype(np.float32)
+    padded = np.asarray(jstft._reflect_pad_1d(jnp.asarray(x), (n_fft - hop) // 2))
+    frames = tstft.frame_signal(t(padded), n_fft, hop).numpy().astype(np.float64)
+    plain = tstft.stft_magnitude_plain(t(padded), n_fft, hop, win).numpy()
+    pallas = np.asarray(stft_magnitude_pallas(jnp.asarray(padded), n_fft, hop, win, interpret=True))
+    for spec in (np.fft.rfft(frames * window, axis=-1), _four_step(frames, window, twiddle, roots)):
         mag = np.sqrt(np.abs(spec) ** 2 + 1e-6)
         np.testing.assert_allclose(mag, plain, atol=1e-4)
         np.testing.assert_allclose(mag, pallas, atol=1e-4)
 
 
 def test_fft_sizes_outside_the_kernel_are_refused():
-    for n_fft in (512, 2048, 1000):
+    for n_fft in (1000, 768, 4096):
         with pytest.raises(ValueError, match=f"n_fft={n_fft}"):
             stft_cuda.check_fft_size(n_fft)
         with pytest.raises(ValueError, match=f"n_fft={n_fft}"):
             stft_cuda.fft_tables(n_fft, n_fft)
-    stft_cuda.check_fft_size(1024)
+    for n_fft in (512, 1024, 2048):
+        stft_cuda.check_fft_size(n_fft)
     # on the CPU the plain version takes any size, as the tiny configurations need
     assert stft_cuda.stft_magnitude(torch.zeros(1, 600), 256, 64, 256).shape == (1, 6, 129)
 
@@ -120,6 +134,6 @@ def test_unsupported_n_fft_raises_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     before = stft_cuda.launches
-    with pytest.raises(ValueError, match="n_fft=512"):
-        stft_cuda.stft_magnitude(torch.zeros(1, 4096, device="cuda"), 512, 128, 512)
+    with pytest.raises(ValueError, match="n_fft=768"):
+        stft_cuda.stft_magnitude(torch.zeros(1, 4096, device="cuda"), 768, 256, 768)
     assert stft_cuda.launches == before
