@@ -4,8 +4,8 @@
     python3 chip_smoke.py          # from the repository root, one NVIDIA H100
     python3 chip_smoke.py --sweep [wn coupling mrf tail]
                                    # instead: time K1-K4 (or those named) over
-                                   # tile sizes, warps, K2's cluster size
-                                   # and K3's ring depth
+                                   # tile sizes, warps, K1's and K2's cluster
+                                   # size and K3's ring depth
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero before the result line:
    K3 MRF stage, K4 decoder tail) against its plain PyTorch version on the
    card, at the shapes the main path gives it and at a ragged batch, with its
    time, the plain version's, the bound, and one PyTorch library call's (K5)
-   or the stock bf16 layers' (K1-K4);
+   or the stock bf16 layers' (K1-K4); K5 also at n_fft 256, 512, 768, 1000,
+   2048 and 4096 (its FFT and its DFT route), K1 and K4 also at length 0,
+   where their tiles exit early;
 4. main path, f32: a full-width V2 converter with seeded random weights runs
    extract_se on two synthetic wav files, then convert on a 10 s synthetic
    waveform (tau 0.3, watermark on); the launch counters, zeroed just
@@ -212,70 +214,94 @@ def stft_check(name: str) -> dict:
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"{label}: bad output")
         check(err <= STFT_TOL and host_err <= STFT_TOL, f"{label}: kernel disagrees with its plain version")
         max_err = max(max_err, err)
-    # the other instances, n_fft 512 (32 x 16) and 2048 (32 x 64), at hop
-    # n_fft / 4 on a 1024-frame bucket, against numpy float64 and the plain
-    # version; each is timed cold
-    size_ms = {}
-    for n_fft in (512, 2048):
-        hop = n_fft // 4
+    # every other size: the FFT's other instances, n_fft 512 (32 x 16) and
+    # 2048 (32 x 64), and the DFT kernel's sizes, each at a 1024-frame bucket,
+    # against numpy float64 and the plain version; each is timed cold beside
+    # torch.stft at the same size, with its bound
+    flop_rate, _, byte_rate = card_peaks(name)
+    sizes = {}
+    for n_fft, hop in ((512, 128), (2048, 512), (256, 64), (768, 256), (1000, 250), (4096, 1024)):
         x = torch.from_numpy((rng.standard_normal((1, (BUCKET - 1) * hop + n_fft)) * 0.3).astype(np.float32)).cuda()
+        before = stft_cuda.launches
         out = stft_cuda.stft_magnitude(x, n_fft, hop, n_fft)
         ref = stft_magnitude_plain(x, n_fft, hop, n_fft)
         torch.cuda.synchronize()
+        check(stft_cuda.launches == before + 1, f"n_fft {n_fft}: the wrapper did not launch a kernel once")
         err = float((out - ref).abs().max())
-        host_err = float(np.abs(out[0].cpu().numpy() - host_spectrogram(x[0].cpu().numpy(), n_fft, hop, n_fft)).max())
-        size_ms[n_fft] = time_ms(lambda: stft_cuda.stft_magnitude(x, n_fft, hop, n_fft))
-        print(f"n_fft {n_fft} hop {hop} B=1: out {tuple(out.shape)}  max|kernel - plain| {err:.3e}  "
-              f"max|kernel - numpy f64| {host_err:.3e}  (bar {STFT_TOL}); kernel {size_ms[n_fft]:.4f} ms cold")
+        host = host_spectrogram(x[0].cpu().numpy(), n_fft, hop, n_fft)
+        host_err = float(np.abs(out[0].cpu().numpy() - host).max())
+        plain_err = float(np.abs(ref[0].cpu().numpy() - host).max())
+        ms = time_ms(lambda: stft_cuda.stft_magnitude(x, n_fft, hop, n_fft))
+        library_ms = time_ms(stft_library(x, n_fft, hop))
+        bound_ms, by = stft_bound(x.shape, n_fft, hop, flop_rate, byte_rate)
+        sizes[str(n_fft)] = {"route": stft_cuda.route(n_fft), "hop": hop, "ms": ms, "library_ms": library_ms,
+                             "bound_ms": bound_ms, "bound_by": by, "max_abs_err": err}
+        print(f"n_fft {n_fft} hop {hop} B=1 ({stft_cuda.route(n_fft)}): out {tuple(out.shape)}  "
+              f"max|kernel - plain| {err:.3e}  max|kernel - numpy f64| {host_err:.3e}  (bar {STFT_TOL}; "
+              f"max|plain - numpy f64| {plain_err:.3e}); "
+              f"kernel {ms:.4f} ms cold  torch.stft {library_ms:.4f} ms  bound {bound_ms:.5f} ms ({by})")
         check(out.shape == ref.shape and bool(torch.isfinite(out).all()), f"n_fft {n_fft}: bad output")
         check(err <= STFT_TOL and host_err <= STFT_TOL, f"n_fft {n_fft}: kernel disagrees with its plain version")
         max_err = max(max_err, err)
-    # a size without an instance must raise on the card, not fall back to the
-    # plain version
-    before = stft_cuda.launches
-    try:
-        stft_cuda.stft_magnitude(cases[0][1], 768, 256, 768)
-    except ValueError as e:
-        print(f"n_fft 768 on the card raises: {e}")
-    else:
-        raise SmokeFailure("an n_fft without an FFT in the kernel did not raise")
-    check(stft_cuda.launches == before, "a refused n_fft launched the kernel")
+    # n_fft 32768: the DFT's table (256 KB) does not fit in shared memory, and
+    # the kernel reads it through the read-only cache instead; 4 frames,
+    # against numpy float64 only (the plain version's basis would be 4.3 GB)
+    n_fft, hop = 32768, 8192
+    x = torch.from_numpy((rng.standard_normal((1, 3 * hop + n_fft)) * 0.3).astype(np.float32)).cuda()
+    out = stft_cuda.stft_magnitude(x, n_fft, hop, n_fft)
+    host_err = float(np.abs(out[0].cpu().numpy() - host_spectrogram(x[0].cpu().numpy(), n_fft, hop, n_fft)).max())
+    print(f"n_fft {n_fft} hop {hop} B=1 ({stft_cuda.route(n_fft)}, table from the read-only cache): "
+          f"out {tuple(out.shape)}  max|kernel - numpy f64| {host_err:.3e} (bar {STFT_TOL})")
+    check(out.shape == (1, 4, n_fft // 2 + 1) and host_err <= STFT_TOL, f"n_fft {n_fft}: kernel disagrees with numpy")
 
     x = cases[0][1]  # the convert path's shape is the one timed
     b, length = x.shape
     frames, n_freq = (length - 1024) // 256 + 1, 513
-    window = torch.hann_window(1024, device=x.device)
-
-    def library():
-        spec = torch.stft(x, 1024, 256, 1024, window=window, center=False, return_complex=True)
-        return torch.sqrt(spec.real.square() + spec.imag.square() + 1e-6).transpose(1, 2)
-
+    library = stft_library(x, 1024, 256)
     lib_err = float((library() - stft_cuda.stft_magnitude(x, 1024, 256, 1024)).abs().max())
     ms = time_ms(lambda: stft_cuda.stft_magnitude(x, 1024, 256, 1024))
     hot_ms = time_ms(lambda: stft_cuda.stft_magnitude(x, 1024, 256, 1024), cold=False)
     plain_ms = time_ms(lambda: stft_magnitude_plain(x, 1024, 256, 1024))
     library_ms = time_ms(library)
-    flop_rate, _, byte_rate = card_peaks(name)
-    # the function's least work: a real FFT a frame and the magnitudes; the
-    # audio in, the bins out, the window and the twiddles once
-    ops = b * frames * (2.5 * 1024 * math.log2(1024) + 5 * n_freq)
-    window_, twiddle, roots = stft_cuda.fft_tables(1024, 1024)
-    nbytes = 4 * (b * length + b * frames * n_freq) + window_.nbytes + twiddle.nbytes + roots.nbytes
-    op_ms, byte_ms = ops / flop_rate * 1e3, nbytes / byte_rate * 1e3
-    bound_ms = max(op_ms, byte_ms)
+    bound_ms, by = stft_bound(x.shape, 1024, 256, flop_rate, byte_rate)
     print(f"[{b}, {length}] → [{b}, {frames}, {n_freq}]: kernel {ms:.4f} ms ({hot_ms:.4f} with a hot L2)  "
           f"plain {plain_ms:.4f} ms  torch.stft {library_ms:.4f} ms (max diff {lib_err:.2e})")
-    print(f"bound {bound_ms:.5f} ms = max({ops / 1e9:.4f} GFLOP at {flop_rate / 1e12:.1f} TFLOP/s fp32, "
-          f"{nbytes / 1e6:.2f} MB at {byte_rate / 1e12:.2f} TB/s); kernel at "
-          f"{ops / ms / 1e9:.2f} TFLOP/s, {100 * bound_ms / ms:.1f}% of bound")
+    print(f"bound {bound_ms:.5f} ms ({by}; {flop_rate / 1e12:.1f} TFLOP/s fp32, {byte_rate / 1e12:.2f} TB/s): "
+          f"kernel at {100 * bound_ms / ms:.1f}% of bound")
     return {
         "name": "stft_magnitude", "route": "cuda",
         "source": "openvoice_tpu_torch/csrc/stft.cu",
         "replaces": "openvoice_tpu/ops/stft_pallas.py:75",
         "launches": 0, "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-        "library_ms": library_ms, "hot_ms": hot_ms, "n_fft_ms": {"512": size_ms[512], "2048": size_ms[2048]},
+        "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms, "hot_ms": hot_ms, "n_fft": sizes,
     }
+
+
+def stft_library(x, n_fft: int, hop: int):
+    """One torch.stft call and the magnitude, the yardstick for K5 at a size
+    (win = n_fft); the port never calls it."""
+    import torch
+
+    window = torch.hann_window(n_fft, device=x.device)
+
+    def library():
+        spec = torch.stft(x, n_fft, hop, n_fft, window=window, center=False, return_complex=True)
+        return torch.sqrt(spec.real.square() + spec.imag.square() + 1e-6).transpose(1, 2)
+
+    return library
+
+
+def stft_bound(shape: tuple, n_fft: int, hop: int, flop_rate: float, byte_rate: float) -> tuple[float, str]:
+    """K5's bound in ms on [B, L] audio, and what sets it: the function's
+    least work, a real FFT a frame (2.5 N log2 N) and the magnitudes, at the
+    card's fp32 rate, against the audio in, the bins out and the window once
+    at its memory rate."""
+    b, length = shape
+    frames, n_freq = (length - n_fft) // hop + 1, n_fft // 2 + 1
+    ops = b * frames * (2.5 * n_fft * math.log2(n_fft) + 5 * n_freq)
+    nbytes = 4 * (b * length + b * frames * n_freq + n_fft)
+    op_ms, byte_ms = ops / flop_rate * 1e3, nbytes / byte_rate * 1e3
+    return max(op_ms, byte_ms), "operations" if op_ms >= byte_ms else "bytes"
 
 
 # -- K1-K4: shared pieces of their checks ---------------------------------------
@@ -378,19 +404,42 @@ def wn_check(kind: str, gen) -> dict:
         g_all = wn16.cond_layer(g).reshape(b, n_layers, 2 * h).contiguous()
         out = wn_cuda.wn_stack(x, lens, packed, g_all)
         max_err = max(max_err, agree(label, out, wn_cuda.wn_stack_plain(x, lens, packed, g_all), WN_MEAN_TOL, lengths))
-        timed = timed or (x, g, lens, g_all)
-    x, g, lens, g_all = timed
+        launch = {**wn_cuda.last_launch, **wn_cuda.kernel_attributes()}
+        print(f"{label} cluster launch: R {launch['ranks']}, rows/tile {launch['rows']}/{launch['tile']}, "
+              f"{launch['ctas']} CTAs launched, cudaOccupancyMaxActiveClusters {launch['max_clusters']} "
+              f"({launch['threads']} threads, {launch['registers']} registers, {launch['spill_bytes']} bytes "
+              f"spilled a thread); live tiles by the exit rule (computed on the host): "
+              + ", ".join(str(wn_cuda.live_tiles(n, launch["tile"], t)) for n in lengths)
+              + f" of {launch['tiles']}")
+        check(launch["max_clusters"] >= 1, "no K1 cluster fits on the card")
+        timed = timed or (x, g, lens, g_all, launch)
+    x, g, lens, g_all, launch = timed
+    # the early exit, measured: at length 0 every tile lies past the length,
+    # writes its zeros and returns before any product
+    lens0 = lens_on_card([0])
+    out0 = wn_cuda.wn_stack(x, lens0, packed, g_all)
+    torch.cuda.synchronize()
+    check(bool((out0 == 0).all()), "K1 at length 0: output not all zero")
+    empty_ms = time_ms(lambda: wn_cuda.wn_stack(x, lens0, packed, g_all))
     mask = (torch.arange(BUCKET, device="cuda") < FRAMES).to(torch.bfloat16)[None, None]
     x_bct = (x.transpose(1, 2) * mask).contiguous()
     stock = wn16(x_bct, mask, g).transpose(1, 2)
     print(f"stock bf16 layers vs kernel: max diff {float((stock.float() - wn_cuda.wn_stack(x, lens, packed, g_all).float()).abs().max()):.3e}")
     nbytes = 2 * (FRAMES * h + BUCKET * h + g_all.numel() + numel(packed, ("w_in", "b_in", "w_rs", "b_rs")))
-    return kernel_entry(
-        kind, "wn_stack", "openvoice_tpu_torch/csrc/wn.cu", "openvoice_tpu/ops/wn_pallas.py:92", max_err,
-        time_ms(lambda: wn_cuda.wn_stack(x, lens, packed, g_all)),
+    ms = time_ms(lambda: wn_cuda.wn_stack(x, lens, packed, g_all))
+    # and at the bucket's whole length, where no tile exits: the clusters a
+    # launch needs at most, against how many fit on the card
+    lens_full = lens_on_card([BUCKET])
+    full_ms = time_ms(lambda: wn_cuda.wn_stack(x, lens_full, packed, g_all))
+    print(f"K1 at length 0 (every tile exits): {empty_ms:.4f} ms; at {BUCKET} frames (every tile live): "
+          f"{full_ms:.4f} ms; against {ms:.4f} at {FRAMES} frames")
+    check(empty_ms < 0.5 * ms, f"K1 at length 0: the tiles do not exit early ({empty_ms:.4f} ms against {ms:.4f})")
+    entry = kernel_entry(
+        kind, "wn_stack", "openvoice_tpu_torch/csrc/wn.cu", "openvoice_tpu/ops/wn_pallas.py:92", max_err, ms,
         time_ms(lambda: wn_cuda.wn_stack(x, lens, packed, g_all), cold=False),
         time_ms(lambda: wn_cuda.wn_stack_plain(x, lens, packed, g_all), 5),
         time_ms(lambda: wn16(x_bct, mask, g)), wn_flop(FRAMES, n_layers, k, h), nbytes)
+    return {**entry, "cluster": {**launch, "empty_ms": empty_ms, "full_ms": full_ms}}
 
 
 # -- K2 ------------------------------------------------------------------------
@@ -629,8 +678,11 @@ def sweep(kind: str, only: list[str]) -> None:
     coupling = [{"_RANKS": r, "_TILE_TARGET": tile, "_THREADS": th}
                 for r in (2, 4) for tile in (32, 64) for th in (288, 384)]
     coupling.append({"_RANKS": 1, "_TILE_TARGET": 32, "_THREADS": 384})
+    # K1: cluster size × tile × threads
+    wn_knobs = [{"_RANKS": r, "_TILE_TARGET": tile, "_THREADS": th}
+                for r in (2, 4, 8) for tile in (32, 64) for th in (288, 384)]
     grids = [
-        (wn_check, "wn_cuda", knobs((tile, th) for tile in (16, 32, 64) for th in (256, 384, 512))),
+        (wn_check, "wn_cuda", wn_knobs),
         (coupling_check, "coupling_cuda", coupling),
         (mrf_check, "mrf_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384))
          + [{"_RING_RESERVE": n} for n in (3, 4, 6, 8)]),
@@ -664,8 +716,10 @@ def sweep(kind: str, only: list[str]) -> None:
     for name, knob, ms, stage_ms, stock_ms, is_default, launch in table:
         stages = f" = {' + '.join(f'{t:.4f}' for t in stage_ms)}" if stage_ms else ""
         setting = "  ".join(f"{k.strip('_').lower()} {v}" for k, v in knob.items())
-        if isinstance(launch, dict):  # K2's cluster line
-            clusters = f"  [{launch['ctas']} CTAs, {launch['max_clusters']} clusters fit]"
+        if isinstance(launch, dict):  # K1's and K2's cluster line
+            regs = f", {launch['registers']} regs, {launch['spill_bytes']} B spilled" if "registers" in launch else ""
+            full = f", {launch['full_ms']:.4f} ms at {BUCKET} frames" if "full_ms" in launch else ""
+            clusters = f"  [{launch['ctas']} CTAs, {launch['max_clusters']} clusters fit{regs}{full}]"
         elif launch:                  # K4's launch per stage
             clusters = "  [" + "; ".join(
                 f"{st['rows']}/{st['tile']} rows, {st['tiles']} tiles, {st['registers']} regs, "

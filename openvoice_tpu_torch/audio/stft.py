@@ -7,8 +7,9 @@ reflect-pad ``(n_fft - hop)/2`` each side, periodic Hann window,
 The spectrogram is a framed product with a windowed real-DFT basis, as in the
 JAX package (``openvoice_tpu/audio/stft.py``).  `stft_magnitude_plain` is
 the plain PyTorch version of that product; on the GPU the same function runs
-as the hand-written FFT kernel in ``openvoice_tpu_torch/csrc/stft.cu``, reached
-through `openvoice_tpu_torch.ops.stft_cuda.stft_magnitude`.  All in float32.
+as the hand-written FFT or DFT kernel in ``openvoice_tpu_torch/csrc/stft.cu``,
+reached through `openvoice_tpu_torch.ops.stft_cuda.stft_magnitude`.  All in
+float32.
 """
 
 from __future__ import annotations
@@ -17,6 +18,13 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+# samples a partial sum of the product takes: the plain version, like the DFT
+# kernel (DFT_CHUNK in csrc/stft.cu), sums each bin a chunk at a time and adds
+# the chunks' sums, which keeps a 4096-term f32 sum's rounding near a 256-term
+# one's and inside the 1e-4 bar against float64 (chip_smoke.py prints both
+# versions' distance from numpy float64 at each size)
+SUM_CHUNK = 256
 
 
 @lru_cache(maxsize=8)
@@ -67,10 +75,13 @@ def frame_signal(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
 def stft_magnitude_plain(padded_audio: torch.Tensor, n_fft: int, hop: int,
                          win_length: int) -> torch.Tensor:
     """[B, L] pre-reflect-padded f32 audio → [B, n_frames, n_fft//2+1]
-    magnitudes: frames @ windowed basis, then sqrt(re² + im² + 1e-6)."""
+    magnitudes: frames @ windowed basis, summed `SUM_CHUNK` samples at a
+    time, then sqrt(re² + im² + 1e-6)."""
     frames = frame_signal(padded_audio, n_fft, hop)
     basis = torch.from_numpy(stft_basis(n_fft, win_length)).to(padded_audio.device)
-    proj = torch.matmul(frames, basis)
+    proj = torch.matmul(frames[..., :SUM_CHUNK], basis[:SUM_CHUNK])
+    for n0 in range(SUM_CHUNK, n_fft, SUM_CHUNK):
+        proj = proj + torch.matmul(frames[..., n0:n0 + SUM_CHUNK], basis[n0:n0 + SUM_CHUNK])
     n_freq = n_fft // 2 + 1
     re, im = proj[..., :n_freq], proj[..., n_freq:]
     return torch.sqrt(re * re + im * im + 1e-6)

@@ -5,7 +5,7 @@
 // execution order (the host packs forward or reverse order, folds the channel
 // Flip into the pre/post matrices and negates post for reverse):
 //   h     = bf16(state @ Wp[s] + bp[s]) * mask
-//   skip  = WaveNet(h), L layers as in K1 (wn_layer.cuh), f32
+//   skip  = WaveNet(h), L layers as in K1 (wn_cluster.cuh), f32
 //   m     = bf16(skip) * mask
 //   state = bf16(state + bf16(m @ Wq[s] + bq[s])) * mask
 // The state starts as x * mask; frames past the length come out exactly 0.
@@ -19,7 +19,7 @@
 // on R SMs.  Every CTA keeps its own copy of the window's bf16 buffers (the
 // [rows, C] state, the WaveNet's residual `hs` and gate output `acts`) and
 // computes a 1/R share of every product's output columns, as the host's
-// plan says (ops/coupling_cuda.py::cluster_bounds): rank r owns C-column
+// plan says (ops/_frag.py::cluster_bounds): rank r owns C-column
 // tiles [c[r], c[r+1]) of the post product and H-channel tiles [h[r], h[r+1])
 // of the pre, gate and res|skip products, for gate and res|skip those
 // channels of both halves (a gate pair's tanh and sigmoid columns, a
@@ -35,121 +35,24 @@
 // a step.  Each warp's chain of k-tiles waits on its B fragments from L2;
 // the product loop loads them B_AHEAD k-tiles ahead (warp_gemm_ahead).
 
-#include <cooperative_groups.h>
-
-#include "mma_tile.cuh"
+#include "wn_cluster.cuh"
 
 using namespace ovt;
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int MAX_RANKS = 8;  // the largest portable cluster
-constexpr int B_AHEAD = 4;    // k-tiles of B fragments a warp loads ahead
-// the ring of B fragments takes more registers than 512 threads leave a thread (128)
-constexpr int MAX_THREADS = 384;
-
-// The cluster's column plan: rank r owns C-column tiles [c[r], c[r + 1]) and
-// H-channel tiles [h[r], h[r + 1]).
-struct Split {
-    int c[MAX_RANKS + 1];
-    int h[MAX_RANKS + 1];
+// The last WaveNet layer's output, rounded once and masked, goes into the
+// same columns of hs: the post product's operand (the gate is the last
+// reader of hs before it).
+struct IntoHs {
+    static constexpr bool kIntoXs = true;
+    bf16* hs;
+    int ld;
+    __device__ __forceinline__ void operator()(int row, int col, float v0, float v1) const {
+        store_pair(hs + static_cast<size_t>(row) * ld + col, v0, v1);
+    }
 };
-
-// Every thread of every CTA in the cluster arrives; the stores to shared
-// memory (local and remote) made before it are seen by all after it.
-__device__ __forceinline__ void cluster_barrier() {
-    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void store_pair(bf16* p, float v0, float v1) {
-    *reinterpret_cast<bf162*>(p) = __floats2bfloat162_rn(v0, v1);
-}
-
-// Copies the warp's finished tiles, rows row0 .. row0 + 32 of the 8-column
-// tiles tiles[j] of buf (tiles[j] < 0: none), from this CTA's shared memory
-// to the same place in every peer's: `mapa` finds the place in rank q's
-// shared memory, and each lane stores one row of a tile, 16 bytes, there.
-__device__ __forceinline__ void push_tiles(const bf16* buf, int ld, int row0, const int (&tiles)[NT], int ranks,
-                                           int rank) {
-    __syncwarp();  // the warp's own stores of the tiles first
-    const int lane = threadIdx.x & 31;
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-        if (tiles[j] < 0) continue;
-        const bf16* p = buf + static_cast<size_t>(row0 + lane) * ld + tiles[j] * 8;
-        const uint4 v = *reinterpret_cast<const uint4*>(p);
-        const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-        for (int q = 0; q < ranks; ++q) {
-            if (q == rank) continue;
-            uint32_t remote;
-            asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(q));
-            asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(remote), "r"(v.x), "r"(v.y),
-                         "r"(v.z), "r"(v.w)
-                         : "memory");
-        }
-    }
-}
-
-// acc += warp_gemm (mma_tile.cuh) over the n_taps taps of a convolution
-// (tap i reads A from row row0 + i against W[i]; the taps' fragment words
-// follow one another), with the B fragments loaded D = B_AHEAD k-tiles ahead
-// in a ring of registers: the loads of step i + D are issued right after the
-// products of step i, across tap boundaries.
-__device__ __forceinline__ void warp_gemm_ahead(Acc& acc, const bf16* __restrict__ a, int lda, int a_rows,
-                                                int row0, const bf16* __restrict__ zero_row, int cin,
-                                                const uint2* __restrict__ wfrag, int n_taps, int n_tiles,
-                                                const int (&nt)[NT]) {
-    constexpr int D = B_AHEAD;
-    const int lane = threadIdx.x & 31;
-    const int lrow = lane & 15;
-    const int lcol = (lane >> 4) * 8;
-    const int k_tiles = cin >> 4, steps = n_taps * k_tiles;
-    const size_t step_words = static_cast<size_t>(n_tiles) * 32;
-    const uint2* wl = wfrag + lane;
-    int loaded = 0;
-    auto load = [&](uint2 (&dst)[NT]) {
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-            dst[j] = (loaded < steps && nt[j] >= 0) ? __ldg(wl + nt[j] * 32) : make_uint2(0u, 0u);
-        ++loaded;
-        wl += step_words;
-    };
-    const bf16* arow[MT];
-    auto rows_of = [&](int tap) {
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-            const int row = row0 + tap + mt * 16 + lrow;
-            arow[mt] = (row >= 0 && row < a_rows) ? a + static_cast<size_t>(row) * lda + lcol : zero_row + lcol;
-        }
-    };
-    uint2 b[D][NT];
-#pragma unroll
-    for (int d = 0; d < D; ++d) load(b[d]);
-    int tap = 0, kt = 0;
-    rows_of(0);
-    for (int i0 = 0; i0 < steps; i0 += D) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-            if (i0 + d >= steps) break;
-            uint32_t af[MT][4];
-#pragma unroll
-            for (int mt = 0; mt < MT; ++mt) ldmatrix_x4(af[mt], arow[mt] + kt * 16);
-#pragma unroll
-            for (int j = 0; j < NT; ++j) {
-                if (nt[j] < 0) continue;
-#pragma unroll
-                for (int mt = 0; mt < MT; ++mt) mma_16816(acc[mt][j], af[mt], b[d][j]);
-            }
-            load(b[d]);
-            if (++kt == k_tiles) {
-                kt = 0;
-                rows_of(++tap);
-            }
-        }
-    }
-}
 
 __global__ void __launch_bounds__(MAX_THREADS, 1)
 coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
@@ -182,7 +85,6 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
     const int h_tiles = hidden / 8, c_tiles = chan / 8;
     const int h0 = split.h[rank], nh = split.h[rank + 1] - h0;
     const int c0 = split.c[rank], nc = split.c[rank + 1] - c0;
-    const int pad = (ksize - 1) / 2;
 
     // every CTA loads the whole window into its own copy
     for (int i = tid; i < ldz; i += n_threads) zero_row[i] = __float2bfloat16_rn(0.f);
@@ -202,8 +104,6 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
     auto live = [&](int row) { const int f = frame0 + row; return f >= 0 && f < length; };
     const size_t pre_words = static_cast<size_t>(chan / 16) * h_tiles * 32;
     const size_t post_words = static_cast<size_t>(hidden / 16) * c_tiles * 32;
-    const size_t tap_words = static_cast<size_t>(hidden / 16) * (2 * h_tiles) * 32;
-    const size_t in_words = static_cast<size_t>(ksize) * tap_words;
 
     for (int s = 0; s < n_steps; ++s) {
         // pre 1x1 (flip and half-select folded into the matrix): state -> hs
@@ -236,103 +136,10 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
         }
         cluster_barrier();
 
-        for (int l = 0; l < n_layers; ++l) {
-            const size_t sl = static_cast<size_t>(s) * n_layers + l;
-            const bool first = l == 0, last = l == n_layers - 1;
-            const uint2* wl = w_in + sl * in_words;
-            const bf16* bl = b_in + sl * 2 * hidden;
-            const bf16* g = g_all + ((static_cast<size_t>(b) * n_steps + s) * n_layers + l) * 2 * hidden;
-
-            // dilated conv + gate: hs -> acts.  A warp tile pairs two of the
-            // rank's tanh column tiles with the sigmoid tiles of the same channels.
-            const int gate_groups = (nh + 1) / 2;
-            for (int item = warp; item < m_chunks * gate_groups; item += n_warps) {
-                const int gg = item / m_chunks, mc = item % m_chunks;
-                const int ta = h0 + 2 * gg, tb = 2 * gg + 1 < nh ? ta + 1 : -1;
-                const int nt[NT] = {ta, tb, h_tiles + ta, tb < 0 ? -1 : h_tiles + tb};
-                Acc acc;
-                zero_acc(acc);
-                warp_gemm_ahead(acc, hs, ldh, rows, mc * TILE_ROWS - pad, zero_row, hidden, wl, ksize, 2 * h_tiles, nt);
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    if (nt[j] < 0) continue;
-                    const int col = nt[j] * 8 + (lane & 3) * 2;
-                    const float bt0 = __bfloat162float(bl[col]), bt1 = __bfloat162float(bl[col + 1]);
-                    const float bs0 = __bfloat162float(bl[hidden + col]), bs1 = __bfloat162float(bl[hidden + col + 1]);
-                    const float gt0 = __bfloat162float(g[col]), gt1 = __bfloat162float(g[col + 1]);
-                    const float gs0 = __bfloat162float(g[hidden + col]), gs1 = __bfloat162float(g[hidden + col + 1]);
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                        for (int half = 0; half < 2; ++half) {
-                            const int row = mc * TILE_ROWS + mt * 16 + (lane >> 2) + half * 8;
-                            const float a0 = tanhf(acc[mt][j][2 * half] + bt0 + gt0) *
-                                             sigmoidf_(acc[mt][j + 2][2 * half] + bs0 + gs0);
-                            const float a1 = tanhf(acc[mt][j][2 * half + 1] + bt1 + gt1) *
-                                             sigmoidf_(acc[mt][j + 2][2 * half + 1] + bs1 + gs1);
-                            store_pair(acts + static_cast<size_t>(row) * ldh + col, a0, a1);
-                        }
-                }
-                push_tiles(acts, ldh, mc * TILE_ROWS, {ta, tb, -1, -1}, ranks, rank);
-            }
-            cluster_barrier();
-
-            // res|skip 1x1: acts -> the rank's residual channels of hs (not on
-            // the last layer, whose res half is packed as zeros) and its skip sum
-            const uint2* wr = w_rs + sl * tap_words;
-            const bf16* br = b_rs + sl * 2 * hidden;
-            const int n_own = last ? nh : 2 * nh;
-            const int rs_groups = (n_own + NT - 1) / NT;
-            for (int item = warp; item < m_chunks * rs_groups; item += n_warps) {
-                const int gi = item / m_chunks, mc = item % m_chunks;
-                int nt[NT];
-#pragma unroll
-                for (int j = 0; j < NT; ++j) {
-                    const int i = gi * NT + j;
-                    nt[j] = i >= n_own ? -1 : last ? h_tiles + h0 + i : i < nh ? h0 + i : h_tiles + h0 + i - nh;
-                }
-                Acc acc;
-                zero_acc(acc);
-                warp_gemm_ahead(acc, acts, ldh, rows, mc * TILE_ROWS, zero_row, hidden, wr, 1, 2 * h_tiles, nt);
-#pragma unroll
-                for (int j = 0; j < NT; ++j) {
-                    if (nt[j] < 0) continue;
-                    const int col = nt[j] * 8 + (lane & 3) * 2;
-                    const float b0 = __bfloat162float(br[col]), b1 = __bfloat162float(br[col + 1]);
-#pragma unroll
-                    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-                        for (int half = 0; half < 2; ++half) {
-                            const int row = mc * TILE_ROWS + mt * 16 + (lane >> 2) + half * 8;
-                            const float v0 = acc[mt][j][2 * half] + b0, v1 = acc[mt][j][2 * half + 1] + b1;
-                            const bool ok = live(row);
-                            if (col < hidden) {
-                                bf16* px = hs + static_cast<size_t>(row) * ldh + col;
-                                const float2 cur = __bfloat1622float2(*reinterpret_cast<const bf162*>(px));
-                                store_pair(px, ok ? cur.x + round_bf16(v0) : 0.f, ok ? cur.y + round_bf16(v1) : 0.f);
-                                continue;
-                            }
-                            float* ps = skip + static_cast<size_t>(row) * skip_ld + (col - hidden - h0 * 8);
-                            const float s0 = first ? v0 : ps[0] + v0, s1 = first ? v1 : ps[1] + v1;
-                            if (last) {
-                                // the WaveNet's output, rounded once and masked: the post product's operand
-                                store_pair(hs + static_cast<size_t>(row) * ldh + (col - hidden), ok ? s0 : 0.f,
-                                           ok ? s1 : 0.f);
-                            } else {
-                                ps[0] = s0;
-                                ps[1] = s1;
-                            }
-                        }
-                }
-                // the res tiles, or on the last layer the finished skip tiles, go to the peers
-                int to_hs[NT];
-#pragma unroll
-                for (int j = 0; j < NT; ++j)
-                    to_hs[j] = nt[j] < 0 ? -1 : nt[j] < h_tiles ? nt[j] : last ? nt[j] - h_tiles : -1;
-                push_tiles(hs, ldh, mc * TILE_ROWS, to_hs, ranks, rank);
-            }
-            cluster_barrier();
-        }
+        const WnShare w{hs, acts, skip, zero_row, rows, ldh, hidden, ksize, 0, rows, skip_ld, frame0, length,
+                        h0, nh, ranks, rank};
+        wn_cluster_layers(w, w_in, b_in, g_all, w_rs, b_rs, s * n_layers,
+                          (static_cast<size_t>(b) * n_steps + s) * n_layers, n_layers, IntoHs{hs, ldh});
 
         // post 1x1 (target half and sign folded in): hs -> the rank's state columns
         const int post_groups = (nc + NT - 1) / NT;
@@ -379,25 +186,6 @@ coupling_kernel(const bf16* __restrict__ x, const int* __restrict__ lengths,
     }
 }
 
-// The kernel's shared-memory limit, and a cluster launch of it.
-cudaError_t launch_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& attr, dim3 grid,
-                          int threads, int smem, int ranks, cudaStream_t stream) {
-    const cudaError_t err = cudaFuncSetAttribute(coupling_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    cfg = cudaLaunchConfig_t{};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(threads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = ranks;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    return cudaSuccess;
-}
-
 }  // namespace
 
 // Shared memory of one CTA, in bytes: the bf16 window (state, hs, acts and a
@@ -418,8 +206,8 @@ extern "C" int coupling_max_clusters(int chan, int hidden, int rows, int skip_co
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    err = launch_config(cfg, attr, dim3(ranks), threads, coupling_smem_bytes(chan, hidden, rows, skip_cols),
-                        ranks, nullptr);
+    err = cluster_launch_config(cfg, attr, coupling_kernel, dim3(ranks), threads,
+                                coupling_smem_bytes(chan, hidden, rows, skip_cols), ranks, nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, coupling_kernel, &cfg));
 }
@@ -451,8 +239,9 @@ extern "C" int coupling_block_bf16(const void* x, const int* lengths, const void
     }
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    err = launch_config(cfg, attr, dim3(((t_len + tile - 1) / tile) * ranks, batch), threads,
-                        coupling_smem_bytes(chan, hidden, rows, skip_cols), ranks, static_cast<cudaStream_t>(stream));
+    err = cluster_launch_config(cfg, attr, coupling_kernel, dim3(((t_len + tile - 1) / tile) * ranks, batch),
+                                threads, coupling_smem_bytes(chan, hidden, rows, skip_cols), ranks,
+                                static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return static_cast<int>(err);
     err = cudaLaunchKernelEx(&cfg, coupling_kernel, static_cast<const bf16*>(x), lengths, static_cast<const uint2*>(wp),
                              static_cast<const bf16*>(bp), static_cast<const uint2*>(w_in),

@@ -1,4 +1,5 @@
-// K5: magnitude STFT, one warp per frame, as a four-step FFT.
+// K5: magnitude STFT: one warp per frame as a four-step FFT (n_fft 512, 1024
+// and 2048), and a direct DFT for every other n_fft.
 //
 // Replaces the TPU kernel openvoice_tpu/ops/stft_pallas.py::stft_magnitude_pallas
 // (body _stft_kernel).  For each batch row b, frame t and bin f < n_fft/2 + 1:
@@ -40,6 +41,23 @@
 // every lane, are kernel parameters.  At R2 = 64 a lane holds 64 complex
 // values in each step (128 floats); ptxas reports each instance's registers
 // and spills at build time.
+//
+// Every other n_fft (any n_fft >= 2, hop >= 1, win <= n_fft: what the JAX
+// package computes through its Pallas kernel or its XLA basis product) goes
+// to stft_dft_kernel, the function as the Pallas kernel computes it, a sum
+// over the frame per bin, without its basis matrix:
+//   X[f] = sum_n x[n] w[n] W_N^((n f) mod N),  W_N^j = exp(-2 pi i j / N)
+// A block takes DFT_FRAMES frames and DFT_THREADS bins, one bin a thread.
+// The table of W_N^j, j < N, computed on the host in float64 and rounded
+// once to float32, is staged in shared memory when it fits (N <= 28032) and
+// read through the read-only cache otherwise.  The windowed frames are
+// staged DFT_CHUNK samples at a time, [sample][frame], so that a thread reads
+// one sample of all its frames as two 16-byte broadcasts; each thread sums
+// its bin over a chunk into a partial sum and adds that to the total, which
+// keeps the f32 rounding of a 4096-term sum near that of a 256-term one.  The
+// table index (n f) mod N advances by f a sample and wraps once: integer
+// exact.  It costs N (N/2 + 1) complex multiply-adds a frame against the
+// FFT's 2.5 N log2 N, so it is for the sizes the FFT instances do not take.
 
 #include <cuda_runtime.h>
 
@@ -172,6 +190,93 @@ stft_fft_kernel(const float* __restrict__ audio, const float* __restrict__ windo
     }
 }
 
+constexpr int DFT_THREADS = 256;  // bins a block, one a thread
+constexpr int DFT_FRAMES = 8;     // frames a block
+constexpr int DFT_CHUNK = 256;    // samples of each frame staged at a time
+constexpr int SMEM_MAX = 232448;  // shared memory a block may ask for on sm_90
+constexpr int DFT_FRAMES_BYTES = DFT_CHUNK * DFT_FRAMES * 4;  // the staged chunk, [DFT_CHUNK][DFT_FRAMES]
+
+// STAGED: the table sits in shared memory after the frames' chunk.
+template <bool STAGED>
+__global__ void __launch_bounds__(DFT_THREADS)
+stft_dft_kernel(const float* __restrict__ audio, const float* __restrict__ window,
+                const float2* __restrict__ table, float* __restrict__ out, int length, int frames,
+                int n_fft, int hop) {
+    extern __shared__ __align__(16) float dsm[];
+    float (*xs)[DFT_FRAMES] = reinterpret_cast<float (*)[DFT_FRAMES]>(dsm);  // [DFT_CHUNK][DFT_FRAMES]
+    float2* staged = reinterpret_cast<float2*>(dsm + DFT_CHUNK * DFT_FRAMES);
+    const int tid = threadIdx.x;
+    const int t0 = blockIdx.x * DFT_FRAMES;
+    const int f = blockIdx.y * DFT_THREADS + tid;
+    const int b = blockIdx.z;
+    const int n_freq = n_fft / 2 + 1;
+    const bool has_bin = f < n_freq;  // the others stage samples and pass the barriers
+    const float* a = audio + static_cast<long long>(b) * length;
+
+    if (STAGED)
+        for (int i = tid; i < n_fft; i += DFT_THREADS) staged[i] = table[i];
+    const float2* tab = STAGED ? staged : table;
+
+    float re[DFT_FRAMES], im[DFT_FRAMES];
+#pragma unroll
+    for (int j = 0; j < DFT_FRAMES; ++j) re[j] = im[j] = 0.f;
+    for (int n0 = 0; n0 < n_fft; n0 += DFT_CHUNK) {
+        const int cn = min(DFT_CHUNK, n_fft - n0);
+        __syncthreads();  // the last chunk is read
+        // consecutive threads read consecutive samples of one frame
+        for (int i = tid; i < cn * DFT_FRAMES; i += DFT_THREADS) {
+            const int j = i / cn, n = i - j * cn;
+            const int t = t0 + j;
+            xs[n][j] = t < frames ? a[static_cast<long long>(t) * hop + n0 + n] * window[n0 + n] : 0.f;
+        }
+        __syncthreads();  // the chunk (and the table) is staged
+        if (!has_bin) continue;
+        int idx = static_cast<int>(static_cast<long long>(n0) * f % n_fft);
+        float pr[DFT_FRAMES], pi[DFT_FRAMES];
+#pragma unroll
+        for (int j = 0; j < DFT_FRAMES; ++j) pr[j] = pi[j] = 0.f;
+        for (int n = 0; n < cn; ++n) {
+            const float2 w = STAGED ? tab[idx] : __ldg(tab + idx);
+            const float4 x0 = *reinterpret_cast<const float4*>(&xs[n][0]);
+            const float4 x1 = *reinterpret_cast<const float4*>(&xs[n][4]);
+            const float x[DFT_FRAMES] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+#pragma unroll
+            for (int j = 0; j < DFT_FRAMES; ++j) {
+                pr[j] = fmaf(x[j], w.x, pr[j]);
+                pi[j] = fmaf(x[j], w.y, pi[j]);
+            }
+            idx += f;
+            if (idx >= n_fft) idx -= n_fft;
+        }
+#pragma unroll
+        for (int j = 0; j < DFT_FRAMES; ++j) {
+            re[j] += pr[j];
+            im[j] += pi[j];
+        }
+    }
+    if (!has_bin) return;
+#pragma unroll
+    for (int j = 0; j < DFT_FRAMES; ++j) {
+        const int t = t0 + j;
+        if (t < frames)
+            out[(static_cast<long long>(b) * frames + t) * n_freq + f] =
+                sqrtf(re[j] * re[j] + im[j] * im[j] + 1e-6f);
+    }
+}
+
+template <bool STAGED>
+cudaError_t launch_dft(const float* audio, const float* window, const float* table, float* out, int batch,
+                       int length, int frames, int n_fft, int hop, cudaStream_t stream) {
+    const int smem = DFT_FRAMES_BYTES + (STAGED ? n_fft * 8 : 0);
+    cudaError_t err =
+        cudaFuncSetAttribute(stft_dft_kernel<STAGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((frames + DFT_FRAMES - 1) / DFT_FRAMES, (n_fft / 2 + DFT_THREADS) / DFT_THREADS, batch);
+    stft_dft_kernel<STAGED><<<grid, DFT_THREADS, smem, stream>>>(
+        audio, window, reinterpret_cast<const float2*>(table), out, length, frames, n_fft, hop);
+    return cudaGetLastError();
+}
+
 template <int R2>
 cudaError_t launch(const float* audio, const float* window, const float* twiddle, float* out, int batch,
                    int length, int frames, int hop, const Roots& roots, cudaStream_t stream) {
@@ -210,5 +315,22 @@ extern "C" int stft_magnitude_f32(const float* audio, const float* window, const
         case 32: err = launch<32>(audio, window, twiddle, out, batch, length, frames, hop, w, s); break;
         default: err = launch<64>(audio, window, twiddle, out, batch, length, frames, hop, w, s); break;
     }
+    return static_cast<int>(err);
+}
+
+// audio [batch, length], window [n_fft], table [n_fft] complex (re, im) =
+// exp(-2 pi i j / n_fft) and out [batch, frames, n_fft/2 + 1] are contiguous
+// float32 on `device`; any n_fft >= 2 with (n_fft/2 + 1) / 256 + 1 <= 65535
+// bin groups, any hop >= 1, (frames - 1) * hop + n_fft <= length.  The launch
+// goes on `stream`.  Returns the CUDA error of the launch (0 on success).
+extern "C" int stft_dft_f32(const float* audio, const float* window, const float* table, float* out, int batch,
+                            int length, int frames, int n_fft, int hop, int device, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (DFT_FRAMES_BYTES + static_cast<long long>(n_fft) * 8 <= SMEM_MAX)
+        err = launch_dft<true>(audio, window, table, out, batch, length, frames, n_fft, hop, s);
+    else
+        err = launch_dft<false>(audio, window, table, out, batch, length, frames, n_fft, hop, s);
     return static_cast<int>(err);
 }

@@ -1,5 +1,6 @@
 """What the wrappers of the tensor-core kernels share: the weight layout the
-kernels read (``csrc/mma_tile.cuh``), input checks, and window sizing.
+kernels read (``csrc/mma_tile.cuh``), input checks, window sizing, and the
+column plan of the cluster kernels (``csrc/wn_cluster.cuh``).
 
 The kernels multiply with ``mma.sync.m16n8k16`` and read the B operand, the
 weights, straight from device memory.  `pack_frag` lays a ``[K, N]`` matrix
@@ -10,6 +11,8 @@ lane ``l = 4·g + t`` holds ``W[16·kt + 2t + {0, 1, 8, 9}, 8·nt + g]``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -101,3 +104,46 @@ def chosen_windows() -> dict[tuple, tuple[int, int]]:
     """Every window chosen so far: (kernel, its sizes, halo, tile wanted,
     row multiples) → (rows, tile)."""
     return dict(_WINDOWS)
+
+
+def cluster_bounds(n_tiles: int, ranks: int) -> list[int]:
+    """Rank r of a cluster owns the 8-column tiles [b[r], b[r + 1]) of a
+    product with `n_tiles` column tiles: contiguous shares that differ by
+    at most one tile.  The kernels take these boundaries as they are."""
+    if ranks < 1:
+        raise ValueError(f"a cluster has at least one CTA, got {ranks}")
+    return [r * n_tiles // ranks for r in range(ranks + 1)]
+
+
+def cluster_columns(n_out: int, ranks: int, paired: bool = False) -> list[list[int]]:
+    """The output columns each rank computes of an `n_out`-wide product.
+    `paired`: the product's two halves are split alike, so that column i of
+    the first half and column i of the second have one owner (the gate's
+    tanh and sigmoid of a channel; a channel's res and skip)."""
+    width = n_out // 2 if paired else n_out
+    if width % 8:
+        raise ValueError(f"columns come in tiles of 8, got {width}")
+    bounds = cluster_bounds(width // 8, ranks)
+    halves = (0, width) if paired else (0,)
+    return [[off + col for off in halves for col in range(8 * bounds[r], 8 * bounds[r + 1])]
+            for r in range(ranks)]
+
+
+_CLUSTERS: dict[tuple, int] = {}
+
+
+def max_clusters(key: tuple, query) -> int:
+    """cudaOccupancyMaxActiveClusters of a cluster launch: how many of its
+    clusters the card holds at once.  `query(pointer to int)` asks the
+    kernel's library and returns the CUDA error; the answer is kept per `key`
+    (the kernel and every size and knob of the launch).  Raises when no
+    cluster fits: there is no single-CTA fallback."""
+    if key not in _CLUSTERS:
+        n = ctypes.c_int(0)
+        err = query(ctypes.byref(n))
+        if err != 0:
+            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {err} ({key})")
+        if n.value < 1:
+            raise RuntimeError(f"no cluster of the launch {key} fits on the card")
+        _CLUSTERS[key] = n.value
+    return _CLUSTERS[key]

@@ -1,7 +1,7 @@
 """K2: one direction of the coupling flow as one hand-written CUDA kernel
 (``csrc/coupling.cu``), launched as thread-block clusters: each time tile
 is split over the R CTAs of one cluster, which share the window through
-distributed shared memory (`cluster_bounds` is the column plan).
+distributed shared memory (`_frag.cluster_bounds` is the column plan).
 
 Replaces ``openvoice_tpu/ops/coupling_pallas.py::fused_coupling_block`` with
 its packers (`_exec_order`, `pack_coupling_block`, `coupling_g_stack`).  The
@@ -40,30 +40,6 @@ _THREADS = 384
 # what the last launch ran: ranks, rows, tile, CTAs, and
 # cudaOccupancyMaxActiveClusters for its CTA size
 last_launch: dict = {}
-_MAX_CLUSTERS: dict[tuple, int] = {}
-
-
-def cluster_bounds(n_tiles: int, ranks: int) -> list[int]:
-    """Rank r of a cluster owns the 8-column tiles [b[r], b[r + 1]) of a
-    product with `n_tiles` column tiles: contiguous shares that differ by
-    at most one tile.  The kernel takes these boundaries as they are."""
-    if ranks < 1:
-        raise ValueError(f"a cluster has at least one CTA, got {ranks}")
-    return [r * n_tiles // ranks for r in range(ranks + 1)]
-
-
-def cluster_columns(n_out: int, ranks: int, paired: bool = False) -> list[list[int]]:
-    """The output columns each rank computes of an `n_out`-wide product.
-    `paired`: the product's two halves are split alike, so that column i of
-    the first half and column i of the second have one owner (the gate's
-    tanh and sigmoid of a channel; a channel's res and skip)."""
-    width = n_out // 2 if paired else n_out
-    if width % 8:
-        raise ValueError(f"columns come in tiles of 8, got {width}")
-    bounds = cluster_bounds(width // 8, ranks)
-    halves = (0, width) if paired else (0,)
-    return [[off + col for off in halves for col in range(8 * bounds[r], 8 * bounds[r + 1])]
-            for r in range(ranks)]
 
 
 def _exec_order(n_couplings: int, reverse: bool) -> list[tuple[int, int]]:
@@ -181,21 +157,6 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def _max_clusters(lib, c: int, h: int, rows: int, skip_cols: int, device: int) -> int:
-    """cudaOccupancyMaxActiveClusters for the wrapper's knobs, asked once per
-    sizes; raises when no cluster fits (there is no single-CTA fallback)."""
-    key = (c, h, rows, skip_cols, _THREADS, _RANKS, device)
-    if key not in _MAX_CLUSTERS:
-        n = ctypes.c_int(0)
-        err = lib.coupling_max_clusters(c, h, rows, skip_cols, _THREADS, _RANKS, device, ctypes.byref(n))
-        if err != 0:
-            raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed with CUDA error {err}")
-        if n.value < 1:
-            raise RuntimeError(f"no cluster of {_RANKS} CTAs ({_THREADS} threads, {rows} rows) fits on the card")
-        _MAX_CLUSTERS[key] = n.value
-    return _MAX_CLUSTERS[key]
-
-
 def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
                    g_all: torch.Tensor) -> torch.Tensor:
     """x [B, T, C] flow input; lengths [B] true frame counts; packed from
@@ -237,12 +198,14 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
 
     lib = _library()
     halo = n_steps * n_layers * (k - 1) // 2
-    c_bounds, h_bounds = cluster_bounds(c // 8, _RANKS), cluster_bounds(h // 8, _RANKS)
+    c_bounds, h_bounds = _frag.cluster_bounds(c // 8, _RANKS), _frag.cluster_bounds(h // 8, _RANKS)
     skip_cols = 8 * max(b - a for a, b in zip(h_bounds, h_bounds[1:]))
     rows, tile = _frag.window(("coupling", c, h, _RANKS), halo, t, _TILE_TARGET,
                               lambda r, tl: lib.coupling_smem_bytes(c, h, r, skip_cols))
     device = x.device.index or 0
-    clusters = _max_clusters(lib, c, h, rows, skip_cols, device)
+    clusters = _frag.max_clusters(
+        ("coupling", c, h, rows, skip_cols, _THREADS, _RANKS, device),
+        lambda n: lib.coupling_max_clusters(c, h, rows, skip_cols, _THREADS, _RANKS, device, n))
     out = torch.empty_like(x)
     err = lib.coupling_block_bf16(
         x.data_ptr(), lengths.data_ptr(), packed["wp_frag"].data_ptr(), packed["bp"].data_ptr(),

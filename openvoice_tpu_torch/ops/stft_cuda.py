@@ -1,17 +1,19 @@
-"""K5: the magnitude STFT as a hand-written CUDA kernel (``csrc/stft.cu``),
-a four-step FFT with one warp per frame.
+"""K5: the magnitude STFT as hand-written CUDA kernels (``csrc/stft.cu``):
+a four-step FFT with one warp per frame for n_fft in `FFT_SIZES` (512, 1024,
+the size of every shipped configuration, and 2048), and a direct DFT for
+every other n_fft (`route` says which).
 
-Replaces ``openvoice_tpu/ops/stft_pallas.py::stft_magnitude_pallas``.  The
-wrapper takes pre-reflect-padded audio [B, L] and returns magnitudes
-[B, frames, n_fft//2+1], all float32.  A CUDA tensor goes to the kernel; a
-CPU tensor goes to the plain version
+Replaces ``openvoice_tpu/ops/stft_pallas.py::stft_magnitude_pallas`` and the
+XLA basis product the JAX package takes for the sizes its Pallas kernel does
+not (``openvoice_tpu/api.py::_spec_btf``).  The wrapper takes
+pre-reflect-padded audio [B, L] and returns magnitudes
+[B, frames, n_fft//2+1], all float32.  A CUDA tensor goes to a kernel; a CPU
+tensor goes to the plain version
 (`openvoice_tpu_torch.audio.stft.stft_magnitude_plain`).  Nothing falls back:
-a failed build or launch raises, and so does an n_fft the kernel has no FFT
-for: it takes n_fft = 32·R2 for R2 = 16, 32 and 64 (`FFT_SIZES`: 512, 1024,
-the size of every shipped configuration, and 2048).
+a failed build or launch raises, on either route.
 
-``launches`` counts the kernel's launches; it is raised where the kernel is
-launched and nowhere else.
+``launches`` counts the launches of both kernels; it is raised where a
+kernel is launched and nowhere else.
 """
 
 from __future__ import annotations
@@ -27,18 +29,26 @@ from openvoice_tpu_torch.ops import _nvcc
 launches = 0
 
 R1 = 32                        # R1 in csrc/stft.cu: a warp's lanes; n_fft = R1 · R2
-FFT_SIZES = (512, 1024, 2048)  # the n_fft values the kernel has an instance for (R2 16, 32, 64)
-_GRID_MAX_Y = 65535
+FFT_SIZES = (512, 1024, 2048)  # the n_fft values the FFT has an instance for (R2 16, 32, 64)
+DFT_BINS = 256                 # DFT_THREADS in csrc/stft.cu: bins a block
+_GRID_MAX_YZ = 65535
 
-_TABLES: dict[tuple[int, int, torch.device], tuple[torch.Tensor, torch.Tensor, ctypes.Array]] = {}
+_TABLES: dict[tuple, tuple] = {}
 
 
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("stft")
-    fn = lib.stft_magnitude_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib.stft_magnitude_f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.stft_magnitude_f32.restype = ctypes.c_int
+    lib.stft_dft_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.stft_dft_f32.restype = ctypes.c_int
     return lib
+
+
+def route(n_fft: int) -> str:
+    """Which kernel computes `n_fft` on the card: "fft" for the sizes in
+    `FFT_SIZES`, "dft" for every other."""
+    return "fft" if n_fft in FFT_SIZES else "dft"
 
 
 def fft_tables(n_fft: int, win: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -50,7 +60,8 @@ def fft_tables(n_fft: int, win: int) -> tuple[np.ndarray, np.ndarray, np.ndarray
       roots   [2, M/2]         exp(−2πi·j / M), j < M/2, M = max(R1, R2): the
                                roots of both small FFTs, real then imaginary
     """
-    check_fft_size(n_fft)
+    if route(n_fft) != "fft":
+        raise ValueError(f"the FFT has instances for n_fft in {FFT_SIZES}, not n_fft={n_fft}")
     r2 = n_fft // R1
     k2, n1 = np.meshgrid(np.arange(r2), np.arange(R1), indexing="ij")
     ang = -2.0 * np.pi * n1 * k2 / n_fft
@@ -62,19 +73,31 @@ def fft_tables(n_fft: int, win: int) -> tuple[np.ndarray, np.ndarray, np.ndarray
             roots.astype(np.float32))
 
 
-def check_fft_size(n_fft: int) -> None:
-    """The kernel computes only the FFT sizes in `FFT_SIZES`."""
-    if n_fft not in FFT_SIZES:
-        raise ValueError(f"the STFT kernel takes n_fft in {FFT_SIZES}, not n_fft={n_fft}")
+def dft_tables(n_fft: int, win: int) -> tuple[np.ndarray, np.ndarray]:
+    """What the DFT kernel reads beside the audio, computed in float64 and
+    rounded once to float32:
+
+      window [n_fft]     the window of `stft_basis`
+      table  [n_fft, 2]  j → exp(−2πi·j / n_fft) as (re, im); bin f takes
+                         sample n's root at j = (n·f) mod n_fft
+    """
+    ang = -2.0 * np.pi * np.arange(n_fft) / n_fft
+    table = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    return stft_window(n_fft, win).astype(np.float32), table.astype(np.float32)
 
 
-def _device_tables(n_fft: int, win: int, device: torch.device):
+def _device_tables(n_fft: int, win: int, device: torch.device) -> tuple:
+    """The route's tables on `device` (the FFT's roots stay on the host: they
+    are kernel parameters), made once per size."""
     key = (n_fft, win, device)
     tables = _TABLES.get(key)
     if tables is None:
-        window, twiddle, roots = fft_tables(n_fft, win)
-        tables = (torch.from_numpy(window).to(device), torch.from_numpy(twiddle).to(device),
-                  (ctypes.c_float * roots.size)(*roots.ravel().tolist()))
+        if route(n_fft) == "fft":
+            window, twiddle, roots = fft_tables(n_fft, win)
+            tables = (torch.from_numpy(window).to(device), torch.from_numpy(twiddle).to(device),
+                      (ctypes.c_float * roots.size)(*roots.ravel().tolist()))
+        else:
+            tables = tuple(torch.from_numpy(a).to(device) for a in dft_tables(n_fft, win))
         _TABLES[key] = tables
     return tables
 
@@ -99,21 +122,27 @@ def stft_magnitude(padded_audio: torch.Tensor, n_fft: int, hop: int, win: int) -
     if padded_audio.device.type != "cuda":
         raise ValueError(f"stft_magnitude runs on cuda or cpu, not {padded_audio.device}")
 
-    check_fft_size(n_fft)
     frames = (length - n_fft) // hop + 1
-    # the kernel takes int sizes and offsets in 64 bits; the grid is
-    # (frame groups, batch)
-    if length >= 2**31 or batch > _GRID_MAX_Y:
-        raise ValueError(f"audio [{batch}, {length}] exceeds the kernel's launch grid")
+    # the kernels take int sizes and offsets in 64 bits; the grid is (frame
+    # groups, batch), for the DFT (frame groups, bin groups, batch)
+    if length >= 2**31 or batch > _GRID_MAX_YZ or -(-(n_fft // 2 + 1) // DFT_BINS) > _GRID_MAX_YZ:
+        raise ValueError(f"audio [{batch}, {length}] at n_fft={n_fft} exceeds the kernels' launch grid")
     device = padded_audio.device
-    window, twiddle, roots = _device_tables(n_fft, win, device)
+    tables = _device_tables(n_fft, win, device)
     out = torch.empty((batch, frames, n_fft // 2 + 1), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = _library().stft_magnitude_f32(
-        padded_audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(), ctypes.addressof(roots),
-        out.data_ptr(), batch, length, frames, n_fft, hop, device.index or 0, stream,
-    )
+    lib = _library()
+    if route(n_fft) == "fft":
+        window, twiddle, roots = tables
+        err = lib.stft_magnitude_f32(
+            padded_audio.data_ptr(), window.data_ptr(), twiddle.data_ptr(), ctypes.addressof(roots),
+            out.data_ptr(), batch, length, frames, n_fft, hop, device.index or 0, stream,
+        )
+    else:
+        window, table = tables
+        err = lib.stft_dft_f32(padded_audio.data_ptr(), window.data_ptr(), table.data_ptr(), out.data_ptr(),
+                               batch, length, frames, n_fft, hop, device.index or 0, stream)
     if err != 0:
-        raise RuntimeError(f"stft kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"stft {route(n_fft)} kernel launch failed with CUDA error {err}")
     launches += 1
     return out

@@ -1,4 +1,7 @@
-"""K1: a whole WaveNet stack as one hand-written CUDA kernel (``csrc/wn.cu``).
+"""K1: a whole WaveNet stack as one hand-written CUDA kernel (``csrc/wn.cu``),
+launched as thread-block clusters: each time tile is split over the R CTAs of
+one cluster, which share the window through distributed shared memory
+(`_frag.cluster_bounds` is the column plan), as K2 does.
 
 Replaces ``openvoice_tpu/ops/wn_pallas.py::fused_wn_stack``; `stack_wn_params`
 is the port's packer (its ``stack_wn_params``).  `wn_stack` takes the
@@ -7,7 +10,8 @@ and the per-layer conditioning [B, L, 2H] (projected once outside), and
 returns the masked skip sum [B, T, H].  A CUDA tensor goes to the kernel; a
 CPU tensor goes to `wn_stack_plain`, the same function in plain PyTorch with
 the kernel's rounding points.  Nothing falls back: wrong inputs, a failed
-build or a failed launch raise.
+build, a launch no cluster of which fits on the card, or a failed launch
+raise.
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
 launched and nowhere else.
@@ -23,13 +27,19 @@ from openvoice_tpu_torch.ops import _frag, _nvcc
 
 launches = 0
 
-# Frames a block keeps (it recomputes L·(K−1)/2 more a side) and its threads.
-# ``python3 chip_smoke.py --sweep`` times 16/32/64 frames × 8/12/16 warps at the
-# V2 shape; on one H100 a 32-frame tile was faster than a 64-frame one and 12
-# warps as fast as 16: the kernel waits on latency, so it wants many blocks
-# and many warps rather than little recomputation.
-_TILE_TARGET = 32
+# CTAs a cluster splits a time tile over, frames a tile keeps (the window
+# recomputes L·(K−1)/2 more a side: 32 at the V2 posterior encoder's L 16, K 5)
+# and threads a CTA (at most 384: MAX_THREADS in csrc/wn_cluster.cuh).  A
+# 64-frame tile is a 128-row window: 16 clusters at T = 1024, one wave of the
+# 30 clusters of 4 an H100 holds.  ``python3 chip_smoke.py --sweep wn`` times
+# R 2/4/8 × tile 32/64 × 288/384 threads (PERF.md).
+_RANKS = 4
+_TILE_TARGET = 64
 _THREADS = 384
+
+# what the last launch ran: ranks, rows, tile, CTAs, and
+# cudaOccupancyMaxActiveClusters for its CTA size
+last_launch: dict = {}
 
 
 def stack_wn_params(wn, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -91,13 +101,34 @@ def wn_stack_plain(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
     return skip.to(dt) * mask.to(dt)
 
 
+def live_tiles(length: int, tile: int, t_len: int) -> int:
+    """How many of the kernel's time tiles compute at a row's true `length`:
+    a tile whose first frame lies at or past it writes zeros and returns."""
+    return -(-min(max(length, 0), t_len) // tile)
+
+
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("wn")
-    lib.wn_stack_bf16.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.wn_stack_bf16.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 11
+                                  + [ctypes.c_void_p])
     lib.wn_stack_bf16.restype = ctypes.c_int
-    lib.wn_stack_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.wn_stack_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.wn_stack_smem_bytes.restype = ctypes.c_int
+    lib.wn_stack_max_clusters.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.wn_stack_max_clusters.restype = ctypes.c_int
+    lib.wn_stack_attributes.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.wn_stack_attributes.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes(device: int = 0) -> dict:
+    """Registers and spilled bytes a thread of the kernel, as ptxas left them
+    (cudaFuncGetAttributes)."""
+    regs, local = ctypes.c_int(0), ctypes.c_int(0)
+    err = _library().wn_stack_attributes(device, ctypes.byref(regs), ctypes.byref(local))
+    if err != 0:
+        raise RuntimeError(f"wn kernel attributes failed with CUDA error {err}")
+    return {"registers": regs.value, "spill_bytes": local.value}
 
 
 def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.Tensor) -> torch.Tensor:
@@ -139,15 +170,24 @@ def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.
 
     lib = _library()
     halo = n_layers * (k - 1) // 2
-    rows, tile = _frag.window(("wn", h), halo, t, _TILE_TARGET, lambda r, tl: lib.wn_stack_smem_bytes(h, r, tl))
+    h_bounds = _frag.cluster_bounds(h // 8, _RANKS)
+    skip_cols = 8 * max(b - a for a, b in zip(h_bounds, h_bounds[1:]))
+    rows, tile = _frag.window(("wn", h, _RANKS), halo, t, _TILE_TARGET,
+                              lambda r, tl: lib.wn_stack_smem_bytes(h, r, tl, skip_cols))
+    device = x.device.index or 0
+    clusters = _frag.max_clusters(
+        ("wn", h, rows, tile, skip_cols, _THREADS, _RANKS, device),
+        lambda n: lib.wn_stack_max_clusters(h, rows, tile, skip_cols, _THREADS, _RANKS, device, n))
     out = torch.empty_like(x)
     err = lib.wn_stack_bf16(
         x.data_ptr(), lengths.data_ptr(), packed["w_in_frag"].data_ptr(), packed["b_in"].data_ptr(),
         g_all.data_ptr(), packed["w_rs_frag"].data_ptr(), packed["b_rs"].data_ptr(), out.data_ptr(),
-        batch, t, h, k, n_layers, rows, tile, _THREADS, x.device.index or 0,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        (ctypes.c_int * len(h_bounds))(*h_bounds), batch, t, h, k, n_layers, rows, tile, skip_cols, _THREADS,
+        _RANKS, device, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"wn kernel launch failed with CUDA error {err}")
     launches += 1
+    last_launch.update(ranks=_RANKS, rows=rows, tile=tile, tiles=-(-t // tile),
+                       ctas=-(-t // tile) * _RANKS * batch, threads=_THREADS, max_clusters=clusters)
     return out

@@ -77,10 +77,9 @@ def _wn_params(rng, hidden, n_layers, k, gin):
     return p
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("n_layers,hidden,gin,t_len", [(4, 64, 0, 96), (16, 32, 16, 120), (3, 64, 16, 56)])
-@torch.inference_mode()
-def test_wn_stack_matches_pallas(n_layers, hidden, gin, t_len, dtype):
+def _wn_case(n_layers, hidden, gin, t_len, dtype):
+    """Seeded K1 inputs, as `test_wn_stack_matches_pallas` makes them: the
+    Pallas kernel's result in interpret mode, and the port's inputs."""
     k, b = 5, 2
     rng = np.random.default_rng(n_layers * 100 + t_len)
     params = _wn_params(rng, hidden, n_layers, k, gin)
@@ -106,13 +105,76 @@ def test_wn_stack_matches_pallas(n_layers, hidden, gin, t_len, dtype):
         g_all = wn.cond_layer.to(dtype)(t(g).to(dtype).transpose(1, 2)).reshape(b, n_layers, 2 * hidden)
     else:
         g_all = torch.zeros(b, n_layers, 2 * hidden, dtype=dtype)
-    out = wn_cuda.wn_stack(t(x).to(dtype), t(lengths), packed, g_all)
-    assert out.dtype == dtype and out.shape == (b, t_len, hidden)
+    return t(x).to(dtype), t(lengths), packed, g_all, ref
+
+
+WN_CASES = [(4, 64, 0, 96), (16, 32, 16, 120), (3, 64, 16, 56)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_layers,hidden,gin,t_len", WN_CASES)
+@torch.inference_mode()
+def test_wn_stack_matches_pallas(n_layers, hidden, gin, t_len, dtype):
+    x, lengths, packed, g_all, ref = _wn_case(n_layers, hidden, gin, t_len, dtype)
+    out = wn_cuda.wn_stack(x, lengths, packed, g_all)
+    assert out.dtype == dtype and out.shape == x.shape
     assert bool((out[1, lengths[1]:] == 0).all())
     if dtype == torch.float32:
         _close_f32(out, ref, 1e-4, 1e-4)
     else:
         _close_bf16(out, ref)
+
+
+def _wn_split_model(x, lengths, packed, g_all, ranks):
+    """wn_stack as the cluster kernel (csrc/wn.cu) computes it: each of the
+    `ranks` CTAs keeps its own copy of xs and acts and computes its channels
+    of the WaveNet (`_wn_split_layers`); its output channels go straight to
+    `out`."""
+    dt = x.dtype
+    b, t_len, h = x.shape
+    mask = _frag.length_mask(lengths, t_len)
+    xs = [x.float() * mask for _ in range(ranks)]
+    acts = [torch.zeros(b, t_len, h) for _ in range(ranks)]
+    out = torch.full((b, t_len, h), float("nan"))
+    for ch, v in _wn_split_layers(xs, acts, mask, dt, packed["w_in"], packed["b_in"], g_all, packed["w_rs"],
+                                  packed["b_rs"], _owned(h, ranks)):
+        out[..., ch] = v
+    _assert_copies_agree(xs, acts)
+    return out.to(dt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n_layers,hidden,gin,t_len", WN_CASES)
+@torch.inference_mode()
+def test_wn_cluster_split_matches_pallas(n_layers, hidden, gin, t_len, dtype):
+    """K1's split, modelled rank by rank, is the plain version bit for bit,
+    and the Pallas kernel at the bars of the test above, for every cluster
+    size the kernel takes (a rank may own no channel at R = 8, H = 32)."""
+    x, lengths, packed, g_all, ref = _wn_case(n_layers, hidden, gin, t_len, dtype)
+    plain = wn_cuda.wn_stack_plain(x, lengths, packed, g_all)
+    for ranks in (1, 2, 4, 8):
+        split = _wn_split_model(x, lengths, packed, g_all, ranks)
+        assert torch.equal(split, plain), f"R = {ranks}: the split differs from wn_stack_plain"
+        assert bool((split[1, lengths[1]:] == 0).all())
+        if dtype == torch.float32:
+            _close_f32(split, ref, 1e-4, 1e-4)
+        else:
+            _close_bf16(split, ref)
+
+
+@pytest.mark.parametrize("length,live", [(0, 0), (1, 1), (200, 4)], ids=["0", "1", "full"])
+@torch.inference_mode()
+def test_wn_tiles_past_the_length_are_zero(length, live):
+    """K1's early exit: a tile whose first frame lies at or past the length
+    writes zeros and returns.  The plain version gives exactly 0 on every
+    such tile and not on the tile before it, which `live_tiles` counts."""
+    t_len, tile = 200, wn_cuda._TILE_TARGET
+    x, _, packed, g_all, _ = _wn_case(4, 32, 16, t_len, torch.float32)
+    out = wn_cuda.wn_stack(x, torch.tensor([length, t_len]), packed, g_all)
+    assert wn_cuda.live_tiles(length, tile, t_len) == live
+    for i in range(-(-t_len // tile)):
+        block = out[0, i * tile:(i + 1) * tile]
+        assert bool((block == 0).all()) == (i >= live), (i, live)
 
 
 # -- K2 ------------------------------------------------------------------------
@@ -183,18 +245,19 @@ def test_coupling_exec_order_and_g_stack_follow_jax(flow_case):
         np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("ranks", [1, 2, 4])
+@pytest.mark.parametrize("ranks", [1, 2, 4, 8])
 def test_coupling_cluster_columns_partition(ranks):
-    """Every output column of every product of K2 has exactly one owner in
-    the cluster, a gate pair (tanh, sigmoid) and a channel's (res, skip)
-    have the same one, and each rank owns whole 8-column tiles, contiguous
-    in each half."""
+    """Every output column of every product of K2, and of K1's two products,
+    has exactly one owner in the cluster, a gate pair (tanh, sigmoid) and a
+    channel's (res, skip) have the same one, and each rank owns whole
+    8-column tiles, contiguous in each half."""
     from openvoice_tpu_torch.config import V2_CONVERTER_CONFIG as V2
 
     for c, h in [(V2.inter_channels, V2.hidden_channels), (TINY["inter_channels"], TINY["hidden_channels"])]:
-        products = {"pre": (h, False), "gate": (2 * h, True), "res|skip": (2 * h, True), "post": (c, False)}
+        products = {"pre": (h, False), "gate": (2 * h, True), "res|skip": (2 * h, True), "post": (c, False),
+                    "K1 gate": (2 * V2.hidden_channels, True), "K1 res|skip": (2 * V2.hidden_channels, True)}
         for name, (n_out, paired) in products.items():
-            owned = coupling_cuda.cluster_columns(n_out, ranks, paired=paired)
+            owned = _frag.cluster_columns(n_out, ranks, paired=paired)
             assert len(owned) == ranks
             flat = sorted(col for cols in owned for col in cols)
             assert flat == list(range(n_out)), f"{name}: a column without one owner"
@@ -211,63 +274,81 @@ def test_coupling_cluster_columns_partition(ranks):
             assert max(sizes) - min(sizes) <= (16 if paired else 8), f"{name}: shares {sizes}"
 
 
+def _store_all(copies, writes):
+    """What the cluster barrier after a product leaves: every rank's columns
+    stored into every rank's copy."""
+    for cols, v in writes:
+        for copy_ in copies:
+            copy_[..., cols] = v
+
+
+def _owned(n: int, ranks: int) -> list[torch.Tensor]:
+    return [torch.tensor(cols, dtype=torch.long) for cols in _frag.cluster_columns(n, ranks)]
+
+
+def _wn_split_layers(xs, acts, mask, dt, w_in, b_in, g_all, w_rs, b_rs, own_h):
+    """The WaveNet layers as the cluster kernels compute them
+    (csrc/wn_cluster.cuh::wn_cluster_layers).  `xs` and `acts` are the
+    ranks' copies of the window; in every product each rank reads its own
+    copy and computes only the channels `own_h` gives it, and only after all
+    ranks have computed are the results stored into every copy (the cluster
+    barrier).  The skip sum holds a rank's own channels.  Products in f32,
+    in the kernel's rounding points.  Returns each rank's (channels, output):
+    its skip sum rounded once and masked."""
+    n_layers, k, h, _ = w_in.shape
+    pad = (k - 1) // 2
+    t_len = xs[0].shape[1]
+    skip = [None] * len(own_h)
+    for layer in range(n_layers):
+        wi, bi = w_in[layer].float(), b_in[layer].float()
+        wr, br = w_rs[layer].float(), b_rs[layer].float()
+        g = g_all[:, layer : layer + 1].float()
+        writes = []
+        for r, ch in enumerate(own_h):
+            xp = torch.nn.functional.pad(xs[r], (0, 0, pad, pad))
+            tanh_in = sum(xp[:, j : j + t_len] @ wi[j][:, ch] for j in range(k)) + bi[ch] + g[..., ch]
+            sig_in = sum(xp[:, j : j + t_len] @ wi[j][:, h + ch] for j in range(k)) + bi[h + ch] + g[..., h + ch]
+            writes.append((ch, (torch.tanh(tanh_in) * torch.sigmoid(sig_in)).to(dt).float()))
+        _store_all(acts, writes)
+        writes = []
+        for r, ch in enumerate(own_h):
+            rs_skip = acts[r] @ wr[:, h + ch] + br[h + ch]
+            skip[r] = rs_skip if layer == 0 else skip[r] + rs_skip
+            if layer < n_layers - 1:
+                res = (acts[r] @ wr[:, ch] + br[ch]).to(dt).float()
+                writes.append((ch, (xs[r][..., ch] + res).to(dt).float() * mask))
+        _store_all(xs, writes)
+    return [(ch, skip[r].to(dt).float() * mask) for r, ch in enumerate(own_h)]
+
+
+def _assert_copies_agree(*buffers):
+    for copies in buffers:
+        assert all(torch.equal(copies[0], other) for other in copies[1:]), "the copies diverged"
+
+
 def _cluster_split_model(x, lengths, packed, g_all, ranks):
-    """coupling_block as the cluster kernel (csrc/coupling.cu) computes it.
-    Each of the `ranks` CTAs keeps its own copy of the state, hs and acts;
-    in every product each rank reads its own copy and computes only its
-    columns (`cluster_columns`), and only after all ranks have computed are
-    the results stored into every copy (the cluster barrier).  The skip sum
-    holds a rank's own channels; on the last layer it goes, rounded and
-    masked, into hs, which the post product reads.  Products in f32, in the
-    kernel's rounding points."""
+    """coupling_block as the cluster kernel (csrc/coupling.cu) computes it:
+    each of the `ranks` CTAs keeps its own copy of the state, hs and acts,
+    and computes its columns of the pre and post products and its channels
+    of the WaveNet (`_wn_split_layers`), whose output goes, rounded and
+    masked, into hs, which the post product reads."""
     dt = x.dtype
     b, t_len, c = x.shape
     n_steps, n_layers, k, h, _ = packed["w_in"].shape
-    pad = (k - 1) // 2
     mask = _frag.length_mask(lengths, t_len)
-    own_h = [torch.tensor(cols) for cols in coupling_cuda.cluster_columns(h, ranks)]
-    own_c = [torch.tensor(cols) for cols in coupling_cuda.cluster_columns(c, ranks)]
+    own_h, own_c = _owned(h, ranks), _owned(c, ranks)
     state = [x.float() * mask for _ in range(ranks)]
     hs = [torch.zeros(b, t_len, h) for _ in range(ranks)]
     acts = [torch.zeros(b, t_len, h) for _ in range(ranks)]
-
-    def store_all(copies, writes):
-        for cols, v in writes:
-            for copy_ in copies:
-                copy_[..., cols] = v
-
     for s in range(n_steps):
         wp, bp = packed["wp"][s].float(), packed["bp"][s].float()
-        store_all(hs, [(ch, (state[r] @ wp[:, ch] + bp[ch]).to(dt).float() * mask)
-                       for r, ch in enumerate(own_h)])
-        skip = [None] * ranks
-        for layer in range(n_layers):
-            w_in, b_in = packed["w_in"][s, layer].float(), packed["b_in"][s, layer].float()
-            w_rs, b_rs = packed["w_rs"][s, layer].float(), packed["b_rs"][s, layer].float()
-            g = g_all[:, s, layer : layer + 1].float()
-            last = layer == n_layers - 1
-            writes = []
-            for r, ch in enumerate(own_h):
-                xp = torch.nn.functional.pad(hs[r], (0, 0, pad, pad))
-                tanh_in = sum(xp[:, j : j + t_len] @ w_in[j][:, ch] for j in range(k)) + b_in[ch] + g[..., ch]
-                sig_in = sum(xp[:, j : j + t_len] @ w_in[j][:, h + ch] for j in range(k)) + b_in[h + ch] + g[..., h + ch]
-                writes.append((ch, (torch.tanh(tanh_in) * torch.sigmoid(sig_in)).to(dt).float()))
-            store_all(acts, writes)
-            writes = []
-            for r, ch in enumerate(own_h):
-                rs_skip = acts[r] @ w_rs[:, h + ch] + b_rs[h + ch]
-                skip[r] = rs_skip if layer == 0 else skip[r] + rs_skip
-                if last:
-                    writes.append((ch, skip[r].to(dt).float() * mask))
-                else:
-                    res = (acts[r] @ w_rs[:, ch] + b_rs[ch]).to(dt).float()
-                    writes.append((ch, (hs[r][..., ch] + res).to(dt).float() * mask))
-            store_all(hs, writes)
+        _store_all(hs, [(ch, (state[r] @ wp[:, ch] + bp[ch]).to(dt).float() * mask) for r, ch in enumerate(own_h)])
+        _store_all(hs, _wn_split_layers(hs, acts, mask, dt, packed["w_in"][s], packed["b_in"][s], g_all[:, s],
+                                        packed["w_rs"][s], packed["b_rs"][s], own_h))
         wq, bq = packed["wq"][s].float(), packed["bq"][s].float()
-        store_all(state, [(cols, (state[r][..., cols] + (hs[r] @ wq[:, cols] + bq[cols]).to(dt).float()).to(dt).float()
-                           * mask) for r, cols in enumerate(own_c)])
-    for copies in (state, hs, acts):
-        assert all(torch.equal(copies[0], other) for other in copies[1:]), "the copies diverged"
+        _store_all(state, [(cols, (state[r][..., cols] + (hs[r] @ wq[:, cols] + bq[cols]).to(dt).float()).to(dt).float()
+                            * mask) for r, cols in enumerate(own_c)])
+    _assert_copies_agree(state, hs, acts)
     return state[0].to(dt)
 
 

@@ -118,22 +118,73 @@ def test_fft_tables_give_the_spectrum(n_fft, win):
 
 
 def test_fft_sizes_outside_the_kernel_are_refused():
-    for n_fft in (1000, 768, 4096):
-        with pytest.raises(ValueError, match=f"n_fft={n_fft}"):
-            stft_cuda.check_fft_size(n_fft)
+    """The FFT takes n_fft 512, 1024 and 2048 and refuses to make tables for
+    any other size; the wrapper sends those to the DFT kernel, whose tables
+    take any size, so that no n_fft raises."""
+    for n_fft in (512, 1024, 2048):
+        assert stft_cuda.route(n_fft) == "fft"
+        stft_cuda.fft_tables(n_fft, n_fft)
+    for n_fft in (2, 3, 256, 768, 1000, 4096, 1023):
+        assert stft_cuda.route(n_fft) == "dft"
         with pytest.raises(ValueError, match=f"n_fft={n_fft}"):
             stft_cuda.fft_tables(n_fft, n_fft)
-    for n_fft in (512, 1024, 2048):
-        stft_cuda.check_fft_size(n_fft)
-    # on the CPU the plain version takes any size, as the tiny configurations need
+        window, table = stft_cuda.dft_tables(n_fft, n_fft)
+        assert window.shape == (n_fft,) and table.shape == (n_fft, 2) and table.dtype == np.float32
+    # on the CPU the wrapper is the plain version at any size
     assert stft_cuda.stft_magnitude(torch.zeros(1, 600), 256, 64, 256).shape == (1, 6, 129)
+    assert stft_cuda.stft_magnitude(torch.zeros(1, 3000), 1000, 250, 1000).shape == (1, 9, 501)
+
+
+def _dft(frames: np.ndarray, window: np.ndarray, table: np.ndarray, chunk: int) -> np.ndarray:
+    """csrc/stft.cu's DFT kernel in numpy, in float32 on its float32 tables:
+    bin f of sample n takes the root at the integer index (n·f) mod n_fft,
+    and each bin is summed a chunk of samples at a time, each chunk's
+    partial sum added to the total.  Returns the one-sided spectrum."""
+    n_fft = window.shape[0]
+    n, f = np.arange(n_fft)[:, None], np.arange(n_fft // 2 + 1)[None, :]
+    roots = table[(n * f) % n_fft]                            # [n, f, 2], exact integer index
+    x = (frames.astype(np.float32) * window).astype(np.float32)
+    re = np.zeros((*frames.shape[:-1], f.shape[1]), np.float32)
+    im = np.zeros_like(re)
+    for n0 in range(0, n_fft, chunk):
+        re += x[..., n0:n0 + chunk] @ roots[n0:n0 + chunk, :, 0]
+        im += x[..., n0:n0 + chunk] @ roots[n0:n0 + chunk, :, 1]
+    return re.astype(np.float64) + 1j * im
+
+
+@pytest.mark.parametrize("n_fft,hop,pallas", [(768, 256, True), (256, 128, True), (1000, 250, False),
+                                              (4096, 1024, False)], ids=["768", "256", "1000", "4096"])
+def test_dft_tables_give_the_spectrum(n_fft, hop, pallas):
+    """The DFT kernel's table and integer index, modelled in float32, give
+    numpy.fft.rfft's magnitudes in float64, the plain version's and (where
+    its hop divides n_fft into whole 128-sample chunks, or in interpret mode)
+    the Pallas kernel's, at the 1e-4 bar."""
+    window, table = stft_cuda.dft_tables(n_fft, n_fft)
+    np.testing.assert_allclose(table[:, 0] + 1j * table[:, 1], np.exp(-2j * np.pi * np.arange(n_fft) / n_fft),
+                               atol=6e-8, rtol=0)
+    rng = np.random.default_rng(n_fft)
+    x = (rng.standard_normal((2, 6 * n_fft)) * 0.3).astype(np.float32)
+    padded = np.asarray(jstft._reflect_pad_1d(jnp.asarray(x), (n_fft - hop) // 2))
+    frames = tstft.frame_signal(t(padded), n_fft, hop).numpy()
+    model = np.sqrt(np.abs(_dft(frames, window, table, tstft.SUM_CHUNK)) ** 2 + 1e-6)
+    rfft = np.sqrt(np.abs(np.fft.rfft(frames.astype(np.float64) * window, axis=-1)) ** 2 + 1e-6)
+    plain = tstft.stft_magnitude_plain(t(padded), n_fft, hop, n_fft).numpy()
+    np.testing.assert_allclose(model, rfft, atol=1e-4)
+    np.testing.assert_allclose(model, plain, atol=1e-4)
+    if pallas:
+        ref = np.asarray(stft_magnitude_pallas(jnp.asarray(padded), n_fft, hop, n_fft, interpret=True))
+        np.testing.assert_allclose(model, ref, atol=1e-4)
 
 
 @pytest.mark.cuda
-def test_unsupported_n_fft_raises_on_the_card():
+def test_n_fft_768_on_the_card():
+    """A size without an FFT instance goes to the DFT kernel on the card,
+    launches it once and agrees with the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    x = (torch.randn(1, 40_000, generator=torch.Generator().manual_seed(768)) * 0.3).cuda()
     before = stft_cuda.launches
-    with pytest.raises(ValueError, match="n_fft=768"):
-        stft_cuda.stft_magnitude(torch.zeros(1, 4096, device="cuda"), 768, 256, 768)
-    assert stft_cuda.launches == before
+    out = stft_cuda.stft_magnitude(x, 768, 256, 768)
+    assert stft_cuda.launches == before + 1
+    ref = tstft.stft_magnitude_plain(x, 768, 256, 768)
+    assert float((out - ref).abs().max()) <= 1e-4
