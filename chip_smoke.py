@@ -27,6 +27,16 @@ Phases, in order; any failure exits non-zero before the result line:
    zeroed just before; then serving against f32 on the card;
 6. card against CPU: the same converter's speaker embeddings and its
    convert of a ~2 s clip in both modes, on cuda and on cpu;
+6b. V1 path: a full-width V1 base-speaker TTS (seeded random weights) runs
+   ``tts`` in f32 and in serving mode and ``tts_batched(fast=True)`` on four
+   English sentences, at least two of which share a frame bucket; the launch
+   counters show K2, K3 ×2 and K4 ×2 per decode group; K2 (reverse), K3 and
+   K4 are held against their plain versions at the group's ragged shape and
+   timed against its first row alone; fast against f32, batched against
+   sentence by sentence, and card against CPU on a short sentence; then
+   ``get_se`` (and its cache) on the TTS audio and a synthetic target with a
+   full-width V1 converter, and ``convert`` in both modes (K5 1, K1 1, K2 2,
+   K3 2, K4 2 in serving mode);
 7. one JSON line of every ported kernel, the card's ``nvidia-smi`` line,
    then the result line ``{"ok": true, "device": {...}}``.
 
@@ -826,24 +836,30 @@ def voice(seconds: float, f0: float, seed: int) -> np.ndarray:
     return (0.3 * x * env + 0.005 * rng.standard_normal(len(tt))).astype(np.float32)
 
 
+def seed_flow_posts(model, seed: int) -> None:
+    """The random init zeroes each coupling's `post` (the flow would be the
+    identity): seeded random values instead."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for layer in model.flow.flows[::2]:
+            w = layer.post.weight
+            s = 1.0 / math.sqrt(w.shape[1] * w.shape[2])
+            w.copy_(torch.empty(w.shape).uniform_(-s, s, generator=gen))
+            layer.post.bias.copy_(torch.empty(w.shape[0]).uniform_(-s, s, generator=gen))
+
+
 def converter():
     """Full-width V2 converter on the card with seeded random weights.  The
     init zeroes each coupling's `post` (the flow would be the identity), so
     those get seeded random values too."""
-    import torch
-
     from openvoice_tpu_torch import V2_CONVERTER_CONFIG, ToneColorConverter
 
     tc = ToneColorConverter(cfg=V2_CONVERTER_CONFIG)
     check(tc.device.type == "cuda", f"converter landed on {tc.device}")
     tc.init_random(SEED)
-    gen = torch.Generator().manual_seed(SEED + 1)
-    with torch.no_grad():
-        for layer in tc.model.flow.flows[::2]:
-            w = layer.post.weight
-            s = 1.0 / math.sqrt(w.shape[1] * w.shape[2])
-            w.copy_(torch.empty(w.shape).uniform_(-s, s, generator=gen))
-            layer.post.bias.copy_(torch.empty(w.shape[0]).uniform_(-s, s, generator=gen))
+    seed_flow_posts(tc.model, SEED + 1)
     return tc
 
 
@@ -1096,6 +1112,302 @@ def card_vs_cpu(tc, ses: dict) -> None:
           and diff <= FAST_CPU_TOL * peak, "card and CPU disagree on the serving mode's audio")
 
 
+# -- the V1 path: base-speaker TTS, then the V1 converter ------------------------
+
+# four sentences of one length and shape, so that their frame counts fall
+# into a shared bucket and tts_batched decodes a group of B >= 2
+V1_TEXT = ("The morning train left the station early and carried us along the quiet river. "
+           "By noon the sun stood high above the fields and the air was warm and still. "
+           "We walked down to the water and watched the boats drift slowly past the mill. "
+           "In the evening the lights came on across the valley and the town grew quiet.")
+SHORT_TEXT = "Hello there, this is a short test of the voice."
+
+
+def capture_kernel_calls(fn) -> list:
+    """Run `fn` once with the entry points of K2, K3 and K4, as the graph
+    looks them up, wrapped to record their arguments."""
+    from openvoice_tpu_torch.models import synthesizer as TS
+    from openvoice_tpu_torch.nn import hifigan
+
+    calls, saved = [], []
+    for module, name in ((TS, "coupling_block"), (hifigan, "mrf_stage"), (hifigan, "tail_stage")):
+        real = getattr(module, name)
+        saved.append((module, name, real))
+
+        def wrapped(*args, _real=real, _name=name):
+            calls.append((_name, args))
+            return _real(*args)
+
+        setattr(module, name, wrapped)
+    try:
+        fn()
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+    return calls
+
+
+def group_kernel_checks(calls: list, smi: str) -> dict:
+    """Each captured launch of the B >= 2 group against its plain version
+    (the existing bars; rows past each length exactly 0), then timed cold
+    at the group's shape and on its first row alone at the same bucket."""
+    from openvoice_tpu_torch.ops import coupling_cuda, mrf_cuda, tail_cuda
+
+    kernels = {"coupling_block": (coupling_cuda.coupling_block, coupling_cuda.coupling_block_plain, WN_MEAN_TOL),
+               "mrf_stage": (mrf_cuda.mrf_stage, mrf_cuda.mrf_stage_plain, MRF_MEAN_TOL),
+               "tail_stage": (tail_cuda.tail_stage, tail_cuda.tail_stage_plain, MRF_MEAN_TOL)}
+    times: dict = {}
+    for name, args in calls:
+        fn, plain, mean_tol = kernels[name]
+        x, lengths = args[0], args[1]
+        lens = lengths.tolist()
+        last = name == "tail_stage" and args[2]["post_w"] is not None
+        label = f"{name} B={x.shape[0]} T={x.shape[1]} C={x.shape[2]} lengths {lens}"
+        agree(label, fn(*args), plain(*args), mean_tol, lens, zero_after=3 if last else 0)
+        one = tuple(a[:1].contiguous() if i in (0, 1, 3) else a for i, a in enumerate(args))
+        agree("  its first row alone (B=1)", fn(*one), plain(*one), mean_tol, lens[:1], zero_after=3 if last else 0)
+        group_ms, row_ms = time_ms(lambda: fn(*args), 10), time_ms(lambda: fn(*one), 10)
+        print(f"  {label}: {group_ms:.4f} ms cold at B={x.shape[0]}, {row_ms:.4f} ms for its first row alone "
+              f"(B=1, same bucket)  [{smi}]")
+        times.setdefault(name, []).append({"batch": x.shape[0], "t": x.shape[1], "lengths": lens,
+                                           "group_ms": group_ms, "row_ms": row_ms})
+    return times
+
+
+def coupling_batch_times(args: tuple, smi: str) -> dict:
+    """K2 (reverse, the TTS decode's packed weights and conditioning) cold
+    at B = 1, 2 and 4 and buckets 256 and 1024, every frame live: how its
+    clusters (B·T/64 of them, 30 fit on the card at once) fill waves."""
+    import torch
+
+    from openvoice_tpu_torch.ops import coupling_cuda
+
+    _, _, packed, g_all = args
+    gen = torch.Generator().manual_seed(SEED + 8)
+    out = {}
+    for t in (256, 1024):
+        for b in (1, 2, 4):
+            x = rand_bf16(gen, b, t, packed["wp"].shape[1])
+            lens = lens_on_card([t] * b)
+            g = g_all[:1].expand(b, *g_all.shape[1:]).contiguous()
+            out[f"B={b} T={t}"] = time_ms(lambda: coupling_cuda.coupling_block(x, lens, packed, g), 10)
+    print(f"K2 reverse, every frame live, cold ms [{smi}]: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def tts_stage_times(model, enc, fb: int, noise, fast: bool, cache) -> dict:
+    """Device ms (CUDA events, median of 5, cold L2) of the TTS decode's two
+    stages: length regulation + reverse flow, and the decoder."""
+    import torch
+
+    from openvoice_tpu_torch.models import synthesizer as TS
+    from openvoice_tpu_torch.nn.hifigan import apply_generator
+
+    with torch.inference_mode():
+        z, y_mask, _, g = TS.tts_latents(model, enc, fb, noise, 0.667, fast, cache)
+        flow_ms = time_ms(lambda: TS.tts_latents(model, enc, fb, noise, 0.667, fast, cache), 5)
+        if fast:
+            m = y_mask.to(z.dtype)
+            dec_ms = time_ms(lambda: apply_generator(model.dec, z * m, g=g, x_mask=m, packed=cache), 5)
+        else:
+            mask, g_t = y_mask.transpose(1, 2), g.transpose(1, 2)
+            dec_ms = time_ms(lambda: model.dec(z.transpose(1, 2) * mask, g=g_t, x_mask=mask), 5)
+    return {"flow": flow_ms, "dec": dec_ms}
+
+
+def v1_tts(smi: str) -> dict:
+    """The base-speaker TTS half of the V1 phase; returns its numbers and the
+    f32 audio (the V1 converter's source)."""
+    import torch
+
+    from openvoice_tpu_torch import BaseSpeakerTTS, v1_base_tts_config
+    from openvoice_tpu_torch.api import _encode_rows, _sentence_noise_rngs, _stack_enc_rows, frame_groups
+    from openvoice_tpu_torch.text import default_symbols
+
+    phase("6b. V1 path: BaseSpeakerTTS.tts / tts_batched, full width (hidden 192, 6 attention layers, "
+          "10 speakers, 512-channel decoder)")
+    tts = BaseSpeakerTTS(cfg=v1_base_tts_config(n_vocab=len(default_symbols), n_speakers=10))
+    check(tts.device.type == "cuda", f"the TTS landed on {tts.device}")
+    tts.init_random(SEED + 4)
+    seed_flow_posts(tts.model, SEED + 5)
+    model, cfg, speaker = tts.model, tts.cfg, 3
+    token_seqs, _ = tts._sentence_tokens(V1_TEXT, speaker, "English")
+    check(len(token_seqs) == 4, f"the text split into {len(token_seqs)} sentences, not 4")
+    noise_rngs = _sentence_noise_rngs(SEED, len(token_seqs))
+    with torch.inference_mode():
+        rows = _encode_rows(model, token_seqs, speaker, 1.0, noise_rngs, tts.device)
+    groups = frame_groups(rows)
+    frames = [int(r["w_ceil"].sum()) for r in rows]
+    print(f"sentences: tokens {[len(s) for s in token_seqs]}, frames {frames}; decode groups (frame bucket: "
+          f"sentences) {groups}; group sizes {[len(v) for v in groups.values()]}")
+    check(any(len(v) >= 2 for v in groups.values()), "no frame bucket holds two sentences: no B >= 2 decode")
+
+    kw = dict(seed=SEED)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    a32 = tts.tts(V1_TEXT, None, speaker, **kw)
+    torch.cuda.synchronize()
+    f32_s, launches = time.perf_counter() - t0, launch_counts()
+    print(f"first tts (f32): {f32_s:.3f} s, {len(a32) / SR:.2f} s of audio; kernel launches {launches}")
+    check(not any(launches.values()), "the f32 TTS launched a kernel")
+    n_sent, n_groups = len(token_seqs), len(groups)
+    per_decode = {"stft_magnitude": 0, "wn_stack": 0, "coupling_block": 1, "mrf_stage": 2, "tail_stage": 2}
+    zero_launch_counts()
+    fast = tts.tts(V1_TEXT, None, speaker, fast=True, **kw)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"tts(fast=True), {n_sent} decodes: kernel launches {launches}")
+    check(launches == {k: v * n_sent for k, v in per_decode.items()},
+          "each serving TTS decode must launch K2 1, K3 2, K4 2")
+    zero_launch_counts()
+    batched = tts.tts_batched(V1_TEXT, None, speaker, fast=True, **kw)
+    torch.cuda.synchronize()
+    launches_b = launch_counts()
+    print(f"tts_batched(fast=True), {n_groups} decode groups: kernel launches {launches_b}")
+    check(launches_b == {k: v * n_groups for k, v in per_decode.items()},
+          "each serving decode group must launch K2 1, K3 2, K4 2")
+    for label, out in (("tts f32", a32), ("tts fast", fast), ("tts_batched fast", batched)):
+        check(out.shape == a32.shape and bool(np.isfinite(out).all()) and float(np.abs(out).max()) <= 1.0,
+              f"{label}: shape {out.shape} or values out of range")
+    peak = float(np.abs(a32).max())
+    d_fast, d_bat = float(np.abs(fast - a32).max()), float(np.abs(batched - fast).max())
+    print(f"audio peak {peak:.5f}; max |fast - f32| {d_fast:.3e} = {d_fast / peak:.4f} of the peak; "
+          f"max |batched fast - fast| {d_bat:.3e} = {d_bat / peak:.4f} (bars {FAST_VS_F32_TOL})")
+    check(d_fast <= FAST_VS_F32_TOL * peak, "the serving TTS strays from the f32 TTS")
+    check(d_bat <= FAST_VS_F32_TOL * peak, "tts_batched(fast) disagrees with tts(fast)")
+    walls = {}
+    for label, fn in (("tts f32", lambda: tts.tts(V1_TEXT, None, speaker, **kw)),
+                      ("tts fast", lambda: tts.tts(V1_TEXT, None, speaker, fast=True, **kw)),
+                      ("tts_batched fast", lambda: tts.tts_batched(V1_TEXT, None, speaker, fast=True, **kw))):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        walls[label] = statistics.median(times) * 1e3
+    print(f"warm walls (ms, median of 3, host clock, {len(a32) / SR:.2f} s of audio) [{smi}]: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
+    device_profile(lambda: tts.tts_batched(V1_TEXT, None, speaker, fast=True, **kw), walls["tts_batched fast"])
+
+    # the B >= 2 group: its kernels against their plain versions, and times
+    fb, idxs = next((fb, v) for fb, v in groups.items() if len(v) >= 2)
+    g_row = model.emb_g.weight[speaker][None, :]
+    cache = tts._require_dec_cache()
+    with torch.inference_mode():
+        enc = _stack_enc_rows(rows, idxs, g_row)
+        noise = torch.randn(len(idxs), fb, cfg.inter_channels, generator=torch.Generator().manual_seed(SEED)).cuda()
+        from openvoice_tpu_torch.models import synthesizer as TS
+
+        calls = capture_kernel_calls(lambda: TS.tts_decode(model, enc, fb, noise, fast=True, dec_cache=cache))
+        print(f"group of {len(idxs)} at bucket {fb}: {len(calls)} kernel launches captured")
+        group_times = group_kernel_checks(calls, smi)
+        k2_batches = coupling_batch_times(next(args for name, args in calls if name == "coupling_block"), smi)
+        one = _stack_enc_rows(rows, idxs[:1], g_row)
+        stages = {f"{mode} {label}": tts_stage_times(model, e, fb, nz, mode == "fast",
+                                                     cache if mode == "fast" else None)
+                  for mode in ("f32", "fast") for label, e, nz in (("B=1", one, noise[:1]),
+                                                                  (f"B={len(idxs)}", enc, noise))}
+    print(f"TTS decode stage times at bucket {fb} (ms, CUDA events, median of 5, cold L2) [{smi}]: "
+          + "; ".join(f"{k}: flow {v['flow']:.3f}, dec {v['dec']:.3f}" for k, v in stages.items()))
+
+    # card against CPU on one short sentence, both modes
+    cpu = BaseSpeakerTTS(cfg=cfg, device="cpu")
+    cpu.set_model(copy.deepcopy(model))
+    short_tokens, _ = tts._sentence_tokens(SHORT_TEXT, speaker, "English")
+    check(len(short_tokens) == 1, "the short text is not one sentence")
+    with torch.inference_mode():
+        encs = [_encode_rows(m, short_tokens, speaker, 1.0, _sentence_noise_rngs(SEED, 1), m.emb_g.weight.device)[0]
+                for m in (model, cpu.model)]
+    d_m = float((encs[0]["m_p"].cpu() - encs[1]["m_p"]).abs().max())
+    w_card, w_cpu = encs[0]["w_ceil"].cpu(), encs[1]["w_ceil"]
+    print(f"short sentence encode: max |m_p cuda - cpu| {d_m:.3e}; ceilings equal: {bool(torch.equal(w_card, w_cpu))} "
+          f"({int(w_card.sum())} frames)")
+    check(bool(torch.equal(w_card, w_cpu)), "a duration ceiling flipped between card and CPU")
+    for mode in (False, True):
+        t0 = time.perf_counter()
+        on_cpu = cpu.tts(SHORT_TEXT, None, speaker, fast=mode, **kw)
+        cpu_s = time.perf_counter() - t0
+        on_card = tts.tts(SHORT_TEXT, None, speaker, fast=mode, **kw)
+        diff, peak = float(np.abs(on_card - on_cpu).max()), float(np.abs(on_cpu).max())
+        name = "serving" if mode else "f32"
+        bar = FAST_CPU_TOL * peak if mode else min(CPU_AUDIO_TOL, 1e-3 * peak)
+        print(f"short sentence, {name}: max |cuda - cpu| {diff:.3e} = {diff / peak:.2e} of the peak {peak:.5f} "
+              f"(bar {bar:.3e}); CPU tts {cpu_s:.2f} s")
+        check(on_card.shape == on_cpu.shape and diff <= bar, f"card and CPU disagree on the {name} TTS audio")
+    return {"audio": a32, "groups": [len(v) for v in groups.values()], "bucket": fb,
+            "launches_per_decode": per_decode, "group_times": group_times, "stages": stages, "walls_ms": walls,
+            "k2_batches": k2_batches}
+
+
+def v1_convert(tts_audio: np.ndarray, tmp: str, smi: str) -> dict:
+    """The converter half of the V1 phase: get_se (and its cache) on the TTS
+    audio and a synthetic target, then convert in both modes."""
+    import torch
+
+    from openvoice_tpu_torch import V1_CONVERTER_CONFIG, ToneColorConverter, get_se
+    from openvoice_tpu_torch.api import _spec_from_audio
+    from openvoice_tpu_torch.audio.io import write_wav
+
+    print("\n-- V1 converter (zero_g=False): get_se → convert")
+    conv = ToneColorConverter(cfg=V1_CONVERTER_CONFIG)
+    check(conv.device.type == "cuda" and conv.version == "v1", f"V1 converter on {conv.device}, {conv.version}")
+    conv.init_random(SEED + 6)
+    seed_flow_posts(conv.model, SEED + 7)
+    src_path, tgt_path = os.path.join(tmp, "tts_base.wav"), os.path.join(tmp, "target.wav")
+    write_wav(src_path, tts_audio, SR)
+    write_wav(tgt_path, voice(6.0, 210.0, seed=13), SR)
+    target_dir = os.path.join(tmp, "processed")
+    se_src, name = get_se(src_path, conv, target_dir=target_dir)
+    se_tgt, _ = get_se(tgt_path, conv, target_dir=target_dir)
+    check("_v1_" in name and os.path.isfile(os.path.join(target_dir, name, "se.npy")), f"no SE cache for {name}")
+    zero_launch_counts()
+    again, _ = get_se(src_path, conv, target_dir=target_dir)
+    check(launch_counts()["stft_magnitude"] == 0 and np.array_equal(again, se_src), "get_se did not read its cache")
+    print(f"get_se: {name}, se {se_src.shape}, read back from its cache without a launch")
+    src = np.asarray(tts_audio, np.float32)
+    n_frames = _spec_from_audio(src, conv.cfg)[1]
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out32 = conv.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE)
+    torch.cuda.synchronize()
+    l32 = launch_counts()
+    check(l32 == {"stft_magnitude": 1, "wn_stack": 0, "coupling_block": 0, "mrf_stage": 0, "tail_stage": 0},
+          f"the V1 f32 convert launched {l32}")
+    zero_launch_counts()
+    outf = conv.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE, fast=True)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"V1 convert of {len(src) / SR:.2f} s ({n_frames} frames): launches f32 {l32}, serving {launches}")
+    check(launches == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2},
+          "one V1 serving convert must launch K5 1, K1 1, K2 2, K3 2, K4 2")
+    check_audio(conv, out32, n_frames)
+    check_audio(conv, outf, n_frames)
+    fast = conv.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message="", fast=True)
+    f32 = conv.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message="")
+    diff, peak = float(np.abs(fast - f32).max()), float(np.abs(f32).max())
+    print(f"V1 serving against f32: max |fast - f32| {diff:.3e} = {diff / peak:.4f} of the peak {peak:.5f} "
+          f"(bar {FAST_VS_F32_TOL})")
+    check(diff <= FAST_VS_F32_TOL * peak, "the V1 serving convert strays from the f32 one")
+    walls = {}
+    for mode in (False, True):
+        def one(mode=mode):
+            return conv.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE, fast=mode)
+
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            one()
+            times.append(time.perf_counter() - t0)
+        walls["fast" if mode else "f32"] = statistics.median(times) * 1e3
+        print(f"V1 convert {'serving' if mode else 'f32'}: {walls['fast' if mode else 'f32']:.2f} ms warm "
+              f"(median of 5)  [{smi}]")
+        device_profile(one, walls["fast" if mode else "f32"])
+    return {"launches": launches, "walls_ms": walls}
+
+
 def main() -> int:
     import torch
 
@@ -1123,8 +1435,15 @@ def main() -> int:
         _, ses, src = main_path(tc, tmp)
         launches = main_path_fast(tc, src, ses)
         card_vs_cpu(tc, ses)
+        del tc
+        t0 = time.perf_counter()
+        v1 = v1_tts(smi)
+        v1_conv = v1_convert(v1["audio"], tmp, smi)
+        print(f"V1 phase: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_per_tts_decode"] = v1["launches_per_decode"][k["name"]]
+        k["launches_v1_convert"] = v1_conv["launches"][k["name"]]
         check(k["launches"] > 0, f"the serving path never launched {k['name']}")
 
     phase("7. result")

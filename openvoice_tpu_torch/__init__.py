@@ -1,5 +1,5 @@
-"""OpenVoice tone-colour conversion in PyTorch, with hand-written CUDA
-kernels for NVIDIA Hopper (sm_90a).
+"""OpenVoice tone-colour conversion and V1 base-speaker TTS in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of ``openvoice_tpu`` (JAX/Pallas), which stays beside it as the
 reference.  This package imports neither JAX nor anything of
@@ -7,11 +7,13 @@ reference.  This package imports neither JAX nor anything of
 keeps as its own copy.
 """
 
-from openvoice_tpu_torch.api import ToneColorConverter  # noqa: F401
+from openvoice_tpu_torch.api import BaseSpeakerTTS, ToneColorConverter  # noqa: F401
 from openvoice_tpu_torch.config import (  # noqa: F401
     V1_CONVERTER_CONFIG,
     V2_CONVERTER_CONFIG,
     HParams,
     SynthesizerConfig,
     load_hparams,
+    v1_base_tts_config,
 )
+from openvoice_tpu_torch.pipeline.se_extractor import get_se  # noqa: F401

@@ -1,18 +1,22 @@
-"""User-facing API of the PyTorch port: `ToneColorConverter`.
+"""User-facing API of the PyTorch port: `ToneColorConverter` and
+`BaseSpeakerTTS`.
 
 Mirrors ``openvoice_tpu/api.py`` and through it the reference surface
-(api.py:101-201).  Both numeric modes run end to end: host reflect-pad →
-STFT kernel (``csrc/stft.cu``) → posterior encoder → flow → decoder →
-watermark.  ``convert(fast=False)`` is the f32 parity mode on stock layers;
-``convert(fast=True)`` is the bf16 serving mode, whose WaveNet, flow and
-decoder stages are hand-written kernels (``csrc/{wn,coupling,mrf,tail}.cu``).
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
-without a GPU and without that, they raise.
+(api.py:14-201).  The converter runs end to end in both numeric modes: host
+reflect-pad → STFT kernel (``csrc/stft.cu``) → posterior encoder → flow →
+decoder → watermark.  ``convert(fast=False)`` is the f32 parity mode on stock
+layers; ``convert(fast=True)`` is the bf16 serving mode, whose WaveNet, flow
+and decoder stages are hand-written kernels (``csrc/{wn,coupling,mrf,tail}.cu``).
+The base-speaker TTS encodes text in f32 and decodes in either mode, the
+serving mode through the flow and decoder kernels.  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; without a GPU and without
+that, they raise.
 """
 
 from __future__ import annotations
 
 import os
+import re
 
 import numpy as np
 import torch
@@ -51,11 +55,12 @@ def _spec_from_audio(audio: np.ndarray, cfg: SynthesizerConfig) -> tuple[np.ndar
     return padded, n_frames
 
 
-class ToneColorConverter:
-    """Zero-shot tone-colour conversion (reference api.py:101-201)."""
+class OpenVoiceBaseClass:
+    """Config, weights, device and the serving cache, shared by both classes
+    (reference api.py:14-39; the JAX package's ``OpenVoiceBaseClass``)."""
 
     def __init__(self, config_path: str | None = None, cfg: SynthesizerConfig | None = None, *,
-                 device: str | torch.device | None = None, enable_watermark: bool = True):
+                 device: str | torch.device | None = None):
         if config_path is not None:
             self.hps: HParams | None = load_hparams(config_path)
             self.cfg = SynthesizerConfig.from_hparams(self.hps)
@@ -73,7 +78,6 @@ class ToneColorConverter:
             # off for convolutions and matrix products alike.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self.enable_watermark = enable_watermark
         self.model: S.Synthesizer | None = None
         self._dec_cache: dict | None = None
 
@@ -102,7 +106,7 @@ class ToneColorConverter:
         return report
 
     def set_model(self, model: S.Synthesizer) -> None:
-        """Use `model`'s weights (moved to this converter's device)."""
+        """Use `model`'s weights (moved to this instance's device)."""
         self.model = model.to(self.device).eval()
         self._dec_cache = None  # packed from the old weights
 
@@ -113,10 +117,19 @@ class ToneColorConverter:
 
     def _require_dec_cache(self) -> dict:
         """The serving mode's packed weights (`S.make_dec_cache`): packed
-        once, at the first fast convert, and again after new weights."""
+        once, at the first fast call, and again after new weights."""
         if self._dec_cache is None:
             self._dec_cache = S.make_dec_cache(self._require_model())
         return self._dec_cache
+
+
+class ToneColorConverter(OpenVoiceBaseClass):
+    """Zero-shot tone-colour conversion (reference api.py:101-201)."""
+
+    def __init__(self, config_path: str | None = None, cfg: SynthesizerConfig | None = None, *,
+                 device: str | torch.device | None = None, enable_watermark: bool = True):
+        super().__init__(config_path, cfg, device=device)
+        self.enable_watermark = enable_watermark
 
     # -- speaker embeddings -------------------------------------------------
 
@@ -230,3 +243,193 @@ class ToneColorConverter:
 
     def detect_watermark(self, audio: np.ndarray, n_repeat: int) -> str:
         return wm.detect_watermark(audio, n_repeat)
+
+
+class BaseSpeakerTTS(OpenVoiceBaseClass):
+    """V1 text → speech in the stock voices (reference api.py:42-98).
+
+    The text front end (``openvoice_tpu_torch/text``) is host Python; Chinese
+    text needs ``jieba``.  The encode (text encoder, duration predictors) runs
+    in f32 in both modes; ``fast=True`` decodes in bf16 through the flow and
+    decoder kernels."""
+
+    # the reference ships EN/ZH only (api.py:43-46); JA/KO work here because
+    # the front end implements the cleaners the reference left undefined
+    language_marks = {"english": "EN", "chinese": "ZH", "japanese": "JA", "korean": "KO"}
+
+    def _sentence_tokens(self, text: str, speaker, language: str) -> tuple[list[np.ndarray], int]:
+        """Sentence split → cleaners → IPA token ids: (one int32 array a
+        sentence, speaker id)."""
+        from openvoice_tpu_torch.text import default_symbols, intersperse, text_to_sequence
+        from openvoice_tpu_torch.text.split import split_sentence
+
+        mark = self.language_marks.get(language.lower())
+        if mark is None:
+            raise ValueError(f"language {language} is not supported")
+        if self.hps is not None:
+            symbols = list(self.hps.symbols)
+            cleaners = list(self.hps.data.text_cleaners)
+            speaker_id = self.hps.speakers[speaker]
+        else:
+            symbols = default_symbols
+            cleaners = ["cjke_cleaners2"]
+            # no speakers map without a config: numeric ids pass through,
+            # names (e.g. "default") fall back to id 0, as in the JAX package
+            if isinstance(speaker, int):
+                speaker_id = speaker
+            elif str(speaker).lstrip("-").isdigit():
+                speaker_id = int(speaker)
+            else:
+                speaker_id = 0
+
+        token_seqs = []
+        for sentence in split_sentence(text, language_str=mark):
+            sentence = re.sub(r"([a-z])([A-Z])", r"\1 \2", sentence)
+            seq = text_to_sequence(f"[{mark}]{sentence}[{mark}]", symbols, cleaners)
+            if self.cfg.add_blank:
+                seq = intersperse(seq, 0)
+            token_seqs.append(np.asarray(seq, np.int32))
+        return token_seqs, speaker_id
+
+    def _finish(self, pieces: list[np.ndarray], output_path: str | None, speed: float):
+        out = _concat_with_gaps(pieces, self.cfg.sampling_rate, speed)
+        if output_path is None:
+            return out
+        write_wav(output_path, out, self.cfg.sampling_rate)
+        return None
+
+    @torch.inference_mode()
+    def tts(self, text: str, output_path: str | None, speaker, language: str = "English",
+            speed: float = 1.0, seed: int = 0, fast: bool = False):
+        """Sentence by sentence (reference api.py:73-98).  The noise comes
+        from numpy generators spawned from `seed` as in the JAX package, so
+        the same seed gives the same audio there, and `tts_batched` gives the
+        same audio here."""
+        model, cfg, dev = self._require_model(), self.cfg, self.device
+        token_seqs, speaker_id = self._sentence_tokens(text, speaker, language)
+        noise_rngs = _sentence_noise_rngs(seed, len(token_seqs))
+        dec_cache = self._require_dec_cache() if fast else None
+        pieces = []
+        for tokens, (rng_w, rng_y) in zip(token_seqs, noise_rngs):
+            t_bucket = round_up_to_bucket(len(tokens))
+            padded = np.zeros((1, t_bucket), np.int32)
+            padded[0, : len(tokens)] = tokens
+            noise_w = rng_w.standard_normal((1, t_bucket, 2)).astype(np.float32)
+            enc = S.tts_encode(model, torch.from_numpy(padded).to(dev), torch.tensor([len(tokens)], device=dev),
+                               torch.tensor([speaker_id], device=dev), torch.from_numpy(noise_w).to(dev),
+                               noise_scale_w=0.6, length_scale=1.0 / speed, sdp_ratio=0.2)
+            fb = round_up_to_bucket(max(int(enc.w_ceil.sum()), 1))
+            noise = rng_y.standard_normal((1, fb, cfg.inter_channels)).astype(np.float32)
+            audio, y_mask = S.tts_decode(model, enc, fb, torch.from_numpy(noise).to(dev), noise_scale=0.667,
+                                         fast=fast, dec_cache=dec_cache)
+            y_len = int(y_mask[0, :, 0].sum())
+            pieces.append(audio[0, : y_len * cfg.upsample_factor, 0].cpu().numpy())
+        return self._finish(pieces, output_path, speed)
+
+    @torch.inference_mode()
+    def tts_batched(self, text: str, output_path: str | None, speaker, language: str = "English",
+                    speed: float = 1.0, seed: int = 0, fast: bool = False):
+        """The sentences as batches: one encode per token bucket, one decode
+        per frame bucket (the JAX package's ``tts_batched``).  Each
+        sentence's noise is drawn as `tts` draws it, so the audio is the
+        same for the same seed."""
+        model, cfg, dev = self._require_model(), self.cfg, self.device
+        token_seqs, speaker_id = self._sentence_tokens(text, speaker, language)
+        n = len(token_seqs)
+        if n == 0:
+            return self._finish([], output_path, speed)
+        noise_rngs = _sentence_noise_rngs(seed, n)
+        enc_rows = _encode_rows(model, token_seqs, speaker_id, speed, noise_rngs, dev)
+        g_row = model.emb_g.weight[speaker_id][None, :]  # [1, gin]
+        pieces: list[np.ndarray | None] = [None] * n
+        dec_cache = self._require_dec_cache() if fast else None
+        for fb, idxs in frame_groups(enc_rows).items():
+            enc = _stack_enc_rows(enc_rows, idxs, g_row)
+            noise = np.stack([noise_rngs[i][1].standard_normal((fb, cfg.inter_channels)).astype(np.float32)
+                              for i in idxs])
+            audio, y_mask = S.tts_decode(model, enc, fb, torch.from_numpy(noise).to(dev), noise_scale=0.667,
+                                         fast=fast, dec_cache=dec_cache)
+            audio = audio[..., 0].cpu().numpy()
+            y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
+            for r, i in enumerate(idxs):
+                pieces[i] = audio[r, : y_lengths[r] * cfg.upsample_factor]
+        return self._finish(pieces, output_path, speed)
+
+
+def frame_groups(enc_rows: list[dict]) -> dict[int, list[int]]:
+    """Sentence indices grouped by the frame bucket of their duration sum,
+    in first-seen order: one decode a group."""
+    groups: dict[int, list[int]] = {}
+    for i, row in enumerate(enc_rows):
+        total = int(row["w_ceil"].sum())
+        groups.setdefault(round_up_to_bucket(max(total, 1)), []).append(i)
+    return groups
+
+
+def _pack_token_batch(token_seqs, idxs, tb, noise_rngs):
+    """One token-bucket group's (tokens, lengths, sdp noise) arrays, drawn in
+    `tts`'s order."""
+    m = len(idxs)
+    toks = np.zeros((m, tb), np.int32)
+    lens = np.zeros(m, np.int32)
+    noise_w = np.zeros((m, tb, 2), np.float32)
+    for r, i in enumerate(idxs):
+        toks[r, : len(token_seqs[i])] = token_seqs[i]
+        lens[r] = len(token_seqs[i])
+        noise_w[r] = noise_rngs[i][0].standard_normal((tb, 2)).astype(np.float32)
+    return toks, lens, noise_w
+
+
+def _encode_rows(model: S.Synthesizer, token_seqs, speaker_id: int, speed: float, noise_rngs,
+                 device: torch.device) -> list[dict]:
+    """The batched encode: sentences grouped by token bucket, one
+    `S.tts_encode` a group; per-sentence rows (m_p, logs_p, x_mask, w_ceil
+    on the device) in input order."""
+    enc_rows: list[dict | None] = [None] * len(token_seqs)
+    groups: dict[int, list[int]] = {}
+    for i, seq in enumerate(token_seqs):
+        groups.setdefault(round_up_to_bucket(len(seq)), []).append(i)
+    for tb, idxs in groups.items():
+        toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
+        enc = S.tts_encode(model, torch.from_numpy(toks).to(device), torch.from_numpy(lens).to(device),
+                           torch.full((len(idxs),), speaker_id, device=device),
+                           torch.from_numpy(noise_w).to(device),
+                           noise_scale_w=0.6, length_scale=1.0 / speed, sdp_ratio=0.2)
+        for r, i in enumerate(idxs):
+            enc_rows[i] = {"m_p": enc.m_p[r], "logs_p": enc.logs_p[r], "x_mask": enc.x_mask[r],
+                           "w_ceil": enc.w_ceil[r]}
+    return enc_rows
+
+
+def _stack_enc_rows(enc_rows: list[dict], idxs: list[int], g_row: torch.Tensor) -> S.TTSEncodeOut:
+    """One frame-bucket group's rows, zero-padded to a common token length
+    (padded tokens have duration 0 and add no frames) and stacked."""
+    tb_max = max(enc_rows[i]["m_p"].shape[0] for i in idxs)
+
+    def stacked(key):
+        rows = [enc_rows[i][key] for i in idxs]
+        return torch.stack([torch.nn.functional.pad(a, (0, 0) * (a.dim() - 1) + (0, tb_max - a.shape[0]))
+                            for a in rows])
+
+    return S.TTSEncodeOut(m_p=stacked("m_p"), logs_p=stacked("logs_p"), x_mask=stacked("x_mask"),
+                          w_ceil=stacked("w_ceil"), g=g_row[None].expand(len(idxs), 1, -1).contiguous())
+
+
+def _sentence_noise_rngs(seed: int, n: int) -> list[tuple[np.random.Generator, np.random.Generator]]:
+    """Per-sentence (sdp noise, decode noise) numpy generators, spawned as the
+    JAX package spawns them; `tts` and `tts_batched` share them."""
+    out = []
+    for child in np.random.SeedSequence(seed).spawn(n):
+        w_ss, y_ss = child.spawn(2)
+        out.append((np.random.default_rng(w_ss), np.random.default_rng(y_ss)))
+    return out
+
+
+def _concat_with_gaps(pieces: list[np.ndarray], sr: int, speed: float) -> np.ndarray:
+    """0.05 s ÷ speed of silence after each sentence (api.py:56-63)."""
+    gap = np.zeros(int(sr * 0.05 / speed), np.float32)
+    out: list[np.ndarray] = []
+    for p in pieces:
+        out.append(np.asarray(p, np.float32).reshape(-1))
+        out.append(gap)
+    return np.concatenate(out) if out else np.zeros(0, np.float32)

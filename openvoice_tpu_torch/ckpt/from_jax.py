@@ -5,8 +5,11 @@
   It inverts the layouts of ``openvoice_tpu/ckpt/torch_import.py``:
   conv [K, C_in, C_out] → [C_out, C_in, K]; transposed conv, stored there
   with the kernel axis flipped → [C_in, C_out, K] unflipped; conv2d HWIO →
-  [C_out, C_in, KH, KW]; linear [in, out] → [out, in]; GRU ``w_ih`` [in, 3H]
-  and ``w_hh`` [H, 3H] (gate order r, z, n in both) → transposed.
+  [C_out, C_in, KH, KW]; linear [in, out] → [out, in] (as a 1×1 conv
+  [out, in, 1] for the attention projections); GRU ``w_ih`` [in, 3H] and
+  ``w_hh`` [H, 3H] (gate order r, z, n in both) → transposed; relative
+  embeddings [2w+1, dk] → [1, 2w+1, dk]; the duration flows' affine
+  ``m``/``logs`` [C] → [C, 1].
 * `dec_cache_from_jax`: the same pytree → the model and its packed serving
   cache, so that a test starts both packages from the same arrays.
 * `load_ckpt`: a reference-format ``.pth`` checkpoint → a state dict with
@@ -49,8 +52,83 @@ def _wn(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
         _conv(p["cond"], f"{prefix}.cond_layer", sd)
 
 
+def _ln(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    sd[f"{prefix}.gamma"] = np.asarray(p["gamma"])
+    sd[f"{prefix}.beta"] = np.asarray(p["beta"])
+
+
+def _linear_1x1(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    sd[f"{prefix}.weight"] = np.asarray(p["w"]).T[:, :, None]
+    sd[f"{prefix}.bias"] = np.asarray(p["b"])
+
+
+def _ddsconv(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    for i, lp in enumerate(p["layers"]):
+        _conv(lp["sep"], f"{prefix}.convs_sep.{i}", sd)
+        _conv(lp["pw"], f"{prefix}.convs_1x1.{i}", sd)
+        _ln(lp["norm1"], f"{prefix}.norms_1.{i}", sd)
+        _ln(lp["norm2"], f"{prefix}.norms_2.{i}", sd)
+
+
+def _sdp_flows(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    """[EA, CF, Flip, CF, Flip, ...]: the conv flows sit at the odd slots."""
+    sd[f"{prefix}.0.m"] = np.asarray(p["ea"]["m"])[:, None]
+    sd[f"{prefix}.0.logs"] = np.asarray(p["ea"]["logs"])[:, None]
+    for i, cf in enumerate(p["conv_flows"]):
+        _conv(cf["pre"], f"{prefix}.{2 * i + 1}.pre", sd)
+        _ddsconv(cf["dds"], f"{prefix}.{2 * i + 1}.convs", sd)
+        _conv(cf["proj"], f"{prefix}.{2 * i + 1}.proj", sd)
+
+
+def _attn_encoder(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    for i, lp in enumerate(p["layers"]):
+        attn = f"{prefix}.attn_layers.{i}"
+        for name in ("q", "k", "v", "o"):
+            _linear_1x1(lp["attn"][name], f"{attn}.conv_{name}", sd)
+        sd[f"{attn}.emb_rel_k"] = np.asarray(lp["attn"]["emb_rel_k"])[None]
+        sd[f"{attn}.emb_rel_v"] = np.asarray(lp["attn"]["emb_rel_v"])[None]
+        _ln(lp["norm1"], f"{prefix}.norm_layers_1.{i}", sd)
+        _conv(lp["ffn"]["conv1"], f"{prefix}.ffn_layers.{i}.conv_1", sd)
+        _conv(lp["ffn"]["conv2"], f"{prefix}.ffn_layers.{i}.conv_2", sd)
+        _ln(lp["norm2"], f"{prefix}.norm_layers_2.{i}", sd)
+
+
+def _sdp(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    for name in ("pre", "proj", "post_pre", "post_proj"):
+        _conv(p[name], f"{prefix}.{name}", sd)
+    _ddsconv(p["convs"], f"{prefix}.convs", sd)
+    _ddsconv(p["post_convs"], f"{prefix}.post_convs", sd)
+    _sdp_flows(p["flows"], f"{prefix}.flows", sd)
+    _sdp_flows(p["post_flows"], f"{prefix}.post_flows", sd)
+    if p.get("cond") is not None:
+        _conv(p["cond"], f"{prefix}.cond", sd)
+
+
+def _dp(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
+    _conv(p["conv1"], f"{prefix}.conv_1", sd)
+    _ln(p["norm1"], f"{prefix}.norm_1", sd)
+    _conv(p["conv2"], f"{prefix}.conv_2", sd)
+    _ln(p["norm2"], f"{prefix}.norm_2", sd)
+    _conv(p["proj"], f"{prefix}.proj", sd)
+    if p.get("cond") is not None:
+        _conv(p["cond"], f"{prefix}.cond", sd)
+
+
+def _text_path(params: Mapping[str, Any], sd: dict) -> None:
+    """enc_p, sdp, dp and emb_g of a base-speaker TTS pytree."""
+    enc = params["enc_p"]
+    sd["enc_p.emb.weight"] = np.asarray(enc["emb"])
+    _attn_encoder(enc["encoder"], "enc_p.encoder", sd)
+    _conv(enc["proj"], "enc_p.proj", sd)
+    _sdp(params["sdp"], "sdp", sd)
+    _dp(params["dp"], "dp", sd)
+    sd["emb_g.weight"] = np.asarray(params["emb_g"])
+
+
 def jax_state_dict(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
-    """The reference-named state dict of a converter's JAX pytree."""
+    """The reference-named state dict of a JAX pytree: a converter's (with
+    ``ref_enc``) or a base-speaker TTS's (with ``enc_p``, ``sdp``, ``dp``,
+    ``emb_g``)."""
     sd: dict[str, np.ndarray] = {}
     enc_q = params["enc_q"]
     _conv(enc_q["pre"], "enc_q.pre", sd)
@@ -72,6 +150,9 @@ def jax_state_dict(params: Mapping[str, Any]) -> dict[str, np.ndarray]:
     _conv(dec["conv_post"], "dec.conv_post", sd)
     if dec.get("cond") is not None:
         _conv(dec["cond"], "dec.cond", sd)
+    if "enc_p" in params:
+        _text_path(params, sd)
+        return sd
     ref = params["ref_enc"]
     if ref.get("layernorm") is not None:
         sd["ref_enc.layernorm.weight"] = np.asarray(ref["layernorm"]["gamma"])
@@ -93,7 +174,7 @@ def synthesizer_from_jax(params: Mapping[str, Any], cfg: SynthesizerConfig) -> S
     """A CPU `Synthesizer` holding the JAX pytree's weights (strict: every
     parameter of the module must be in the pytree and vice versa)."""
     model = Synthesizer(cfg)
-    sd = {k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+    sd = {k: torch.from_numpy(np.array(v, dtype=np.float32))
           for k, v in jax_state_dict(params).items()}
     model.load_state_dict(sd, strict=True)
     return model

@@ -1,5 +1,6 @@
-"""The converter branch of the VITS-style synthesizer: posterior encoder,
-coupling flow, HiFi-GAN decoder and tone-colour reference encoder
+"""The VITS-style synthesizer: posterior encoder, coupling flow and HiFi-GAN
+decoder, with either the tone-colour reference encoder (the converter,
+n_speakers == 0) or the text path of the base-speaker TTS (n_speakers > 0)
 (reference: models.py:399-499; JAX: ``openvoice_tpu/models/synthesizer.py``).
 
 `Synthesizer` is an ``nn.Module`` whose ``state_dict()`` carries the
@@ -7,22 +8,30 @@ reference's key names.  The graph functions below keep the JAX package's
 [B, T, C] layout at their arguments and results, and run the modules in
 PyTorch's [B, C, T] layout inside.  Two numeric modes share them: the f32
 parity mode on stock layers, and the bf16 serving mode (``fast=True`` with a
-`make_dec_cache`), where the posterior encoder's WaveNet, both directions of
-the flow and every decoder stage each run as one hand-written kernel
-(``ops/{wn,coupling,mrf,tail}_cuda.py``).
+`make_dec_cache`), where the posterior encoder's WaveNet, each direction of
+the flow and every decoder stage run as one hand-written kernel each
+(``ops/{wn,coupling,mrf,tail}_cuda.py``).  The TTS text encoder and duration
+predictors stay f32 in both modes, as in the JAX package: only its decode
+(reverse flow and decoder) runs in bf16.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from openvoice_tpu_torch.config import SynthesizerConfig
-from openvoice_tpu_torch.models.align import sequence_mask
+from openvoice_tpu_torch.models.align import generate_path, sequence_mask
+from openvoice_tpu_torch.nn.attention import Encoder, MultiHeadAttention
 from openvoice_tpu_torch.nn.conv import conv1d
-from openvoice_tpu_torch.nn.flows import ResidualCouplingBlock
+from openvoice_tpu_torch.nn.duration import (
+    DurationPredictor, StochasticDurationPredictor, apply_duration_predictor, apply_sdp_reverse,
+)
+from openvoice_tpu_torch.nn.flows import ConvFlow, ResidualCouplingBlock
 from openvoice_tpu_torch.nn.hifigan import (
     Generator, apply_generator, cast_copy, pack_generator_caches,
 )
@@ -32,6 +41,7 @@ from openvoice_tpu_torch.ops.coupling_cuda import (
     coupling_block, coupling_g_stack, pack_coupling_block,
 )
 from openvoice_tpu_torch.ops.wn_cuda import stack_wn_params
+from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
 
 
 class PosteriorEncoder(nn.Module):
@@ -58,14 +68,28 @@ class PosteriorEncoder(nn.Module):
         return z, m, logs
 
 
-class Synthesizer(nn.Module):
-    """The converter (n_speakers == 0): ``enc_q``, ``flow``, ``dec``,
-    ``ref_enc``.  The text path of the base-speaker TTS is not ported yet."""
+class TextEncoder(nn.Module):
+    """Tokens → relative-attention encoder → (m_p, logs_p) (models.py:16-57);
+    attributes ``emb``, ``encoder``, ``proj``."""
 
     def __init__(self, cfg: SynthesizerConfig):
         super().__init__()
-        if cfg.n_speakers != 0:
-            raise NotImplementedError("the base-speaker TTS (n_speakers > 0) is not ported yet")
+        h = cfg.hidden_channels
+        self.hidden = h
+        self.emb = nn.Embedding(cfg.n_vocab, h)
+        self.encoder = Encoder(h, cfg.filter_channels, cfg.n_heads, cfg.n_layers, cfg.kernel_size,
+                               cfg.attn_window_size)
+        self.proj = conv1d(h, 2 * cfg.inter_channels)
+
+
+class Synthesizer(nn.Module):
+    """``enc_q``, ``flow``, ``dec``, and either ``ref_enc`` (the converter,
+    n_speakers == 0) or the text path ``enc_p``, ``sdp``, ``dp``, ``emb_g``
+    (the base-speaker TTS, n_speakers > 0), as the reference builds them
+    (models.py:427-466)."""
+
+    def __init__(self, cfg: SynthesizerConfig):
+        super().__init__()
         self.cfg = cfg
         self.enc_q = PosteriorEncoder(cfg)
         self.flow = ResidualCouplingBlock(
@@ -73,7 +97,15 @@ class Synthesizer(nn.Module):
             cfg.flow_wn_layers, cfg.flow_n_flows, cfg.gin_channels,
         )
         self.dec = Generator(cfg)
-        self.ref_enc = ReferenceEncoder(cfg.spec_channels, cfg.gin_channels)
+        if cfg.n_speakers == 0:
+            self.ref_enc = ReferenceEncoder(cfg.spec_channels, cfg.gin_channels)
+        else:
+            self.enc_p = TextEncoder(cfg)
+            self.sdp = StochasticDurationPredictor(cfg.hidden_channels, cfg.sdp_kernel_size,
+                                                   gin_channels=cfg.gin_channels)
+            self.dp = DurationPredictor(cfg.hidden_channels, cfg.dp_filter_channels, cfg.dp_kernel_size,
+                                        cfg.gin_channels)
+            self.emb_g = nn.Embedding(cfg.n_speakers, cfg.gin_channels)
 
 
 def init_synthesizer(cfg: SynthesizerConfig, generator: torch.Generator) -> Synthesizer:
@@ -83,20 +115,30 @@ def init_synthesizer(cfg: SynthesizerConfig, generator: torch.Generator) -> Synt
     * convs and linears: weight and bias uniform in ±1/√fan_in;
     * decoder upsamples and resblock convs: weight normal(0, 0.01), bias 0
       (commons.init_weights);
-    * each coupling's ``post``: zeros, so a fresh flow is the identity;
-    * LayerNorm: ones and zeros; GRU: uniform in ±1/√hidden.
+    * each coupling's ``post`` and each spline flow's ``proj``: zeros, so a
+      fresh flow is the identity;
+    * LayerNorm: ones and zeros; GRU: uniform in ±1/√hidden;
+    * text path: token embedding normal(0, 1/√hidden), relative-position
+      embeddings normal(0, 1/√dk), speaker table normal(0, 1).
 
     The draws differ from JAX's (another generator); tests that compare the
     two packages send JAX's weights through ``ckpt/from_jax.py`` instead.
     """
     model = Synthesizer(cfg)
     posts = {id(flow.post) for flow in model.flow.flows[::2]}
+    posts |= {id(m.proj) for m in model.modules() if isinstance(m, ConvFlow)}
     decoder = {id(m) for m in model.dec.ups.modules()} | {id(m) for m in model.dec.resblocks.modules()}
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, nn.LayerNorm):
                 module.weight.fill_(1.0)
                 module.bias.zero_()
+            elif isinstance(module, nn.Embedding):
+                std = 1.0 if module is getattr(model, "emb_g", None) else cfg.hidden_channels ** -0.5
+                module.weight.normal_(0.0, std, generator=generator)
+            elif isinstance(module, MultiHeadAttention):
+                for p in (module.emb_rel_k, module.emb_rel_v):
+                    p.normal_(0.0, module.k_channels ** -0.5, generator=generator)
             elif isinstance(module, nn.GRU):
                 s = 1.0 / math.sqrt(GRU_HIDDEN)
                 for p in module.parameters():
@@ -253,3 +295,128 @@ def _latents_packed(model: Synthesizer, cache: dict, spec: torch.Tensor, y_mask:
     g_rev = coupling_g_stack(model.flow, g_tgt, reverse=True, convs=cache["flow_cond"])
     z_p = coupling_block(z, lengths, cache["coupling"]["fwd"], g_fwd)
     return coupling_block(z_p, lengths, cache["coupling"]["rev"], g_rev)
+
+
+# ---------------------------------------------------------------------------
+# Base-speaker TTS (models.py:467-490)
+# ---------------------------------------------------------------------------
+
+class TTSEncodeOut(NamedTuple):
+    """What the text side of TTS hands the decode (the JAX package's)."""
+
+    m_p: torch.Tensor     # [B, T_x, inter]
+    logs_p: torch.Tensor  # [B, T_x, inter]
+    x_mask: torch.Tensor  # [B, T_x, 1]
+    w_ceil: torch.Tensor  # [B, T_x] integral durations (float)
+    g: torch.Tensor | None  # [B, 1, gin]
+
+
+def text_encode(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor):
+    """tokens [B, T_x] int, token_lengths [B] → (h [B, T_x, hidden], m_p,
+    logs_p [B, T_x, inter], x_mask [B, T_x, 1]), all float32."""
+    enc = model.enc_p
+    x_mask = sequence_mask(token_lengths, tokens.shape[1])[..., None].float()
+    h = enc.emb(tokens.long()) * math.sqrt(enc.hidden)
+    h = enc.encoder(_bct(h * x_mask), _bct(x_mask))
+    stats = _bct(enc.proj(h)) * x_mask
+    inter = model.cfg.inter_channels
+    return _bct(h), stats[..., :inter], stats[..., inter:], x_mask
+
+
+def log_durations(model: Synthesizer, h: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None,
+                  noise_w: torch.Tensor, noise_scale_w: float = 0.6, sdp_ratio: float = 0.2) -> torch.Tensor:
+    """The duration predictors' blend → logw [B, T_x, 1]: the stochastic one
+    on noise_w [B, T_x, 2], weighted sdp_ratio, and the deterministic one."""
+    logw_sdp = apply_sdp_reverse(model.sdp, h, x_mask, noise_w, g=g, noise_scale=noise_scale_w)
+    logw_dp = apply_duration_predictor(model.dp, h, x_mask, g=g)
+    return logw_sdp * sdp_ratio + logw_dp * (1.0 - sdp_ratio)
+
+
+def tts_encode(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor,
+               sid: torch.Tensor | None, noise_w: torch.Tensor, noise_scale_w: float = 0.6,
+               length_scale: float = 1.0, sdp_ratio: float = 0.2) -> TTSEncodeOut:
+    """Text encoder and duration predictors → integral durations (the first
+    half of models.py:467-482), f32 in both modes.
+
+    tokens [B, T_x] int, noise_w [B, T_x, 2] standard normal (the JAX
+    package's ``noise_w``; the caller draws it so that a seed gives the same
+    draws in both packages)."""
+    h, m_p, logs_p, x_mask = text_encode(model, tokens, token_lengths)
+    g = model.emb_g(sid.long())[:, None, :] if sid is not None else None  # [B, 1, gin]
+    logw = log_durations(model, h, x_mask, g, noise_w, noise_scale_w, sdp_ratio)
+    w = torch.exp(logw) * x_mask * length_scale
+    return TTSEncodeOut(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w_ceil=torch.ceil(w)[..., 0], g=g)
+
+
+def tts_latents(model: Synthesizer, enc: TTSEncodeOut, max_frames: int, noise: torch.Tensor,
+                noise_scale: float = 0.667, fast: bool = False, dec_cache: dict | None = None):
+    """Length-regulate and run the flow in reverse (models.py:479-488) →
+    (z [B, max_frames, inter], y_mask [B, max_frames, 1] float32, y_lengths
+    [B] int32, g), z and g in the route's dtype: float32 on stock layers
+    without a cache, else the cache's dtype through the K2 route (bf16 for
+    fast=True)."""
+    if fast and dec_cache is None:
+        raise ValueError("fast=True needs dec_cache=make_dec_cache(model)")
+    y_lengths = torch.clamp(enc.w_ceil.sum(dim=-1), 1, max_frames).to(torch.int32)
+    y_mask = sequence_mask(y_lengths, max_frames)[..., None].to(enc.m_p.dtype)
+    attn = generate_path(enc.w_ceil, y_mask * enc.x_mask.transpose(1, 2))  # [B, T_y, T_x]
+    z_p = attn @ enc.m_p + noise * torch.exp(attn @ enc.logs_p) * noise_scale
+    g = enc.g
+    if dec_cache is None:
+        z = model.flow(_bct(z_p), _bct(y_mask), g=_bct(g) if g is not None else None, reverse=True)
+        return _bct(z), y_mask, y_lengths, g
+    dt = torch.bfloat16 if fast else z_p.dtype
+    if dec_cache["dtype"] != dt:
+        raise TypeError(f"dec_cache holds {dec_cache['dtype']}, this call runs in {dt}")
+    z_p = (z_p * y_mask).to(dt).contiguous()
+    rev = dec_cache["coupling"]["rev"]
+    if g is not None:
+        g = g.to(dt)
+        g_rev = coupling_g_stack(model.flow, g, reverse=True, convs=dec_cache["flow_cond"])
+    else:  # no conditioning at all: the WaveNets add nothing
+        g_rev = z_p.new_zeros(z_p.shape[0], *rev["b_in"].shape)
+    return coupling_block(z_p, y_lengths, rev, g_rev), y_mask, y_lengths, g
+
+
+def tts_decode(model: Synthesizer, enc: TTSEncodeOut, max_frames: int, noise: torch.Tensor,
+               noise_scale: float = 0.667, fast: bool = False,
+               dec_cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Length-regulate, reverse flow and decode, padded to `max_frames` (the
+    second half of models.py:479-490).
+
+    noise [B, max_frames, inter] standard normal → (audio [B, max_frames·
+    upsample, 1] float32, y_mask [B, max_frames, 1] float32).  fast=True is
+    the serving mode: the reverse flow (K2) and the decoder (K3, K4) run in
+    bf16 from ``dec_cache = make_dec_cache(model)``; fast=False is the f32
+    parity mode.  As in `voice_conversion_masked`, a float32 cache sends the
+    f32 graph down the kernel route's plain versions.  y_mask stays float32:
+    callers sum it into lengths, and bf16 counts are wrong past 256."""
+    z, y_mask, _, g = tts_latents(model, enc, max_frames, noise, noise_scale, fast, dec_cache)
+    if dec_cache is None:
+        mask = _bct(y_mask)
+        audio = model.dec(_bct(z) * mask, g=_bct(g) if g is not None else None, x_mask=mask)
+        return _bct(audio), y_mask
+    m = y_mask.to(z.dtype)
+    return apply_generator(model.dec, z * m, g=g, x_mask=m, packed=dec_cache).float(), y_mask
+
+
+def infer(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor,
+          sid: torch.Tensor | None, seed: int, noise_scale: float = 0.667, length_scale: float = 1.0,
+          noise_scale_w: float = 0.6, sdp_ratio: float = 0.2,
+          max_frames: int | None = None) -> tuple[np.ndarray, np.ndarray]:
+    """Two-stage TTS with a host round trip for the output length (the split
+    at models.py:479): → (audio [B, max_frames·upsample] numpy, true sample
+    counts [B]).  Both noises come from numpy generators spawned from `seed`
+    (the JAX ``infer`` draws its duration noise with ``jax.random`` instead,
+    so the two agree given the same noise arrays, not the same seed)."""
+    rng_w, rng_y = (np.random.default_rng(ss) for ss in np.random.SeedSequence(seed).spawn(2))
+    dev = tokens.device
+    noise_w = rng_w.standard_normal((tokens.shape[0], tokens.shape[1], 2)).astype(np.float32)
+    enc = tts_encode(model, tokens, token_lengths, sid, torch.from_numpy(noise_w).to(dev),
+                     noise_scale_w=noise_scale_w, length_scale=length_scale, sdp_ratio=sdp_ratio)
+    if max_frames is None:
+        max_frames = round_up_to_bucket(max(int(enc.w_ceil.sum(dim=-1).max()), 1))
+    noise = rng_y.standard_normal((tokens.shape[0], max_frames, model.cfg.inter_channels)).astype(np.float32)
+    audio, y_mask = tts_decode(model, enc, max_frames, torch.from_numpy(noise).to(dev), noise_scale=noise_scale)
+    y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
+    return audio[..., 0].cpu().numpy(), y_lengths * model.cfg.upsample_factor

@@ -1,5 +1,6 @@
 """Convolution layers of the port, with the padding conventions of the
-reference (modules.py, models.py) built in.
+reference (modules.py, models.py) built in, and the reference's
+channel-first LayerNorm.
 
 The JAX package writes these as functions over [B, T, C] tensors with
 [K, C_in, C_out] kernels (``openvoice_tpu/nn/conv.py``).  The port keeps
@@ -15,6 +16,8 @@ kernel, computes them.
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -36,3 +39,18 @@ def conv_transpose1d(cin: int, cout: int, kernel_size: int, stride: int) -> nn.C
 def conv2d(cin: int, cout: int) -> nn.Conv2d:
     """Reference-encoder Conv2d: 3×3, stride 2, padding 1 (models.py:317-326)."""
     return nn.Conv2d(cin, cout, kernel_size=3, stride=2, padding=1)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the channel axis of [B, C, T] (modules.py:17-29), with
+    the reference's parameter names ``gamma`` and ``beta``."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.gamma = nn.Parameter(torch.ones(channels))
+        self.beta = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.layer_norm(x.transpose(1, -1), self.gamma.shape, self.gamma, self.beta, self.eps)
+        return x.transpose(1, -1)

@@ -1,2 +1,2 @@
-"""Host-side pipeline pieces of the PyTorch port: watermark, VAD and
-whisper-mode segmentation."""
+"""Host-side pipeline pieces of the PyTorch port: watermark, VAD,
+whisper-mode segmentation and the cached speaker-embedding entry `get_se`."""

@@ -1,13 +1,19 @@
-"""Reference-recording segmentation for speaker-embedding extraction
-(the port's copy of the energy-VAD half of
+"""Speaker-embedding extraction pipeline (the port of
 ``openvoice_tpu/pipeline/se_extractor.py``; reference se_extractor.py).
 
 Reference audio → energy VAD → concatenated speech → ~10 s uniform segments,
 which `ToneColorConverter.extract_se_from_file` batches through the
 reference encoder.  Whisper-mode segmentation is `pipeline/whisper_seg.py`.
+`get_se` is the reference's entry point, with its content-hash SE cache,
+which here is read as well as written (the reference computes the key but
+has the read commented out, se_extractor.py:137-141).
 """
 
 from __future__ import annotations
+
+import base64
+import hashlib
+import os
 
 import numpy as np
 
@@ -82,3 +88,31 @@ def split_audio_vad(
     bounds = np.linspace(0, len(active), num_splits + 1).astype(int)
     return [active[bounds[i] : bounds[i + 1]] for i in range(num_splits)]
 
+
+
+def hash_audio(audio_path: str) -> str:
+    """Content-addressed cache key (se_extractor.py:118-127 semantics): the
+    decoded samples' SHA-256, base64, 16 characters."""
+    from openvoice_tpu_torch.audio.io import load_audio
+
+    arr, _ = load_audio(audio_path, sr=None)
+    digest = hashlib.sha256(arr.tobytes()).digest()
+    return base64.b64encode(digest).decode()[:16].replace("/", "_^")
+
+
+def get_se(audio_path: str, converter, target_dir: str = "processed",
+           vad: bool = True) -> tuple[np.ndarray, str]:
+    """Reference-compatible entry (se_extractor.py:129-152) → (se
+    [1, gin, 1], cache name).  The embedding is cached under
+    ``target_dir/<name>_<version>_<hash>/se.npy`` and read from there when
+    present."""
+    version = getattr(converter, "version", "v2")
+    base = os.path.basename(audio_path).rsplit(".", 1)[0]
+    audio_name = f"{base}_{version}_{hash_audio(audio_path)}"
+    se_path = os.path.join(target_dir, audio_name, "se.npy")
+    if os.path.isfile(se_path):
+        return np.load(se_path), audio_name
+    se = np.asarray(converter.extract_se_from_file(audio_path, vad=vad))
+    os.makedirs(os.path.dirname(se_path), exist_ok=True)
+    np.save(se_path, se)
+    return se, audio_name

@@ -10,7 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tests._regen_golden import _CONVERT_CFG
+from tests._regen_golden import _CONVERT_CFG, _TTS_CFG
 
 # the suite runs on several xdist workers at once, beside timing-sensitive
 # multi-process tests: keep each worker's torch to a couple of cores
@@ -52,6 +52,23 @@ TINY_TAIL = dict(
 # (96 and 48 channels, which tile no 128 lanes) and conv_post stay stock, so
 # the serving branch must carry its mask up to audio rate
 TINY_STOCK = dict(TINY_TAIL, upsample_initial_channel=384)
+
+
+# the V1 converter: the same tiny converter with zero_g=False, so the posterior
+# encoder and the decoder see the real speaker embeddings
+TINY_V1 = dict(TINY_API, zero_g=False)
+TINY_TAIL_V1 = dict(TINY_TAIL, zero_g=False)
+
+# the golden's tiny base-speaker TTS (tests/_regen_golden.py)
+TINY_TTS = dict(_TTS_CFG)
+
+# a tiny TTS whose decoder takes every route of the serving mode, as
+# TINY_TAIL's does, with a token table as large as the text front end's
+# symbol set
+TINY_TTS_TAIL = dict(
+    TINY_TAIL, n_vocab=68, n_speakers=4, zero_g=False,
+    filter_channels=64, n_heads=2, n_layers=2, enc_q_layers=2,
+)
 
 
 def jax_cfg(fields: dict):

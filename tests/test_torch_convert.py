@@ -1,7 +1,8 @@
 """The slice end to end: the port's conversion graph against the checked-in
 golden and the JAX graph, and the port's `ToneColorConverter` (extract_se,
 extract_se_from_file, convert with tau 0.3, seeded noise and the watermark
-on) against the JAX package's, on the same weights and synthetic audio."""
+on) against the JAX package's, on the same weights and synthetic audio, for
+the V2 converter and the V1 one (zero_g=False); `get_se` and its cache."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +18,7 @@ from openvoice_tpu_torch.models import synthesizer as TS
 from openvoice_tpu_torch.pipeline import watermark as twm
 from tests._regen_golden import GOLDEN_DIR
 from tests._torch_port import (
-    TINY, TINY_API, jax_cfg, jax_params, lengths_mask, t, torch_cfg, torch_model,
+    TINY, TINY_API, TINY_V1, jax_cfg, jax_params, lengths_mask, t, torch_cfg, torch_model,
 )
 
 SR = 22050
@@ -159,3 +160,62 @@ def test_add_watermark_bit_equal_to_jax():
     marked = twm.add_watermark(audio, "openvox8")
     np.testing.assert_array_equal(marked, jwm.add_watermark(audio, "openvox8"))
     assert twm.detect_watermark(marked, 2) == jwm.detect_watermark(marked, 2) == "openvox8"
+
+
+@pytest.fixture(scope="module")
+def converters_v1():
+    params = jax_params(TINY_V1, seed=33)
+    jconv = JaxConverter(cfg=jax_cfg(TINY_V1))
+    jconv.params = params
+    tconv = ToneColorConverter(cfg=torch_cfg(TINY_V1), device="cpu")
+    tconv.set_model(torch_model(TINY_V1, params))
+    return jconv, tconv
+
+
+def test_v1_converter_extract_se_and_convert_match_jax(converters_v1, tmp_path):
+    """zero_g=False: the posterior encoder sees the source embedding and the
+    decoder the target one; f32 at the V2 converter's bars."""
+    jconv, tconv = converters_v1
+    assert tconv.version == jconv.version == "v1"
+    paths = []
+    for i, (secs, f0) in enumerate([(1.6, 120.0), (2.1, 230.0)]):
+        paths.append(str(tmp_path / f"ref{i}.wav"))
+        write_wav(paths[-1], _voice(secs, f0, seed=20 + i), SR)
+    se_src, se_tgt = tconv.extract_se(paths[:1]), tconv.extract_se(paths[1:])
+    np.testing.assert_allclose(se_src, jconv.extract_se(paths[:1]), atol=1e-4)
+    np.testing.assert_allclose(se_tgt, jconv.extract_se(paths[1:]), atol=1e-4)
+    src = _voice(1.9, 140.0, seed=22)
+    out = tconv.convert(src, se_src, se_tgt, tau=0.3, seed=6, message="")
+    ref = jconv.convert(src, se_src, se_tgt, tau=0.3, seed=6, message="")
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, atol=5e-4)
+    # the embeddings reach the decoder: another target changes the audio
+    other = tconv.convert(src, se_src, se_src, tau=0.3, seed=6, message="")
+    assert np.abs(other - out).max() > 10 * np.abs(out - ref).max()
+
+
+def test_get_se_writes_then_reads_its_cache(converters_v1, tmp_path, monkeypatch):
+    from openvoice_tpu.pipeline.se_extractor import get_se as jget_se
+    from openvoice_tpu.pipeline.se_extractor import hash_audio as jhash_audio
+    from openvoice_tpu_torch import get_se
+    from openvoice_tpu_torch.pipeline.se_extractor import hash_audio
+
+    jconv, tconv = converters_v1
+    path = str(tmp_path / "speaker.wav")
+    write_wav(path, _voice(2.4, 175.0, seed=23), SR)
+    assert hash_audio(path) == jhash_audio(path)
+    cache = tmp_path / "processed"
+    se, name = get_se(path, tconv, target_dir=str(cache))
+    ref, jname = jget_se(path, jconv, target_dir=str(tmp_path / "jax"))
+    assert name == jname and name.startswith("speaker_v1_")
+    assert se.shape == (1, TINY_V1["gin_channels"], 1)
+    np.testing.assert_allclose(se, ref, atol=1e-4)
+    np.testing.assert_array_equal(np.load(cache / name / "se.npy"), se)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a cached embedding must be read, not recomputed")
+
+    monkeypatch.setattr(tconv, "extract_se_from_file", refuse)
+    again, again_name = get_se(path, tconv, target_dir=str(cache))
+    assert again_name == name
+    np.testing.assert_array_equal(again, se)

@@ -11,14 +11,14 @@ import numpy as np
 import pytest
 import torch
 
-from openvoice_tpu_torch.api import ToneColorConverter
+from openvoice_tpu_torch.api import BaseSpeakerTTS, ToneColorConverter
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.nn.conv import conv1d, conv_transpose1d
 from openvoice_tpu_torch.nn.flows import ResidualCouplingBlock
 from openvoice_tpu_torch.nn.hifigan import ResBlock1
 from openvoice_tpu_torch.nn.wavenet import WN
 from openvoice_tpu_torch.ops import _nvcc, coupling_cuda, mrf_cuda, stft_cuda, tail_cuda, wn_cuda
-from tests._torch_port import TINY, torch_cfg
+from tests._torch_port import TINY, TINY_TTS_TAIL, torch_cfg
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "openvoice_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -46,6 +46,14 @@ def test_converter_without_device_raises_when_cuda_is_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ToneColorConverter(cfg=torch_cfg(TINY))
+
+
+def test_base_speaker_tts_without_device_raises_when_cuda_is_absent(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BaseSpeakerTTS(cfg=torch_cfg(TINY_TTS_TAIL))
+    tts = BaseSpeakerTTS(cfg=torch_cfg(TINY_TTS_TAIL), device="cpu")
+    assert tts.device.type == "cpu" and tts.version == "v1"
 
 
 def test_serving_mode_is_refused_until_its_kernels_exist():

@@ -1,7 +1,9 @@
 """The serving mode of the PyTorch port as a whole, on tiny configs and the
 CPU (where every kernel wrapper runs its plain version): the kernel route
 against the JAX graph in f32, the bf16 mode against JAX's own bf16 mode,
-padded batches against exact lengths, and the life of the packed cache."""
+padded batches against exact lengths, and the life of the packed cache; for
+the V2 converter and the V1 one (zero_g=False, where the posterior encoder's
+WaveNet and the decoder see real speaker embeddings)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,7 +18,8 @@ from openvoice_tpu_torch.ckpt.from_jax import dec_cache_from_jax
 from openvoice_tpu_torch.models import synthesizer as TS
 from openvoice_tpu_torch.nn.hifigan import _stage_plan
 from tests._torch_port import (
-    TINY, TINY_API, TINY_STOCK, TINY_TAIL, jax_cfg, jax_params, lengths_mask, t, torch_cfg, torch_model,
+    TINY, TINY_API, TINY_STOCK, TINY_TAIL, TINY_TAIL_V1, TINY_V1, jax_cfg, jax_params, lengths_mask, t,
+    torch_cfg, torch_model,
 )
 
 SR = 22050
@@ -168,3 +171,48 @@ def test_fast_without_cache_or_with_the_wrong_cache_raises():
         TS.voice_conversion(*args, fast=True)
     with pytest.raises(TypeError, match="dec_cache holds"):
         TS.voice_conversion(*args, fast=True, dec_cache=TS.make_dec_cache(model, torch.float32))
+
+
+@torch.inference_mode()
+def test_v1_kernel_route_f32_matches_jax_f32():
+    """zero_g=False on the kernel route with an f32 cache: the WaveNet's
+    conditioning (the stock copy of ``cond_layer`` outside the kernel) and
+    the decoder's ``cond`` see the real embeddings, and every stage plan
+    route runs."""
+    fields = TINY_TAIL_V1
+    params = jax_params(fields, seed=23)
+    model, cache = dec_cache_from_jax(params, torch_cfg(fields), torch.float32)
+    spec, lengths, g_s, g_t, noise = _case(fields, 10, [48, 31], 48)
+    cfg = jax_cfg(fields)
+    mask = jnp.asarray(lengths_mask(lengths, 48))
+    z, _, _ = JS.posterior_encode(params, cfg, jnp.asarray(spec), mask, jnp.asarray(g_s), 0.3, jnp.asarray(noise))
+    z_p = japply_coupling_block(params["flow"], z, mask, g=jnp.asarray(g_s), reverse=False)
+    z_hat = japply_coupling_block(params["flow"], z_p, mask, g=jnp.asarray(g_t), reverse=True)
+    ours = TS._latents_packed(model, cache, t(spec), t(lengths_mask(lengths, 48)), t(g_s), t(g_t), 0.3, t(noise))
+    np.testing.assert_allclose(ours.numpy(), np.asarray(z_hat), atol=2e-4)
+    ref, _ = JS.voice_conversion(params, cfg, jnp.asarray(spec), jnp.asarray(lengths), jnp.asarray(g_s),
+                                 jnp.asarray(g_t), 0.3, jnp.asarray(noise))
+    out, _ = TS.voice_conversion(model, t(spec), t(lengths), t(g_s), t(g_t), 0.3, t(noise), dec_cache=cache)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=5e-4)
+
+
+def test_v1_convert_fast_strays_from_f32_no_more_than_twice_jax():
+    """The V1 converter's serving mode under the V2 converter's bar."""
+    params = jax_params(TINY_V1, seed=35)
+    jconv = JaxConverter(cfg=jax_cfg(TINY_V1))
+    jconv.params = params
+    tconv = ToneColorConverter(cfg=torch_cfg(TINY_V1), device="cpu")
+    tconv.set_model(torch_model(TINY_V1, params))
+    rng = np.random.default_rng(12)
+    se_src = rng.standard_normal(TINY_V1["gin_channels"]).astype(np.float32)
+    se_tgt = rng.standard_normal(TINY_V1["gin_channels"]).astype(np.float32)
+    src = _voice(1.3, 160.0, seed=13)
+    kw = dict(tau=0.3, seed=14, message="")
+    ours_f32 = tconv.convert(src, se_src, se_tgt, **kw)
+    ours_fast = tconv.convert(src, se_src, se_tgt, fast=True, **kw)
+    jax_f32 = jconv.convert(src, se_src, se_tgt, **kw)
+    jax_fast = jconv.convert(src, se_src, se_tgt, fast=True, **kw)
+    assert ours_fast.shape == ours_f32.shape == jax_fast.shape and np.isfinite(ours_fast).all()
+    np.testing.assert_allclose(ours_f32, jax_f32, atol=5e-4)
+    ours, theirs = np.abs(ours_fast - ours_f32).max(), np.abs(jax_fast - jax_f32).max()
+    assert 0 < ours <= 2 * theirs, f"port max|fast - f32| = {ours:.3e}, JAX max|fast - f32| = {theirs:.3e}"
