@@ -37,8 +37,32 @@ Phases, in order; any failure exits non-zero before the result line:
    ``get_se`` (and its cache) on the TTS audio and a synthetic target with a
    full-width V1 converter, and ``convert`` in both modes (K5 1, K1 1, K2 2,
    K3 2, K4 2 in serving mode);
-7. one JSON line of every ported kernel, the card's ``nvidia-smi`` line,
-   then the result line ``{"ok": true, "device": {...}}``.
+8. the serving tier, at full width (it runs before the result):
+   (both converters' conv_post scaled ×100 first, so that their audio stands
+   well above one step of the batcher's int16 wire)
+   8a. ``ConvertBatcher`` in serving mode on the V2 converter: 32 requests of
+   2-12 s submitted together (half PCM at tau 0, half spectrograms at tau
+   0.3) at max_batch 8; the launch counters show K5 1 (PCM groups), K1 1,
+   K2 2, K3 2, K4 2 per group; padded rows of length 0 come out exactly 0;
+   each result against ``convert(fast=True)`` of its clip; one clip alone
+   against the same clip in a group of 8; audio-s/s at max_batch 8 and 1,
+   p50/p95 latency and the device's busy share; each kernel of one B = 8
+   group (two rows of length 0) against its plain version and timed against
+   its first row alone;
+   8b. ``serve()`` on 127.0.0.1 port 0 (V1 TTS, V1 converter): /convert,
+   /tts and /clone (fused, single) against the direct calls, then one
+   ``VoiceApp.predict`` against get_se → tts_batched → convert;
+   8c. the fused chains on 6b's sentences: ``tts_convert_batched`` against
+   the staged truth in both modes (launches K5 1, K1 1, K2 3, K3 4, K4 4 per
+   group), ``tts_convert_single_dispatch`` twice and its overflow fallback,
+   ``tts_convert_stream`` joined, and the chain's STFT (K5 on the gathered
+   reflect-padded signal) against its plain version;
+   8d. ``convert_streaming`` of a 60 s clip against one-shot ``convert`` in
+   both modes, and the peak device memory of streaming at 60 s and 240 s and
+   of one-shot at 60 s;
+7. one JSON line of every ported kernel, one of the serving tier's numbers,
+   the card's ``nvidia-smi`` line, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a CUDA card, or outside a checkout of the
 repository, it fails.
@@ -1053,11 +1077,11 @@ def stage_times(tc, audio: np.ndarray, se_src, se_tgt, fast: bool) -> dict:
         }
 
 
-def device_profile(fn, wall_ms: float) -> None:
+def device_profile(fn, wall_ms: float, what: str = "warm convert") -> None:
     """torch.profiler over one warm call: the device's busy share of a warm
-    call's wall time `wall_ms`, and the kernels with the most device time.
-    (A first profiled call pays the profiler's own start-up, so the second
-    one is read.)"""
+    call's wall time `wall_ms` (the call is `what`), and the kernels with the
+    most device time.  (A first profiled call pays the profiler's own
+    start-up, so the second one is read.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1074,7 +1098,7 @@ def device_profile(fn, wall_ms: float) -> None:
         return
     busy = sum(r[0] for r in rows)
     print(f"profiler: {sum(r[1] for r in rows)} kernel launches, device busy {busy:.2f} ms = "
-          f"{100 * busy / wall_ms:.1f}% of the warm convert's {wall_ms:.2f} ms; top kernels:")
+          f"{100 * busy / wall_ms:.1f}% of the {what}'s {wall_ms:.2f} ms; top kernels:")
     for ms, count, key in rows[:8]:
         print(f"  {ms:8.3f} ms {count:5d}×  {key[:90]}")
 
@@ -1123,14 +1147,19 @@ V1_TEXT = ("The morning train left the station early and carried us along the qu
 SHORT_TEXT = "Hello there, this is a short test of the voice."
 
 
-def capture_kernel_calls(fn) -> list:
-    """Run `fn` once with the entry points of K2, K3 and K4, as the graph
-    looks them up, wrapped to record their arguments."""
+def capture_kernel_calls(fn, with_front: bool = False) -> list:
+    """Run `fn` once with the entry points of K2, K3 and K4 (with_front: also
+    K5 as the batcher looks it up, and K1), as the graph looks them up,
+    wrapped to record their arguments."""
     from openvoice_tpu_torch.models import synthesizer as TS
-    from openvoice_tpu_torch.nn import hifigan
+    from openvoice_tpu_torch.nn import hifigan, wavenet
+    from openvoice_tpu_torch.serve import batcher
 
+    targets = [(TS, "coupling_block"), (hifigan, "mrf_stage"), (hifigan, "tail_stage")]
+    if with_front:
+        targets = [(batcher, "stft_magnitude"), (wavenet, "wn_stack")] + targets
     calls, saved = [], []
-    for module, name in ((TS, "coupling_block"), (hifigan, "mrf_stage"), (hifigan, "tail_stage")):
+    for module, name in targets:
         real = getattr(module, name)
         saved.append((module, name, real))
 
@@ -1149,28 +1178,53 @@ def capture_kernel_calls(fn) -> list:
 
 def group_kernel_checks(calls: list, smi: str) -> dict:
     """Each captured launch of the B >= 2 group against its plain version
-    (the existing bars; rows past each length exactly 0), then timed cold
-    at the group's shape and on its first row alone at the same bucket."""
-    from openvoice_tpu_torch.ops import coupling_cuda, mrf_cuda, tail_cuda
+    (the existing bars; rows past each length exactly 0; K5 at its absolute
+    bar), then timed cold at the group's shape and on its first row alone at
+    the same bucket."""
+    import torch
 
-    kernels = {"coupling_block": (coupling_cuda.coupling_block, coupling_cuda.coupling_block_plain, WN_MEAN_TOL),
+    from openvoice_tpu_torch.audio.stft import stft_magnitude_plain
+    from openvoice_tpu_torch.ops import coupling_cuda, mrf_cuda, stft_cuda, tail_cuda, wn_cuda
+
+    kernels = {"stft_magnitude": (stft_cuda.stft_magnitude, stft_magnitude_plain, None),
+               "wn_stack": (wn_cuda.wn_stack, wn_cuda.wn_stack_plain, WN_MEAN_TOL),
+               "coupling_block": (coupling_cuda.coupling_block, coupling_cuda.coupling_block_plain, WN_MEAN_TOL),
                "mrf_stage": (mrf_cuda.mrf_stage, mrf_cuda.mrf_stage_plain, MRF_MEAN_TOL),
                "tail_stage": (tail_cuda.tail_stage, tail_cuda.tail_stage_plain, MRF_MEAN_TOL)}
     times: dict = {}
     for name, args in calls:
         fn, plain, mean_tol = kernels[name]
-        x, lengths = args[0], args[1]
-        lens = lengths.tolist()
-        last = name == "tail_stage" and args[2]["post_w"] is not None
-        label = f"{name} B={x.shape[0]} T={x.shape[1]} C={x.shape[2]} lengths {lens}"
-        agree(label, fn(*args), plain(*args), mean_tol, lens, zero_after=3 if last else 0)
-        one = tuple(a[:1].contiguous() if i in (0, 1, 3) else a for i, a in enumerate(args))
-        agree("  its first row alone (B=1)", fn(*one), plain(*one), mean_tol, lens[:1], zero_after=3 if last else 0)
+        x = args[0]
+        if name == "stft_magnitude":
+            one = (x[:1].contiguous(),) + args[1:]
+            lens = []
+            label = f"{name} B={x.shape[0]} L={x.shape[1]} n_fft={args[1]}"
+            for lab, a in ((label, args), ("  its first row alone (B=1)", one)):
+                out, ref = fn(*a), plain(*a)
+                torch.cuda.synchronize()
+                err = float((out - ref).abs().max())
+                print(f"{lab}: out {tuple(out.shape)}  max|kernel - plain| {err:.3e} (bar {STFT_TOL})")
+                check(out.shape == ref.shape and err <= STFT_TOL, f"{lab}: kernel disagrees with its plain version")
+        else:
+            lens = args[1].tolist()
+            last = name == "tail_stage" and args[2]["post_w"] is not None
+            label = f"{name} B={x.shape[0]} T={x.shape[1]} C={x.shape[2]} lengths {lens}"
+            agree(label, fn(*args), plain(*args), mean_tol, lens, zero_after=3 if last else 0)
+            one = tuple(a[:1].contiguous() if i in (0, 1, 3) else a for i, a in enumerate(args))
+            agree("  its first row alone (B=1)", fn(*one), plain(*one), mean_tol, lens[:1],
+                  zero_after=3 if last else 0)
+        # the first row's result must not depend on its batchmates
+        in_group, alone = fn(*args)[:1].float(), fn(*one).float()
+        mates = float((in_group - alone).abs().max())
+        bar = STFT_TOL if name == "stft_magnitude" else KERNEL_MAX_TOL * float(alone.abs().max())
+        print(f"  its first row in the group against alone: max diff {mates:.3e} (bar {bar:.3e}"
+              f"{', bit-equal' if mates == 0 else ''})")
+        check(mates <= bar, f"{label}: a row's result depends on its batchmates")
         group_ms, row_ms = time_ms(lambda: fn(*args), 10), time_ms(lambda: fn(*one), 10)
         print(f"  {label}: {group_ms:.4f} ms cold at B={x.shape[0]}, {row_ms:.4f} ms for its first row alone "
               f"(B=1, same bucket)  [{smi}]")
         times.setdefault(name, []).append({"batch": x.shape[0], "t": x.shape[1], "lengths": lens,
-                                           "group_ms": group_ms, "row_ms": row_ms})
+                                           "group_ms": group_ms, "row_ms": row_ms, "batchmates_max_diff": mates})
     return times
 
 
@@ -1336,7 +1390,7 @@ def v1_tts(smi: str) -> dict:
         print(f"short sentence, {name}: max |cuda - cpu| {diff:.3e} = {diff / peak:.2e} of the peak {peak:.5f} "
               f"(bar {bar:.3e}); CPU tts {cpu_s:.2f} s")
         check(on_card.shape == on_cpu.shape and diff <= bar, f"card and CPU disagree on the {name} TTS audio")
-    return {"audio": a32, "groups": [len(v) for v in groups.values()], "bucket": fb,
+    return {"tts": tts, "audio": a32, "groups": [len(v) for v in groups.values()], "bucket": fb,
             "launches_per_decode": per_decode, "group_times": group_times, "stages": stages, "walls_ms": walls,
             "k2_batches": k2_batches}
 
@@ -1405,7 +1459,446 @@ def v1_convert(tts_audio: np.ndarray, tmp: str, smi: str) -> dict:
         print(f"V1 convert {'serving' if mode else 'f32'}: {walls['fast' if mode else 'f32']:.2f} ms warm "
               f"(median of 5)  [{smi}]")
         device_profile(one, walls["fast" if mode else "f32"])
-    return {"launches": launches, "walls_ms": walls}
+    return {"conv": conv, "ses": {"se_src": se_src, "se_tgt": se_tgt}, "launches": launches, "walls_ms": walls}
+
+
+# -- phase 8: the serving tier ----------------------------------------------------
+
+N_SERVE = 32          # requests of the batcher's stream
+SERVE_BATCH = 8       # its max_batch
+WIRE_LSB = 1.0 / 32767.0  # one step of the batcher's int16 wire
+# the batcher's group at B = 8, its kernels held and timed against B = 1: six
+# clips at a fine bucket (832 frames) and two padded rows of length 0
+GROUP_FRAMES = [830, 790, 761, 700, 655, 641, 0, 0]
+GROUP_BUCKET = 832
+APP_TEXT = "Hello there, this is a short test of the voice. The weather is fine today."
+
+
+def louder(conv) -> None:
+    """Scale a converter's conv_post ×100, in place, and drop its packed
+    serving weights: the random decoder's audio peaks near 2e-4, where one
+    step of the batcher's int16 wire (3.05e-5) is an eighth of the peak and
+    a comparison across the wire would say little.  At ×100 the audio stays
+    well inside tanh's linear range."""
+    import torch
+
+    with torch.no_grad():
+        conv.model.dec.conv_post.weight.mul_(100.0)
+    conv.set_model(conv.model)
+
+
+def serve_clip(seconds: float, f0: float, seed: int) -> np.ndarray:
+    """A `voice` clip on the int16 grid: what the PCM mode uploads is then the
+    clip itself, and `convert` of it is the batcher's reference."""
+    return (np.round(np.clip(voice(seconds, f0, seed), -1.0, 1.0) * 32767.0) / 32767.0).astype(np.float32)
+
+
+def serve_stream_fields(tc, ses: dict) -> tuple[list[dict], list[np.ndarray]]:
+    """32 requests of 2-12 s: even ones in PCM mode at tau 0, odd ones in
+    spec mode at tau 0.3 (their spectrograms from the STFT kernel, as
+    `convert` computes them, before the counters are zeroed).  Per mode, 8
+    clips spread over 2-12 s and 8 that share one fine bucket (PCM 3.0-3.6 s,
+    bucket 320; spec 7.5-8.7 s, bucket 768): the planner makes a group of 8
+    only of requests that share a bucket."""
+    import torch
+
+    from openvoice_tpu_torch.api import _spec_from_audio
+    from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
+
+    cfg = tc.cfg
+    rng = np.random.default_rng(SEED + 20)
+    half = N_SERVE // 2
+    pcm_s = np.concatenate([np.linspace(2.0, 12.0, half // 2), 3.0 + 0.6 * rng.random(half - half // 2)])
+    spec_s = np.concatenate([np.linspace(2.0, 12.0, half // 2), 7.5 + 1.2 * rng.random(half - half // 2)])
+    seconds = np.stack([rng.permutation(pcm_s), rng.permutation(spec_s)], axis=1).reshape(-1)
+    base = dict(g_src=ses["se_src"].reshape(-1), g_tgt=ses["se_tgt"].reshape(-1))
+    fields, clips = [], []
+    for i, s in enumerate(seconds):
+        clip = serve_clip(float(s), 100.0 + 7 * i, seed=100 + i)
+        clips.append(clip)
+        if i % 2 == 0:
+            fields.append(dict(base, audio=clip, tau=0.0, seed=SEED + i))
+            continue
+        padded, n = _spec_from_audio(clip, cfg)
+        spec = stft_magnitude(torch.from_numpy(padded)[None].to(tc.device), cfg.filter_length, cfg.hop_length,
+                              cfg.win_length)[0, :n].cpu().numpy()
+        fields.append(dict(base, spec=spec, n_frames=n, tau=0.3, seed=SEED + i))
+    return fields, clips
+
+
+def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False) -> dict:
+    """Submit `fields` together to a serving-mode batcher on `tc`'s model;
+    wait for every result.  Returns the results, the wall time from the first
+    submit to the last result, the run's own metrics snapshot, and the groups
+    it dispatched (mode, bucket, rows, padded batch); with `capture`, each
+    group's int16 wire tensor too."""
+    import torch
+
+    from openvoice_tpu_torch.runtime.profiler import Metrics
+    from openvoice_tpu_torch.serve import batcher as B
+
+    batcher = B.ConvertBatcher(tc.model, tc.cfg, max_batch=max_batch, max_wait_ms=5.0, fast=True,
+                               device=tc.device)
+    groups, wires, metrics = [], [], Metrics()
+    real_dispatch, real_wire, real_metrics = batcher._dispatch, B._wire_int16, B.METRICS
+
+    def dispatch(bucket, group, padded_batch):
+        groups.append(("pcm" if group[0].audio is not None else "spec", bucket, len(group), padded_batch))
+        return real_dispatch(bucket, group, padded_batch)
+
+    def wire(audio):
+        out = real_wire(audio)
+        wires.append(out)
+        return out
+
+    batcher._dispatch = dispatch
+    B.METRICS = metrics
+    if capture:
+        B._wire_int16 = wire
+    try:
+        batcher.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futures = [batcher.submit(B.ConvertRequest(**f)) for f in fields]
+        outs = [f.result(timeout=600) for f in futures]
+        wall = time.perf_counter() - t0
+    finally:
+        batcher.stop()
+        B._wire_int16, B.METRICS = real_wire, real_metrics
+    return {"outs": outs, "wall_s": wall, "metrics": metrics.snapshot(), "groups": groups, "wires": wires}
+
+
+def serve_bar(ref: np.ndarray) -> float:
+    """Serving against serving across the int16 wire: the serving bar of the
+    reference's peak, plus the wire's one step (the reference is not
+    rounded)."""
+    return FAST_VS_F32_TOL * float(np.abs(ref).max()) + WIRE_LSB
+
+
+def batcher_phase(tc, ses: dict, smi: str) -> dict:
+    """8a: the batcher's stream at max_batch 8 and 1, in serving mode."""
+    import torch
+
+    from openvoice_tpu_torch.serve import batcher as B
+
+    phase(f"8a. serving tier: ConvertBatcher, V2 full width, serving mode, {N_SERVE} requests of 2-12 s "
+          f"(half PCM at tau 0, half spec at tau 0.3), max_batch {SERVE_BATCH}")
+    cfg = tc.cfg
+    fields, clips = serve_stream_fields(tc, ses)
+    audio_s = sum(len(c) for c in clips) / SR
+    run_stream(tc, fields[:4], SERVE_BATCH)  # warm-up: the serving cache, cuDNN's first calls
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    run = run_stream(tc, fields, SERVE_BATCH, capture=True)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    groups = run["groups"]
+    n_groups, n_pcm = len(groups), sum(g[0] == "pcm" for g in groups)
+    print(f"groups dispatched (mode, bucket, rows, padded batch): {groups}")
+    print(f"kernel launches over {n_groups} groups ({n_pcm} PCM): {launches}")
+    check(n_pcm > 0 and all(n > 0 for n in launches.values()), "the batcher's stream left a kernel unlaunched")
+    # launches per dispatched group as counted in this run (K5: per PCM group)
+    per_group = {k: v / (n_pcm if k == "stft_magnitude" else n_groups) for k, v in launches.items()}
+    check(per_group == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2},
+          f"each batcher group must launch K5 1 (PCM groups only), K1 1, K2 2, K3 2, K4 2, not {per_group}")
+    print(f"launches per group (K5 per PCM group): {per_group}")
+    # the planner pads a group only where a padded row (a bucket's frames)
+    # costs less than another dispatch (96 frames), which at these buckets
+    # is rare: any padded row must come out exactly 0; the B = 8 group below
+    # always holds two
+    padded_rows = sum(p - n for _, _, n, p in groups)
+    check(max(p for _, _, _, p in groups) == SERVE_BATCH, "no group of 8 formed")
+    for (_, _, n, p), wire in zip(groups, run["wires"]):
+        check(wire.shape[0] == p and bool((wire[n:] == 0).all()), "a padded row of length 0 is not exactly 0")
+    print(f"group sizes {sorted(n for _, _, n, _ in groups)}; {padded_rows} padded rows of length 0 "
+          f"(each exactly 0)")
+
+    # each result against convert(fast=True) of the same clip, seed and tau
+    worst = {"pcm": 0.0, "spec": 0.0}
+    for f, clip, out in zip(fields, clips, run["outs"]):
+        ref = tc.convert(clip, ses["se_src"], ses["se_tgt"], tau=f["tau"], seed=f["seed"], message="", fast=True)
+        mode = "pcm" if "audio" in f else "spec"
+        diff = float(np.abs(out - ref).max())
+        check(out.shape == ref.shape and diff <= serve_bar(ref), f"a {mode} request strays from its convert")
+        worst[mode] = max(worst[mode], diff / float(np.abs(ref).max()))
+    print(f"every request against convert(fast=True) of its clip: max |batched - convert| over the peak: "
+          f"PCM (tau 0) {worst['pcm']:.4f}, spec (tau 0.3) {worst['spec']:.4f} (bar {FAST_VS_F32_TOL} of the "
+          f"peak + one int16 step)")
+
+    # one clip alone, then in a full group of 8 of its length
+    alone = run_stream(tc, fields[1:2], SERVE_BATCH)
+    eight = run_stream(tc, [dict(fields[1], seed=SEED + 50 + k) if k else fields[1] for k in range(8)], SERVE_BATCH)
+    check([g[2] for g in eight["groups"]] == [8] and [g[2] for g in alone["groups"]] == [1],
+          f"groups {alone['groups']} / {eight['groups']}: not 1 and 8")
+    d_mates = float(np.abs(alone["outs"][0] - eight["outs"][0]).max())
+    peak = float(np.abs(alone["outs"][0]).max())
+    print(f"one clip alone (B=1) against the same clip in a group of 8: max diff {d_mates:.3e} = "
+          f"{d_mates / peak:.4f} of the peak {peak:.5f} ({d_mates / WIRE_LSB:.1f} int16 steps)")
+    check(d_mates <= serve_bar(alone["outs"][0]), "a result depends on its batchmates beyond the serving bar")
+
+    # the checked run, then max_batch 1, 1, 8 (A, B, B, A)
+    rates = {SERVE_BATCH: [], 1: []}
+    for mb, r in ((SERVE_BATCH, run), (1, None), (1, None), (SERVE_BATCH, None)):
+        r = r or run_stream(tc, fields, mb)
+        lat = r["metrics"]["latency"]["request_latency"]
+        # busy_seconds: the dispatch thread's time inside its calls (host
+        # packing, uploads and launches; the device runs behind it)
+        dispatch_s = r["metrics"]["counters"]["busy_seconds"]
+        rates[mb].append({"audio_s_per_s": audio_s / r["wall_s"], "wall_s": r["wall_s"], "groups": len(r["groups"]),
+                          "p50_ms": lat["p50_ms"], "p95_ms": lat["p95_ms"], "dispatch_s": dispatch_s})
+        print(f"max_batch {mb}: "
+              f"{N_SERVE} requests, {audio_s:.1f} s of audio in {r['wall_s']:.3f} s = "
+              f"{audio_s / r['wall_s']:.1f} audio-s/s; {len(r['groups'])} groups, the dispatch thread inside "
+              f"them {dispatch_s:.3f} s; request latency p50 {lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms "
+              f"(METRICS)  [{smi}]")
+    wall_ms = statistics.median(x["wall_s"] for x in rates[SERVE_BATCH]) * 1e3
+    device_profile(lambda: run_stream(tc, fields, SERVE_BATCH), wall_ms,
+                   f"{N_SERVE}-request stream at max_batch {SERVE_BATCH}")
+
+    # the kernels of one B = 8 group (two rows of length 0) against their
+    # plain versions, and timed against its first row alone
+    rng = np.random.default_rng(SEED + 21)
+    n_rows = len(GROUP_FRAMES)
+    target = (GROUP_BUCKET - 1) * cfg.hop_length + cfg.filter_length
+    pcm = np.zeros((n_rows, target), np.int16)
+    for i, n in enumerate(GROUP_FRAMES):
+        if n:
+            clip = serve_clip(n * cfg.hop_length / SR, 120.0 + 9 * i, seed=200 + i)
+            pcm[i, : len(clip)] = np.round(clip * 32767.0).astype(np.int16)
+    dev = tc.device
+    g = torch.from_numpy(np.repeat(ses["se_src"].reshape(1, 1, -1), n_rows, 0)).to(dev)
+    args = (torch.from_numpy(pcm).to(dev), torch.tensor(GROUP_FRAMES, device=dev), g, g,
+            torch.full((n_rows, 1, 1), 0.3, device=dev), [SEED + i for i in range(n_rows)])
+    cache = B.S.make_dec_cache(tc.model)
+    with torch.inference_mode():
+        calls = capture_kernel_calls(lambda: B._convert_pcm16(tc.model, cfg, *args, fast=True, dec_cache=cache),
+                                     with_front=True)
+        print(f"group of {n_rows} at bucket {GROUP_BUCKET}, lengths {GROUP_FRAMES}: {len(calls)} kernel launches "
+              f"captured {[name for name, _ in calls]}")
+        group_times = group_kernel_checks(calls, smi)
+    return {"per_group": per_group, "rates": rates, "group_times": group_times, "groups": groups,
+            "worst": worst, "batchmates": d_mates / peak}
+
+
+def same_path(label: str, out: np.ndarray, ref: np.ndarray, rel: float = 1e-3, lsb: float = 0.0) -> float:
+    """Two runs of the same computation on the card (through HTTP and direct,
+    or twice): within `rel` of the reference's peak (plus `lsb`)."""
+    check(out.shape == ref.shape and bool(np.isfinite(out).all()), f"{label}: shape {out.shape} vs {ref.shape}")
+    peak = float(np.abs(ref).max())
+    diff = float(np.abs(out - ref).max())
+    print(f"{label}: max diff {diff:.3e} = {diff / peak:.2e} of the peak {peak:.5f} (bar {rel} of it"
+          + (f" + {lsb:.2e})" if lsb else ")"))
+    check(peak > 0 and diff <= rel * peak + lsb, f"{label}: the two disagree")
+    return diff / peak
+
+
+def server_phase(tts, conv, ses1: dict, tmp: str, smi: str) -> None:
+    """8b: the HTTP server (V1 TTS, V1 converter) and the demo app."""
+    import base64
+    import urllib.request
+
+    from openvoice_tpu_torch.api import tts_convert_batched, tts_convert_single_dispatch
+    from openvoice_tpu_torch.audio.io import load_audio, write_wav
+    from openvoice_tpu_torch.pipeline.se_extractor import get_se
+    from openvoice_tpu_torch.serve.app import VoiceApp
+    from openvoice_tpu_torch.serve.server import VoiceService, serve
+
+    phase("8b. serving tier: serve() on 127.0.0.1, port 0 (V1 TTS and V1 converter, full width), then VoiceApp "
+          "(watermark off: it moves a sample by more than the int16 wire's step does)")
+    conv.enable_watermark = False
+    svc = VoiceService(conv, tts_model=tts, max_batch=SERVE_BATCH)
+    httpd = serve(svc, port=0)
+    port = httpd.server_address[1]
+
+    def post(path: str, body: dict) -> np.ndarray:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                     headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as r:
+            resp = json.loads(r.read())
+        print(f"POST {path}: {r.status}, {resp['num_samples']} samples, {time.perf_counter() - t0:.3f} s")
+        check(r.status == 200 and resp["encoding"] == "f32", f"POST {path}: {r.status}")
+        return np.frombuffer(base64.b64decode(resp["audio_b64"]), np.float32)
+
+    src, tgt = ses1["se_src"], ses1["se_tgt"]
+    try:
+        wav = os.path.join(tmp, "serve_src.wav")
+        write_wav(wav, voice(4.0, 170.0, seed=17), SR)
+        audio = load_audio(wav, sr=SR)[0]
+        out = post("/convert", {"audio_path": wav, "src_se": src.reshape(-1).tolist(),
+                                "tgt_se": tgt.reshape(-1).tolist(), "tau": 0.0})
+        same_path("/convert (the batcher's PCM mode, f32) against convert(tau=0)", out,
+                  conv.convert(audio, src, tgt, tau=0.0), lsb=WIRE_LSB)
+        out = post("/tts", {"text": SHORT_TEXT})
+        same_path("/tts against tts_batched", out, tts.tts_batched(SHORT_TEXT, None, "default"))
+        for mode, fn in (("fused", tts_convert_batched), ("single", tts_convert_single_dispatch)):
+            out = post("/clone", {"text": SHORT_TEXT, "src_se": src.reshape(-1).tolist(),
+                                  "tgt_se": tgt.reshape(-1).tolist(), "tau": 0.3, "seed": 5, "mode": mode})
+            same_path(f"/clone {mode} against {fn.__name__}", out,
+                      fn(tts, conv, SHORT_TEXT, "default", src, tgt, tau=0.3, seed=5), rel=1e-2)
+    finally:
+        httpd.shutdown()
+        svc.close()
+
+    target = os.path.join(tmp, "app_target.wav")
+    write_wav(target, voice(5.0, 230.0, seed=19), SR)
+    app = VoiceApp(conv, en_tts=tts, source_ses={"en_default": src})
+    cwd = os.getcwd()
+    os.chdir(tmp)  # the app caches speaker embeddings under ./processed, as the reference does
+    try:
+        t0 = time.perf_counter()
+        result = app.predict(APP_TEXT, "default", target, agree=True)
+        app_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    print(f"VoiceApp.predict: {result.info.strip()!r} in {app_s:.3f} s")
+    check(result.info == "Get response successfully \n" and result.audio is not None, result.info)
+    target_se, _ = get_se(target, conv, target_dir=os.path.join(tmp, "processed"))
+    base = tts.tts_batched(APP_TEXT, None, "default", language="English")
+    direct = conv.convert(base, src, target_se, tau=0.3, message="@MyShell")
+    same_path("VoiceApp.predict against get_se → tts_batched → convert", result.audio, direct)
+    conv.enable_watermark = True
+
+
+def fused_phase(tts, conv, ses1: dict, smi: str) -> dict:
+    """8c: the fused chains on phase 6b's four sentences."""
+    import torch
+
+    from openvoice_tpu_torch.api import (
+        _encode_rows, _sentence_conv_rngs, _sentence_noise_rngs, _spec_from_audio, _stack_enc_rows, frame_groups,
+        tts_convert_batched, tts_convert_single_dispatch, tts_convert_stream,
+    )
+    from openvoice_tpu_torch.audio.stft import reflect_frames_signal, stft_magnitude_plain
+    from openvoice_tpu_torch.models import synthesizer as TS
+    from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
+    from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+
+    phase("8c. serving tier: the fused TTS → convert chains, V1 TTS and V1 converter (full width), "
+          "phase 6b's four sentences")
+    src, tgt, speaker = ses1["se_src"], ses1["se_tgt"], 3
+    cfg, ccfg, dev = tts.cfg, conv.cfg, tts.device
+    token_seqs, _ = tts._sentence_tokens(V1_TEXT, speaker, "English")
+    with torch.inference_mode():
+        rows = _encode_rows(tts.model, token_seqs, speaker, 1.0, _sentence_noise_rngs(SEED, len(token_seqs)), dev)
+    groups = frame_groups(rows)
+    totals = [int(r["w_ceil"].sum()) for r in rows]
+    gap = int(cfg.sampling_rate * 0.05)
+
+    def staged(fast: bool) -> np.ndarray:
+        """The staged truth: tts_batched's sentences, each through the host
+        reflect pad, the STFT and `voice_conversion` with the chain's noise."""
+        base = tts.tts_batched(V1_TEXT, None, speaker, seed=SEED, fast=fast)
+        conv_rngs = _sentence_conv_rngs(SEED, len(token_seqs))
+        pieces, off = [], 0
+        for i, total in enumerate(totals):
+            piece = base[off: off + total * cfg.upsample_factor]
+            off += len(piece) + gap
+            padded, n = _spec_from_audio(piece, ccfg)
+            fb = round_up_to_bucket(max(total, 1))
+            spec = torch.zeros(1, fb, ccfg.spec_channels, device=dev)
+            spec[0, :n] = stft_magnitude(torch.from_numpy(padded)[None].to(dev), ccfg.filter_length,
+                                         ccfg.hop_length, ccfg.win_length)[0, :n]
+            noise = conv_rngs[i].standard_normal((fb, ccfg.inter_channels)).astype(np.float32)
+            with torch.inference_mode():
+                audio, _ = TS.voice_conversion(conv.model, spec, torch.tensor([n], device=dev), conv._as_g(src),
+                                               conv._as_g(tgt), 0.3, torch.from_numpy(noise)[None].to(dev),
+                                               fast=fast, dec_cache=conv._require_dec_cache() if fast else None)
+            pieces += [audio[0, : n * ccfg.upsample_factor, 0].cpu().numpy(), np.zeros(gap, np.float32)]
+        return np.concatenate(pieces)
+
+    kw = dict(seed=SEED, tau=0.3, message="")
+    per_group_want = {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 3, "mrf_stage": 4, "tail_stage": 4}
+    outs = {}
+    for fast in (False, True):
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        outs[fast] = tts_convert_batched(tts, conv, V1_TEXT, speaker, src, tgt, fast=fast, **kw)
+        torch.cuda.synchronize()
+        wall, launches = time.perf_counter() - t0, launch_counts()
+        name = "serving" if fast else "f32"
+        print(f"tts_convert_batched ({name}), {len(groups)} decode groups {[len(v) for v in groups.values()]}: "
+              f"{wall:.3f} s, kernel launches {launches}  [{smi}]")
+        want = {k: (v if fast else int(k == "stft_magnitude")) * len(groups) for k, v in per_group_want.items()}
+        check(launches == want, f"the {name} chain's launches are {launches}, not {want}")
+        if fast:  # launches per decode group as counted in this run
+            per_group = {k: v / len(groups) for k, v in launches.items()}
+        same_path(f"tts_convert_batched ({name}) against the staged truth", outs[fast], staged(fast),
+                  rel=FAST_VS_F32_TOL if fast else 1e-3)
+    same_path("tts_convert_batched serving against f32", outs[True], outs[False], rel=FAST_VS_F32_TOL)
+
+    single = tts_convert_single_dispatch(tts, conv, V1_TEXT, speaker, src, tgt, **kw)
+    same_path("tts_convert_single_dispatch, run twice", tts_convert_single_dispatch(
+        tts, conv, V1_TEXT, speaker, src, tgt, **kw), single)
+    stats: dict = {}
+    forced = tts_convert_single_dispatch(tts, conv, V1_TEXT, speaker, src, tgt, frames_per_token=0.05,
+                                         stats=stats, **kw)
+    check(stats == {"sentences": len(token_seqs), "overflow_sentences": len(token_seqs)}, f"overflow stats {stats}")
+    same_path("its overflow fallback (every sentence past a 0.05-frame cap) against tts_convert_batched",
+              forced, outs[True])
+    chunks = list(tts_convert_stream(tts, conv, V1_TEXT, speaker, src, tgt, **kw))
+    check(len(chunks) == len(token_seqs), f"{len(chunks)} streamed chunks")
+    same_path("tts_convert_stream joined against tts_convert_single_dispatch", np.concatenate(chunks), single,
+              rel=FAST_VS_F32_TOL)
+
+    # the chain's STFT: each row's reflect-padded signal gathered on the card,
+    # then K5 against its plain version on the same signal
+    fb, idxs = max(groups.items(), key=lambda kv: len(kv[1]))  # the largest group: per-row reflect at B > 1
+    with torch.inference_mode():
+        enc = _stack_enc_rows(rows, idxs, tts.model.emb_g.weight[speaker][None, :])
+        noise = torch.randn(len(idxs), fb, cfg.inter_channels, generator=torch.Generator().manual_seed(SEED)).to(dev)
+        audio, y_mask = TS.tts_decode(tts.model, enc, fb, noise, fast=True, dec_cache=tts._require_dec_cache())
+        y_frames = y_mask[..., 0].sum(dim=-1).to(torch.int32)
+        signal = reflect_frames_signal(audio[..., 0], y_frames * cfg.upsample_factor, ccfg.filter_length,
+                                       ccfg.hop_length)
+        k5 = stft_magnitude(signal, ccfg.filter_length, ccfg.hop_length, ccfg.win_length)
+        plain = stft_magnitude_plain(signal, ccfg.filter_length, ccfg.hop_length, ccfg.win_length)
+        err = float((k5 - plain).abs().max())
+        ms = time_ms(lambda: stft_magnitude(signal, ccfg.filter_length, ccfg.hop_length, ccfg.win_length))
+    print(f"masked_linear_spectrogram's STFT at B={len(idxs)}, bucket {fb}, lengths {y_frames.tolist()} frames: "
+          f"signal {tuple(signal.shape)}, max|K5 - plain| {err:.3e} (bar {STFT_TOL}); K5 {ms:.4f} ms cold  [{smi}]")
+    check(err <= STFT_TOL, "K5 disagrees with its plain version on the fused chain's signal")
+    return {"per_group": per_group, "groups": [len(v) for v in groups.values()]}
+
+
+def streaming_phase(tc, ses: dict, smi: str) -> dict:
+    """8d: convert_streaming of a 60 s clip against one-shot convert, both
+    modes, and the peak device memory of each."""
+    import torch
+
+    phase("8d. serving tier: convert_streaming (896-frame chunks, halo 109) of a 60 s clip against one-shot "
+          "convert, V2 full width")
+    src, tgt = ses["se_src"], ses["se_tgt"]
+    clip60 = voice(60.0, 140.0, seed=23)
+    kw = dict(tau=0.3, seed=SEED, message="")
+    for fast in (False, True):
+        streamed = tc.convert_streaming(clip60, src, tgt, fast=fast, **kw)
+        one = tc.convert(clip60, src, tgt, fast=fast, **kw)
+        name = "serving" if fast else "f32"
+        same_path(f"60 s streamed against one-shot ({name})", streamed, one,
+                  rel=FAST_VS_F32_TOL if fast else 1e-3)
+        # f32 also at the JAX suite's golden bar
+        check(fast or bool(np.all(np.abs(streamed - one) <= 2e-5 + 1e-4 * np.abs(one))),
+              "f32 streaming misses atol 2e-5 / rtol 1e-4 against one-shot")
+    _L2_FLUSH.clear()
+    memory = {}
+    for label, fn in (("streaming 60 s", lambda: tc.convert_streaming(clip60, src, tgt, **kw)),
+                      ("streaming 240 s", lambda: tc.convert_streaming(voice(240.0, 140.0, seed=29), src, tgt, **kw)),
+                      ("one-shot 60 s", lambda: tc.convert(clip60, src, tgt, fast=True, **kw))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        memory[label] = {"peak_gb": peak / 1e9, "above_resident_gb": (peak - resident) / 1e9, "wall_s": wall}
+        print(f"{label} (serving mode): peak device memory {peak / 1e9:.3f} GB, {(peak - resident) / 1e9:.3f} GB "
+              f"above the {resident / 1e9:.3f} GB resident before it; {wall:.3f} s  [{smi}]")
+    check(memory["streaming 240 s"]["above_resident_gb"] <= 1.25 * memory["streaming 60 s"]["above_resident_gb"],
+          "streaming's device memory grows with the clip's length")
+    return memory
 
 
 def main() -> int:
@@ -1435,16 +1928,29 @@ def main() -> int:
         _, ses, src = main_path(tc, tmp)
         launches = main_path_fast(tc, src, ses)
         card_vs_cpu(tc, ses)
-        del tc
         t0 = time.perf_counter()
         v1 = v1_tts(smi)
         v1_conv = v1_convert(v1["audio"], tmp, smi)
         print(f"V1 phase: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        louder(tc)
+        louder(v1_conv["conv"])
+        serving = batcher_phase(tc, ses, smi)
+        server_phase(v1["tts"], v1_conv["conv"], v1_conv["ses"], tmp, smi)
+        fused = fused_phase(v1["tts"], v1_conv["conv"], v1_conv["ses"], smi)
+        memory = streaming_phase(tc, ses, smi)
+        print(f"serving-tier phase: {time.perf_counter() - t0:.1f} s")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_per_tts_decode"] = v1["launches_per_decode"][k["name"]]
-        k["launches_v1_convert"] = v1_conv["launches"][k["name"]]
-        check(k["launches"] > 0, f"the serving path never launched {k['name']}")
+        name = k["name"]
+        k["launches"] = launches[name]
+        k["launches_per_tts_decode"] = v1["launches_per_decode"][name]
+        k["launches_v1_convert"] = v1_conv["launches"][name]
+        k["launches_batcher_group"] = serving["per_group"][name]  # K5: PCM groups only
+        k["launches_fused_group"] = fused["per_group"][name]
+        k["batcher_b8"] = serving["group_times"].get(name)
+        check(k["launches"] > 0, f"the serving path never launched {name}")
+    print(json.dumps({"serving_tier": {"rates": serving["rates"], "worst": serving["worst"],
+                                       "batchmates": serving["batchmates"], "streaming_memory": memory}}))
 
     phase("7. result")
     print(json.dumps({"kernels": kernels}))

@@ -8,9 +8,12 @@ decoder → watermark.  ``convert(fast=False)`` is the f32 parity mode on stock
 layers; ``convert(fast=True)`` is the bf16 serving mode, whose WaveNet, flow
 and decoder stages are hand-written kernels (``csrc/{wn,coupling,mrf,tail}.cu``).
 The base-speaker TTS encodes text in f32 and decodes in either mode, the
-serving mode through the flow and decoder kernels.  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; without a GPU and without
-that, they raise.
+serving mode through the flow and decoder kernels.  `convert_streaming`
+converts audio of any length in fixed windows (``runtime/streaming.py``), and
+the fused chains `tts_convert_batched`, `tts_convert_single_dispatch` and
+`tts_convert_stream` take text to cloned audio with the base audio kept on
+the device.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a GPU and without that, they raise.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from openvoice_tpu_torch.audio.io import load_audio, write_wav
+from openvoice_tpu_torch.audio.stft import host_spectrogram
 from openvoice_tpu_torch.ckpt.from_jax import load_ckpt as _load_reference_ckpt
 from openvoice_tpu_torch.ckpt.from_jax import load_params_npz, synthesizer_from_jax
 from openvoice_tpu_torch.config import HParams, SynthesizerConfig, load_hparams
@@ -31,16 +35,20 @@ from openvoice_tpu_torch.pipeline import watermark as wm
 from openvoice_tpu_torch.pipeline.se_extractor import split_audio_vad
 from openvoice_tpu_torch.pipeline.whisper_seg import make_segmenter, split_audio_whisper
 from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+from openvoice_tpu_torch.runtime.streaming import voice_conversion_streaming
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
     """``None`` means the GPU.  There is no silent CPU path: without CUDA the
-    caller must ask for ``device="cpu"``."""
-    if device is None:
+    caller must ask for ``device="cpu"``.  A CUDA device always comes back
+    with its index (``"cuda"`` → ``cuda:<current>``), so that two objects
+    made with ``"cuda"`` and ``None`` compare equal."""
+    d = torch.device("cuda") if device is None else torch.device(device)
+    if d.type == "cuda" and d.index is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: pass device='cpu' to run the port on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
 
 
 def _spec_from_audio(audio: np.ndarray, cfg: SynthesizerConfig) -> tuple[np.ndarray, int]:
@@ -226,6 +234,38 @@ class ToneColorConverter(OpenVoiceBaseClass):
         write_wav(output_path, audio_out, cfg.sampling_rate)
         return None
 
+    def convert_streaming(self, audio_src_path, src_se, tgt_se, output_path: str | None = None,
+                          tau: float = 0.3, message: str = "default", seed: int = 0, fast: bool = True,
+                          chunk_frames: int = 896):
+        """Constant-memory conversion of recordings of any length: the
+        spectrogram streams through fixed [1, halo + chunk + halo] windows
+        (``runtime/streaming.py``), equal to `convert` up to float round-off
+        for the same seed and tau.  The STFT runs on the host (float64
+        numpy): the design keeps the whole spectrogram in host memory and
+        uploads one window at a time."""
+        cfg = self.cfg
+        model = self._require_model()
+        if isinstance(audio_src_path, (str, os.PathLike)):
+            audio, _ = load_audio(str(audio_src_path), sr=cfg.sampling_rate)
+        else:
+            audio = np.asarray(audio_src_path, np.float32)
+        padded, n_frames = _spec_from_audio(audio, cfg)
+        spec = host_spectrogram(padded, cfg.filter_length, cfg.hop_length, cfg.win_length)[None]
+        # the first n_frames rows of what `convert` draws for the same seed
+        noise = np.random.default_rng(seed).standard_normal((1, n_frames, cfg.inter_channels)).astype(np.float32)
+        out = voice_conversion_streaming(
+            model, spec[:, :n_frames], np.asarray([n_frames]), self._as_g(src_se), self._as_g(tgt_se),
+            float(tau), noise, chunk_frames=chunk_frames, fast=fast,
+            dec_cache=self._require_dec_cache() if fast else None,
+        )
+        audio_out = out[0, : n_frames * cfg.upsample_factor, 0]
+        if self.enable_watermark and message:
+            audio_out = self.add_watermark(audio_out, message)
+        if output_path is None:
+            return audio_out
+        write_wav(output_path, audio_out, cfg.sampling_rate)
+        return None
+
     def _as_g(self, se) -> torch.Tensor:
         se = np.asarray(se, np.float32)
         if se.ndim == 3:  # [1, gin, 1] reference layout
@@ -356,6 +396,214 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
         return self._finish(pieces, output_path, speed)
 
 
+# -- fused text → cloned audio (the JAX package's api.py:524-870) ----------------
+
+def _chain_parts(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, src_se, tgt_se, fast: bool):
+    """What every fused chain reads from its two models: (tts model, conv
+    model, g_src, g_tgt [1, 1, gin], the two serving caches or None)."""
+    if tts_model.device != converter.device:
+        raise ValueError(f"the TTS runs on {tts_model.device}, the converter on {converter.device}")
+    return (tts_model._require_model(), converter._require_model(), converter._as_g(src_se),
+            converter._as_g(tgt_se), tts_model._require_dec_cache() if fast else None,
+            converter._require_dec_cache() if fast else None)
+
+
+def _finish_cloned(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, pieces: list[np.ndarray],
+                   output_path: str | None, speed: float, message: str):
+    """Join the sentences with their gaps, watermark the joined audio once,
+    then return it or write it."""
+    sr = tts_model.cfg.sampling_rate
+    out = _concat_with_gaps(pieces, sr, speed)
+    if out.size and converter.enable_watermark and message:
+        out = converter.add_watermark(out, message)
+    if output_path is None:
+        return out
+    write_wav(output_path, out, sr)
+    return None
+
+
+def _draw_rows(rngs, idxs, frames: int, channels: int) -> np.ndarray:
+    """One standard-normal [frames, channels] draw per sentence in `idxs`,
+    from its generator, stacked."""
+    return np.stack([rngs[i].standard_normal((frames, channels)).astype(np.float32) for i in idxs])
+
+
+@torch.inference_mode()
+def tts_convert_batched(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, text: str, speaker, src_se,
+                        tgt_se, language: str = "English", speed: float = 1.0, tau: float = 0.3, seed: int = 0,
+                        message: str = "default", fast: bool = True, output_path: str | None = None):
+    """The served TTS → convert chain (reference openvoice_app.py:131-141):
+    a bucketed-batch TTS encode, then decode + STFT + conversion with the
+    base audio kept on the device, one `S.tts_decode_convert` per frame
+    bucket.
+
+    Each sentence is converted on its own (its conversion noise drawn from
+    `seed` as the JAX package draws it), then the sentences are joined with
+    the reference's 0.05 s ÷ speed gaps and the joined audio is watermarked
+    once.  The gaps pass through unconverted; otherwise this equals the
+    staged `tts_batched` → `convert`, sentence by sentence."""
+    model, conv_model, g_src, g_tgt, tts_cache, conv_cache = _chain_parts(tts_model, converter, src_se,
+                                                                          tgt_se, fast)
+    token_seqs, speaker_id = tts_model._sentence_tokens(text, speaker, language)
+    n = len(token_seqs)
+    pieces: list[np.ndarray | None] = [None] * n
+    if n:
+        noise_rngs = _sentence_noise_rngs(seed, n)
+        conv_rngs = _sentence_conv_rngs(seed, n)
+        enc_rows = _encode_rows(model, token_seqs, speaker_id, speed, noise_rngs, tts_model.device)
+        _decode_convert_groups(model, conv_model, enc_rows, list(range(n)), speaker_id,
+                               [r[1] for r in noise_rngs], conv_rngs, g_src, g_tgt, tau, fast, tts_cache,
+                               conv_cache, pieces)
+    return _finish_cloned(tts_model, converter, pieces, output_path, speed, message)
+
+
+@torch.inference_mode()
+def tts_convert_single_dispatch(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, text: str, speaker,
+                                src_se, tgt_se, language: str = "English", speed: float = 1.0, tau: float = 0.3,
+                                seed: int = 0, message: str = "default", fast: bool = True,
+                                frames_per_token: float = 6.0, output_path: str | None = None,
+                                stats: dict | None = None):
+    """Text → cloned audio with one host round trip per token bucket: the
+    whole encode + durations + decode + STFT + conversion chain runs as one
+    `S.tts_synthesize_convert`, the output length capped at
+    ``frames_per_token · token_bucket`` frames.  Sentences whose duration
+    passes the cap are found from the returned uncapped sums and re-run
+    through the two-stage chain (`tts_convert_batched`'s draws): the output
+    is never truncated.  The noise is drawn at the cap's shape, so the audio
+    differs from the other chains' for the same seed.
+
+    `stats`, when a dict, receives {"sentences", "overflow_sentences"}."""
+    model, conv_model, g_src, g_tgt, tts_cache, conv_cache = _chain_parts(tts_model, converter, src_se,
+                                                                          tgt_se, fast)
+    cfg, ccfg, dev = tts_model.cfg, converter.cfg, tts_model.device
+    token_seqs, speaker_id = tts_model._sentence_tokens(text, speaker, language)
+    n = len(token_seqs)
+    pieces: list[np.ndarray | None] = [None] * n
+    overflow: list[int] = []
+    if n:
+        noise_rngs = _sentence_noise_rngs(seed, n)
+        conv_rngs = _sentence_conv_rngs(seed, n)
+        groups: dict[int, list[int]] = {}
+        for i, seq in enumerate(token_seqs):
+            groups.setdefault(round_up_to_bucket(len(seq)), []).append(i)
+        for tb, idxs in groups.items():
+            m = len(idxs)
+            fb = round_up_to_bucket(max(int(tb * frames_per_token), 1))
+            toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
+            noise_dec = _draw_rows([r[1] for r in noise_rngs], idxs, fb, cfg.inter_channels)
+            noise_conv = _draw_rows(conv_rngs, idxs, fb, ccfg.inter_channels)
+            audio, y_frames, total = S.tts_synthesize_convert(
+                model, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+                torch.full((m,), speaker_id, device=dev), torch.from_numpy(noise_w).to(dev), fb,
+                torch.from_numpy(noise_dec).to(dev), conv_model, g_src.repeat(m, 1, 1), g_tgt.repeat(m, 1, 1),
+                float(tau), torch.from_numpy(noise_conv).to(dev), length_scale=1.0 / speed, fast=fast,
+                tts_dec_cache=tts_cache, conv_dec_cache=conv_cache,
+            )
+            audio, y_frames, total = audio[..., 0].cpu().numpy(), y_frames.cpu().numpy(), total.cpu().numpy()
+            for r, i in enumerate(idxs):
+                if total[r] > fb:
+                    overflow.append(i)  # capped: re-run exactly below
+                else:
+                    pieces[i] = audio[r, : int(y_frames[r]) * cfg.upsample_factor]
+        if overflow:
+            _two_stage_pieces(model, conv_model, token_seqs, overflow, seed, speaker_id, speed, g_src, g_tgt,
+                              tau, fast, tts_cache, conv_cache, pieces)
+    if stats is not None:
+        stats["sentences"] = n
+        stats["overflow_sentences"] = len(overflow)
+    return _finish_cloned(tts_model, converter, pieces, output_path, speed, message)
+
+
+@torch.inference_mode()
+def tts_convert_stream(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, text: str, speaker, src_se,
+                       tgt_se, language: str = "English", speed: float = 1.0, tau: float = 0.3, seed: int = 0,
+                       message: str = "default", fast: bool = True, frames_per_token: float = 6.0):
+    """Generator: cloned audio sentence by sentence, each chunk one sentence
+    and its trailing gap, watermarked on its own.  The draws are
+    `tts_convert_single_dispatch`'s, so with the watermark off the joined
+    chunks equal its output; a sentence past the cap falls back as there."""
+    model, conv_model, g_src, g_tgt, tts_cache, conv_cache = _chain_parts(tts_model, converter, src_se,
+                                                                          tgt_se, fast)
+    cfg, ccfg, dev = tts_model.cfg, converter.cfg, tts_model.device
+    token_seqs, speaker_id = tts_model._sentence_tokens(text, speaker, language)
+    n = len(token_seqs)
+    if n == 0:
+        return
+    noise_rngs = _sentence_noise_rngs(seed, n)
+    conv_rngs = _sentence_conv_rngs(seed, n)
+    gap = np.zeros(int(cfg.sampling_rate * 0.05 / speed), np.float32)
+    for i, seq in enumerate(token_seqs):
+        tb = round_up_to_bucket(len(seq))
+        fb = round_up_to_bucket(max(int(tb * frames_per_token), 1))
+        toks, lens, noise_w = _pack_token_batch(token_seqs, [i], tb, noise_rngs)
+        noise_dec = _draw_rows([r[1] for r in noise_rngs], [i], fb, cfg.inter_channels)
+        noise_conv = _draw_rows(conv_rngs, [i], fb, ccfg.inter_channels)
+        audio, y_frames, total = S.tts_synthesize_convert(
+            model, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
+            torch.full((1,), speaker_id, device=dev), torch.from_numpy(noise_w).to(dev), fb,
+            torch.from_numpy(noise_dec).to(dev), conv_model, g_src, g_tgt, float(tau),
+            torch.from_numpy(noise_conv).to(dev), length_scale=1.0 / speed, fast=fast,
+            tts_dec_cache=tts_cache, conv_dec_cache=conv_cache,
+        )
+        if int(total[0]) > fb:
+            # the exact two-stage fallback, with fresh generators: the capped
+            # call advanced the originals
+            piece = _two_stage_pieces(model, conv_model, token_seqs, [i], seed, speaker_id, speed, g_src,
+                                      g_tgt, tau, fast, tts_cache, conv_cache, [None] * n)[i]
+        else:
+            piece = audio[0, : int(y_frames[0]) * cfg.upsample_factor, 0].cpu().numpy()
+        chunk = np.concatenate([piece, gap])
+        if converter.enable_watermark and message:
+            chunk = converter.add_watermark(chunk, message)
+        yield chunk
+
+
+def _decode_convert_groups(model: S.Synthesizer, conv_model: S.Synthesizer, enc_rows: list[dict],
+                           sent_ids: list[int], speaker_id: int, dec_rngs, conv_rngs, g_src: torch.Tensor,
+                           g_tgt: torch.Tensor, tau: float, fast: bool, tts_cache, conv_cache,
+                           pieces: list) -> list:
+    """Decode + convert encoded rows (row k is sentence sent_ids[k]) in
+    frame-bucket groups, one `S.tts_decode_convert` a group, each sentence's
+    noise from its generators (indexed by sentence); fills `pieces` at the
+    sentence ids with audio at its true length and returns it."""
+    cfg, ccfg = model.cfg, conv_model.cfg
+    dev = g_src.device
+    g_row = model.emb_g.weight[speaker_id][None, :]
+    for fb, ks in frame_groups(enc_rows).items():
+        m, ids = len(ks), [sent_ids[k] for k in ks]
+        enc = _stack_enc_rows(enc_rows, ks, g_row)
+        noise_dec = _draw_rows(dec_rngs, ids, fb, cfg.inter_channels)
+        noise_conv = _draw_rows(conv_rngs, ids, fb, ccfg.inter_channels)
+        audio, y_mask = S.tts_decode_convert(
+            model, enc, fb, torch.from_numpy(noise_dec).to(dev), conv_model, g_src.repeat(m, 1, 1),
+            g_tgt.repeat(m, 1, 1), float(tau), torch.from_numpy(noise_conv).to(dev), noise_scale=0.667,
+            fast=fast, tts_dec_cache=tts_cache, conv_dec_cache=conv_cache,
+        )
+        audio = audio[..., 0].cpu().numpy()
+        y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
+        for r, i in enumerate(ids):
+            pieces[i] = audio[r, : y_lengths[r] * cfg.upsample_factor]
+    return pieces
+
+
+def _two_stage_pieces(model: S.Synthesizer, conv_model: S.Synthesizer, token_seqs, sent_ids: list[int],
+                      seed: int, speaker_id: int, speed: float, g_src: torch.Tensor, g_tgt: torch.Tensor,
+                      tau: float, fast: bool, tts_cache, conv_cache, pieces: list) -> list:
+    """The exact two-stage chain (encode, then decode + convert) for the
+    given sentences, with fresh generators from `seed`: the overflow
+    fallback of `tts_convert_single_dispatch` and `tts_convert_stream`,
+    whose draws equal `tts_convert_batched`'s.  Fills `pieces` at the
+    sentence ids and returns it."""
+    n_total = len(token_seqs)
+    fresh_noise = _sentence_noise_rngs(seed, n_total)
+    fresh_conv = _sentence_conv_rngs(seed, n_total)
+    enc_rows = _encode_rows(model, [token_seqs[i] for i in sent_ids], speaker_id, speed,
+                            [fresh_noise[i] for i in sent_ids], g_src.device)
+    return _decode_convert_groups(model, conv_model, enc_rows, sent_ids, speaker_id,
+                                  [r[1] for r in fresh_noise], fresh_conv, g_src, g_tgt, tau, fast, tts_cache,
+                                  conv_cache, pieces)
+
+
 def frame_groups(enc_rows: list[dict]) -> dict[int, list[int]]:
     """Sentence indices grouped by the frame bucket of their duration sum,
     in first-seen order: one decode a group."""
@@ -423,6 +671,12 @@ def _sentence_noise_rngs(seed: int, n: int) -> list[tuple[np.random.Generator, n
         w_ss, y_ss = child.spawn(2)
         out.append((np.random.default_rng(w_ss), np.random.default_rng(y_ss)))
     return out
+
+
+def _sentence_conv_rngs(seed: int, n: int) -> list[np.random.Generator]:
+    """Per-sentence conversion-noise generators of the fused chains, spawned
+    as the JAX package spawns them (a root apart from the TTS draws)."""
+    return [np.random.default_rng(ss) for ss in np.random.SeedSequence([seed, 0xC04]).spawn(n)]
 
 
 def _concat_with_gaps(pieces: list[np.ndarray], sr: int, speed: float) -> np.ndarray:

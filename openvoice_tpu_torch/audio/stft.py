@@ -102,3 +102,45 @@ def host_spectrogram(padded_audio: np.ndarray, n_fft: int, hop: int,
     )[::hop][:n_frames]
     spec = np.fft.rfft(frames * win, axis=-1)
     return np.sqrt(np.abs(spec) ** 2 + 1e-6).astype(np.float32)
+
+
+def reflect_frames_signal(audio: torch.Tensor, sample_lengths: torch.Tensor, n_fft: int,
+                          hop: int) -> torch.Tensor:
+    """Each row's reflect-padded signal, gathered on the device: audio
+    [B, T] (zero beyond each row's ``sample_lengths[b]``, T a multiple of
+    hop) → [B, (T//hop - 1)·hop + n_fft], whose frames at multiples of hop
+    are the T//hop frames of `masked_linear_spectrogram`.
+
+    Position p (in samples of the row, from -(n_fft-hop)/2) reads sample
+    ``lm1 - |lm1 - |p||`` with ``lm1 = max(L-1, 1)``, clipped to [0, T-1]:
+    torch's reflect pad for pads < L, and the JAX package's clamp for the
+    degenerate rows (length 0, 1, or shorter than the pad).  The lengths
+    stay on the device: one index gather, no host read."""
+    b, t = audio.shape
+    pad = (n_fft - hop) // 2
+    n_frames = t // hop
+    pos = torch.arange((n_frames - 1) * hop + n_fft, device=audio.device) - pad  # [L]
+    lm1 = torch.clamp(sample_lengths.to(device=audio.device, dtype=torch.int64) - 1, min=1)[:, None]
+    idx = torch.clamp(lm1 - (lm1 - pos.abs()[None, :]).abs(), 0, t - 1)  # [B, L]
+    return torch.gather(audio.float(), 1, idx).contiguous()
+
+
+def masked_linear_spectrogram(audio: torch.Tensor, sample_lengths: torch.Tensor, n_fft: int,
+                              hop: int, win_length: int) -> torch.Tensor:
+    """Per-row reflect-padded magnitude spectrogram of device-resident audio
+    with per-row true lengths (the JAX package's ``masked_linear_spectrogram``):
+    the in-graph counterpart of the host `_spec_from_audio` + STFT pair, for
+    the fused TTS → convert chains, where each row's audio ends at another
+    sample.
+
+    audio [B, T] zero-padded beyond each row's ``sample_lengths[b]``, T a
+    multiple of hop → [B, T//hop, n_fft//2+1] float32.  Frames past a row's
+    true frame count are garbage and must be masked downstream (spec
+    lengths), as in every padded-bucket consumer.  The magnitudes come from
+    `openvoice_tpu_torch.ops.stft_cuda.stft_magnitude` on the gathered
+    signal (`reflect_frames_signal`): the STFT kernel on a CUDA tensor, its
+    plain version `stft_magnitude_plain` on a CPU one."""
+    from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude  # here: stft_cuda imports this module
+
+    signal = reflect_frames_signal(audio, sample_lengths, n_fft, hop)
+    return stft_magnitude(signal, n_fft, hop, win_length)

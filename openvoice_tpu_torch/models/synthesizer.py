@@ -213,8 +213,9 @@ def voice_conversion(model: Synthesizer, spec: torch.Tensor, spec_lengths: torch
                      dec_cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Tone-colour conversion (models.py:492-499).
 
-    spec [B, T, n_freq], spec_lengths [B], g_src/g_tgt [B, 1, gin], noise
-    [B, T, inter] → (audio [B, T·upsample, 1] float32, y_mask [B, T, 1]).
+    spec [B, T, n_freq], spec_lengths [B], g_src/g_tgt [B, 1, gin], tau a
+    float or one per row [B, 1, 1], noise [B, T, inter] → (audio
+    [B, T·upsample, 1] float32, y_mask [B, T, 1]).
 
     fast=True is the serving mode: everything after the STFT runs in bf16,
     through the kernels, from ``dec_cache = make_dec_cache(model)``.
@@ -281,7 +282,7 @@ def _latents_packed(model: Synthesizer, cache: dict, spec: torch.Tensor, y_mask:
     forward with g_src and back with g_tgt (one kernel each)."""
     cfg = model.cfg
     g_enc = torch.zeros_like(g_src) if cfg.zero_g else g_src
-    tau_t = torch.tensor(tau, dtype=spec.dtype, device=spec.device)
+    tau_t = torch.as_tensor(tau, dtype=spec.dtype, device=spec.device)  # a float, or [B, 1, 1]
     lengths = (y_mask[:, :, 0] != 0).sum(dim=1, dtype=torch.int32)
     enc = cache["enc_q"]
 
@@ -398,6 +399,65 @@ def tts_decode(model: Synthesizer, enc: TTSEncodeOut, max_frames: int, noise: to
         return _bct(audio), y_mask
     m = y_mask.to(z.dtype)
     return apply_generator(model.dec, z * m, g=g, x_mask=m, packed=dec_cache).float(), y_mask
+
+
+def tts_decode_convert(model: Synthesizer, enc: TTSEncodeOut, max_frames: int, noise_dec: torch.Tensor,
+                       conv_model: Synthesizer, g_src: torch.Tensor, g_tgt: torch.Tensor, tau,
+                       noise_conv: torch.Tensor, noise_scale: float = 0.667, fast: bool = False,
+                       tts_dec_cache: dict | None = None,
+                       conv_dec_cache: dict | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """TTS decode → STFT → tone conversion with the base audio kept on the
+    device (the served TTS-then-convert chain, reference
+    openvoice_app.py:131-141; the JAX package's ``tts_decode_convert``).
+
+    Each row's true length (y_frames · upsample) drives a per-row reflect
+    STFT (`audio.stft.masked_linear_spectrogram`, the STFT kernel on the
+    card) whose framing matches the host `convert()` path; this needs
+    ``cfg.upsample_factor == conv_cfg.hop_length`` so that base frames map
+    1:1 to conversion frames (true for the shipped config pair).  Nothing is
+    read back to the host: the lengths stay on the device.
+
+    noise_dec [B, max_frames, inter] and noise_conv [B, max_frames,
+    conv inter] standard normal → (converted audio [B, max_frames·up, 1]
+    float32, y_mask [B, max_frames, 1] float32)."""
+    from openvoice_tpu_torch.audio.stft import masked_linear_spectrogram
+
+    cfg, conv_cfg = model.cfg, conv_model.cfg
+    if cfg.upsample_factor != conv_cfg.hop_length:
+        raise ValueError("fused tts→convert needs TTS upsample == converter hop "
+                         f"({cfg.upsample_factor} vs {conv_cfg.hop_length})")
+    audio, y_mask = tts_decode(model, enc, max_frames, noise_dec, noise_scale=noise_scale, fast=fast,
+                               dec_cache=tts_dec_cache)
+    y_frames = y_mask[..., 0].sum(dim=-1).to(torch.int32)
+    spec = masked_linear_spectrogram(audio[..., 0], y_frames * cfg.upsample_factor, conv_cfg.filter_length,
+                                     conv_cfg.hop_length, conv_cfg.win_length)  # [B, max_frames, n_freq]
+    conv_audio, _ = voice_conversion(conv_model, spec, y_frames, g_src, g_tgt, tau, noise_conv, fast=fast,
+                                     dec_cache=conv_dec_cache)
+    return conv_audio, y_mask
+
+
+def tts_synthesize_convert(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor,
+                           sid: torch.Tensor, noise_w: torch.Tensor, max_frames: int, noise_dec: torch.Tensor,
+                           conv_model: Synthesizer, g_src: torch.Tensor, g_tgt: torch.Tensor, tau,
+                           noise_conv: torch.Tensor, noise_scale: float = 0.667, noise_scale_w: float = 0.6,
+                           length_scale: float = 1.0, sdp_ratio: float = 0.2, fast: bool = False,
+                           tts_dec_cache: dict | None = None, conv_dec_cache: dict | None = None):
+    """Text → cloned audio with no host round trip: encode, durations,
+    decode, STFT and conversion, the output length capped at `max_frames`
+    (the reference's own ``max_len`` truncation, models.py:467,489; the JAX
+    package's ``tts_synthesize_convert``).
+
+    Returns (conv_audio [B, max_frames·up, 1], y_frames [B] int32 decoded
+    frames, total [B] int32 uncapped duration sums): rows with total >
+    max_frames were truncated, and the caller re-runs them through the
+    two-stage path."""
+    enc = tts_encode(model, tokens, token_lengths, sid, noise_w, noise_scale_w=noise_scale_w,
+                     length_scale=length_scale, sdp_ratio=sdp_ratio)
+    total = enc.w_ceil.sum(dim=-1).to(torch.int32)  # [B] uncapped
+    audio, y_mask = tts_decode_convert(model, enc, max_frames, noise_dec, conv_model, g_src, g_tgt, tau,
+                                       noise_conv, noise_scale=noise_scale, fast=fast,
+                                       tts_dec_cache=tts_dec_cache, conv_dec_cache=conv_dec_cache)
+    return audio, y_mask[..., 0].sum(dim=-1).to(torch.int32), total
 
 
 def infer(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor,

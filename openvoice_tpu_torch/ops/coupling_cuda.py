@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from openvoice_tpu_torch.ops import _frag, _nvcc
+from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
 from openvoice_tpu_torch.ops.wn_cuda import stack_wn_params, wn_layers_plain
 
 launches = 0
@@ -218,7 +218,8 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
     )
     if err != 0:
         raise RuntimeError(f"coupling kernel launch failed with CUDA error {err}")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     last_launch.update(ranks=_RANKS, rows=rows, tile=tile, ctas=-(-t // tile) * _RANKS * batch,
                        max_clusters=clusters)
     return out

@@ -18,7 +18,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from openvoice_tpu_torch.ops import _frag, _nvcc
+from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
 
 launches = 0
 
@@ -260,5 +260,6 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
     )
     if err != 0:
         raise RuntimeError(f"mrf kernel launch failed with CUDA error {err}")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     return out

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from openvoice_tpu_torch.audio.stft import stft_magnitude_plain, stft_window
-from openvoice_tpu_torch.ops import _nvcc
+from openvoice_tpu_torch.ops import LAUNCH_LOCK, _nvcc
 
 launches = 0
 
@@ -144,5 +144,6 @@ def stft_magnitude(padded_audio: torch.Tensor, n_fft: int, hop: int, win: int) -
                                batch, length, frames, n_fft, hop, device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"stft {route(n_fft)} kernel launch failed with CUDA error {err}")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     return out

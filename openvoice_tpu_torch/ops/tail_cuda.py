@@ -19,7 +19,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from openvoice_tpu_torch.ops import _frag, _nvcc
+from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
 from openvoice_tpu_torch.ops.mrf_cuda import (
     LRELU_SLOPE, check_stage, check_stage_cuda, conv_chunks, lrelu_plain, mrf_branches_plain,
     pack_stage_weights, stage_halo,
@@ -233,6 +233,7 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
     if err != 0:
         raise RuntimeError(f"tail kernel launch failed with error {err} (CUDA's, or -1: a launch the kernel "
                            f"cannot take, {_THREADS} threads)")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     last_launch.update(rows=rows, tile=tile, halo=halo, threads=_THREADS, tiles=-(-t_out // tile), smem=smem)
     return out

@@ -23,7 +23,7 @@ import ctypes
 
 import torch
 
-from openvoice_tpu_torch.ops import _frag, _nvcc
+from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
 
 launches = 0
 
@@ -187,7 +187,8 @@ def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.
     )
     if err != 0:
         raise RuntimeError(f"wn kernel launch failed with CUDA error {err}")
-    launches += 1
+    with LAUNCH_LOCK:
+        launches += 1
     last_launch.update(ranks=_RANKS, rows=rows, tile=tile, tiles=-(-t // tile),
                        ctas=-(-t // tile) * _RANKS * batch, threads=_THREADS, max_clusters=clusters)
     return out

@@ -1,0 +1,332 @@
+"""Dynamic request batcher for conversion serving (the port of
+``openvoice_tpu/serve/batcher.py``).
+
+Requests queue up; on each scheduling tick the cost-optimal planner
+(`runtime.bucketing.plan_groups`) partitions everything pending into
+(bucket, padded batch) groups, and groups that are full or hold a request
+past its deadline run as one batched call each; the rest wait for peers.
+Rows padded up to an allowed batch size carry length 0, so every mask (and
+every kernel's length rule) makes them inert.  Failures are isolated: a
+malformed request fails its own future at `submit`, and a failed call fails
+its own group's futures, never the batcher.
+
+Two request modes, planned as separate pools:
+
+* spec mode: the request carries its spectrogram; the noise is drawn on the
+  host from ``np.random.default_rng(seed)`` at [bucket, inter], whose first
+  n_frames rows are what ``ToneColorConverter.convert`` draws, so at
+  ``tau > 0`` the result equals ``convert(seed)``;
+* PCM mode: the request carries its waveform, uploaded as int16 samples; the
+  STFT runs inside the batched call (the STFT kernel on the card), and the
+  noise is drawn on the device from one ``torch.Generator(device)`` per row
+  seeded with the request's seed.  That stream differs from the host one
+  (and from the JAX package's ``jax.random.PRNGKey`` stream), so the same
+  seed gives different, equally valid audio in the two modes at
+  ``tau > 0``; both are deterministic per seed.
+
+Results come back as int16 PCM (``round(clip(x)·32767)``) and are scaled to
+float on the host.  The dispatch thread only enqueues device work: inputs go
+up through pinned memory asynchronously, and a reader thread waits for each
+group's copy back to host memory, so that one group's packing and readback
+overlap another group's compute.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+import time
+import traceback
+from concurrent.futures import Future
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from openvoice_tpu_torch.api import resolve_device
+from openvoice_tpu_torch.config import SynthesizerConfig
+from openvoice_tpu_torch.models import synthesizer as S
+from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
+from openvoice_tpu_torch.runtime.bucketing import allowed_batch_sizes, plan_groups
+from openvoice_tpu_torch.runtime.profiler import METRICS, trace
+
+
+@dataclass
+class ConvertRequest:
+    spec: np.ndarray | None = None  # [n_frames, n_freq] true-length spectrogram (spec mode)
+    n_frames: int = 0
+    g_src: np.ndarray | None = None  # [gin]
+    g_tgt: np.ndarray | None = None  # [gin]
+    tau: float = 0.3
+    seed: int = 0
+    # PCM mode: the mono waveform at cfg.sampling_rate instead of a
+    # spectrogram; n_frames is derived from it
+    audio: np.ndarray | None = None
+    future: Future = field(default_factory=Future)
+    enqueued_at: float = field(default_factory=time.perf_counter)
+
+
+def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`.  To the GPU through pinned memory and an
+    asynchronous copy: a copy from pageable memory waits for every kernel
+    queued before it, which would hold the dispatch thread until the
+    previous group's compute ends, and one group's packing could not overlap
+    another's compute."""
+    t = torch.from_numpy(a)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+def _wire_int16(audio: torch.Tensor) -> torch.Tensor:
+    """[B, T, 1] float audio → [B, T] int16 PCM, round half to even."""
+    return torch.round(torch.clamp(audio[..., 0], -1.0, 1.0) * 32767.0).to(torch.int16)
+
+
+def _convert_pcm16(model: S.Synthesizer, cfg: SynthesizerConfig, pcm: torch.Tensor, spec_lengths: torch.Tensor,
+                   g_src: torch.Tensor, g_tgt: torch.Tensor, taus: torch.Tensor, seeds: list[int],
+                   fast: bool = False, dec_cache: dict | None = None) -> torch.Tensor:
+    """The PCM serving path as one batched call: int16 samples [B, L]
+    (reflect-padded on the host) → STFT → per-row device noise → convert →
+    int16 PCM [B, T·upsample]."""
+    audio_in = pcm.float() * (1.0 / 32767.0)
+    spec = stft_magnitude(audio_in, cfg.filter_length, cfg.hop_length, cfg.win_length)
+    dev = pcm.device
+    noise = torch.stack([
+        torch.randn(spec.shape[1], cfg.inter_channels, generator=torch.Generator(dev).manual_seed(s), device=dev)
+        for s in seeds
+    ])
+    audio, _ = S.voice_conversion(model, spec, spec_lengths, g_src, g_tgt, taus, noise, fast=fast,
+                                  dec_cache=dec_cache)
+    return _wire_int16(audio)
+
+
+class ConvertBatcher:
+    """Background thread batching voice-conversion requests by bucket, on
+    one device."""
+
+    def __init__(self, model: S.Synthesizer, cfg: SynthesizerConfig, max_batch: int = 8,
+                 max_wait_ms: float = 5.0, fast: bool = False, device: str | torch.device | None = None) -> None:
+        """`model` moves to `device` (the GPU unless the caller passes
+        ``device="cpu"``).  fast=True serves in the bf16 serving mode, with
+        the packed weights made once here."""
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
+        self.cfg = cfg
+        self.fast = fast
+        self.dec_cache = S.make_dec_cache(self.model) if fast else None
+        self.max_batch = max_batch
+        # largest batch size the planner can emit (the set plan_groups uses)
+        self._full_batch = max(allowed_batch_sizes(max_batch))
+        self.max_wait_s = max_wait_ms / 1e3
+        self._q: queue.Queue[ConvertRequest | None] = queue.Queue()
+        self._pending: list[ConvertRequest] = []
+        # set once the dispatch thread has ended (stopped or failed): from
+        # then on a submit fails at once instead of waiting for nobody
+        self._lock = threading.Lock()
+        self._closed: str | None = None
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        # the dispatch thread only enqueues device work; this one waits for
+        # each group's device→host copy, so group i+1's compute overlaps
+        # group i's readback
+        self._readq: queue.Queue[tuple | None] = queue.Queue(maxsize=4)
+        self._reader = threading.Thread(target=self._read_loop, daemon=True)
+        self._running = False
+
+    def start(self) -> None:
+        self._running = True
+        self._thread.start()
+        self._reader.start()
+
+    def stop(self) -> None:
+        self._running = False
+        self._q.put(None)
+        self._thread.join(timeout=10)
+        self._readq.put(None)
+        self._reader.join(timeout=120)
+
+    def submit(self, req: ConvertRequest) -> Future:
+        """Queue `req`; a malformed request fails its own future here."""
+        try:
+            self._validate(req)
+        except ValueError as exc:
+            req.future.set_exception(exc)
+            return req.future
+        with self._lock:
+            if self._closed is None:
+                self._q.put(req)
+                return req.future
+        req.future.set_exception(RuntimeError(self._closed))
+        return req.future
+
+    def _validate(self, req: ConvertRequest) -> None:
+        cfg = self.cfg
+        for name in ("g_src", "g_tgt"):
+            g = getattr(req, name)
+            if g is None or np.asarray(g).size != cfg.gin_channels:
+                raise ValueError(f"{name} must hold {cfg.gin_channels} values")
+        if req.audio is not None:
+            pad = (cfg.filter_length - cfg.hop_length) // 2
+            n = len(req.audio)
+            if n <= pad:
+                raise ValueError(f"audio of {n} samples is too short for a {cfg.filter_length}-sample frame")
+            if not req.n_frames:
+                req.n_frames = (n + 2 * pad - cfg.filter_length) // cfg.hop_length + 1
+        elif req.spec is None or np.shape(req.spec) != (req.n_frames, cfg.spec_channels) or req.n_frames < 1:
+            raise ValueError(f"spec must be [n_frames ≥ 1, {cfg.spec_channels}], got {np.shape(req.spec)} "
+                             f"with n_frames {req.n_frames}")
+
+    # ------------------------------------------------------------------
+
+    def _loop(self) -> None:
+        try:
+            # inference mode and the device are per thread: the caller's do
+            # not carry over
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            with torch.inference_mode():
+                self._schedule()
+            reason = "batcher stopped"
+        except Exception as exc:  # noqa: BLE001 — a dead thread must not leave a future hanging
+            reason = f"batcher dispatch thread failed: {exc!r}"
+        with self._lock:
+            self._closed = reason
+            waiting, self._pending = self._pending, []
+            while True:
+                try:
+                    item = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if isinstance(item, ConvertRequest):
+                    waiting.append(item)
+        for r in waiting:
+            if not r.future.done():
+                r.future.set_exception(RuntimeError(reason))
+
+    def _schedule(self) -> None:
+        pending = self._pending
+        while self._running:
+            try:
+                item = self._q.get(timeout=self.max_wait_s)
+            except queue.Empty:
+                item = "tick"
+            if item is None:
+                break
+            if isinstance(item, ConvertRequest):
+                pending.append(item)
+            # drain whatever else already arrived before planning: one plan
+            # per burst, not per request
+            stop = False
+            while True:
+                try:
+                    extra = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if extra is None:
+                    stop = True
+                    break
+                pending.append(extra)
+            if stop:
+                break
+
+            now = time.perf_counter()
+            if not pending:
+                continue
+            oldest_due = min(r.enqueued_at for r in pending) + self.max_wait_s <= now
+            if len(pending) < self.max_batch and not oldest_due:
+                continue
+            keep: list[ConvertRequest] = []
+            # PCM-mode and spec-mode requests run different calls, so they
+            # are planned as separate pools
+            for mode in ([r for r in pending if r.audio is not None],
+                         [r for r in pending if r.audio is None]):
+                if not mode:
+                    continue
+                for idx, bucket, padded_batch in plan_groups([r.n_frames for r in mode], max_batch=self.max_batch):
+                    group = [mode[i] for i in idx]
+                    full = len(group) >= self._full_batch
+                    due = any(r.enqueued_at + self.max_wait_s <= now for r in group)
+                    if full or due:
+                        self._dispatch(bucket, group, padded_batch)
+                    else:
+                        keep.extend(group)
+            pending[:] = keep
+
+    def _dispatch(self, bucket: int, group: list[ConvertRequest], padded_batch: int) -> None:
+        cfg, dev = self.cfg, self.device
+        try:
+            n = padded_batch
+            lengths = np.zeros(n, np.int64)  # padded rows stay length 0: fully masked
+            g_src = np.zeros((n, 1, cfg.gin_channels), np.float32)
+            g_tgt = np.zeros((n, 1, cfg.gin_channels), np.float32)
+            taus = np.zeros((n, 1, 1), np.float32)
+            for i, r in enumerate(group):
+                lengths[i] = r.n_frames
+                g_src[i, 0] = np.asarray(r.g_src, np.float32).reshape(-1)
+                g_tgt[i, 0] = np.asarray(r.g_tgt, np.float32).reshape(-1)
+                taus[i, 0, 0] = r.tau
+            t0 = time.perf_counter()
+            args = [_upload(a, dev) for a in (lengths, g_src, g_tgt, taus)]
+            if group[0].audio is not None:
+                pad = (cfg.filter_length - cfg.hop_length) // 2
+                target = (bucket - 1) * cfg.hop_length + cfg.filter_length
+                pcm = np.zeros((n, target), np.int16)
+                seeds = [0] * n
+                for i, r in enumerate(group):
+                    a = np.asarray(r.audio, np.float32)
+                    padded = np.concatenate([a[1 : pad + 1][::-1], a, a[-pad - 1 : -1][::-1]])[:target]
+                    pcm[i, : len(padded)] = np.round(np.clip(padded, -1.0, 1.0) * 32767.0).astype(np.int16)
+                    seeds[i] = int(r.seed)
+                with trace("convert_batch"):
+                    wire = _convert_pcm16(self.model, cfg, _upload(pcm, dev), *args, seeds,
+                                          fast=self.fast, dec_cache=self.dec_cache)
+            else:
+                spec = np.zeros((n, bucket, cfg.spec_channels), np.float32)
+                noise = np.zeros((n, bucket, cfg.inter_channels), np.float32)
+                for i, r in enumerate(group):
+                    spec[i, : r.n_frames] = r.spec
+                    noise[i] = np.random.default_rng(r.seed).standard_normal(
+                        (bucket, cfg.inter_channels)).astype(np.float32)
+                with trace("convert_batch"):
+                    audio, _ = S.voice_conversion(self.model, _upload(spec, dev), args[0], args[1],
+                                                  args[2], args[3], _upload(noise, dev),
+                                                  fast=self.fast, dec_cache=self.dec_cache)
+                    wire = _wire_int16(audio)
+            if wire.device.type == "cuda":
+                # an asynchronous copy into pinned memory; the reader thread
+                # waits on the event, this thread goes on to the next group
+                host = torch.empty(wire.shape, dtype=torch.int16, pin_memory=True)
+                host.copy_(wire, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+            else:
+                host, done = wire, None
+            METRICS.add("busy_seconds", time.perf_counter() - t0)
+            METRICS.add("batches")
+            self._readq.put((host, done, group))
+        except Exception as exc:  # noqa: BLE001 — a failed call fails its group only
+            tb = traceback.format_exc()
+            for r in group:
+                if not r.future.done():
+                    r.future.set_exception(RuntimeError(f"batch failed: {exc}\n{tb}"))
+            METRICS.add("batch_failures")
+
+    def _read_loop(self) -> None:
+        cfg = self.cfg
+        while True:
+            item = self._readq.get()
+            if item is None:
+                break
+            host, done, group = item
+            try:
+                if done is not None:
+                    done.synchronize()
+                audio = host.numpy().astype(np.float32) / 32767.0  # int16 wire → float
+                for i, r in enumerate(group):
+                    samples = r.n_frames * cfg.upsample_factor
+                    r.future.set_result(audio[i, :samples])
+                    METRICS.add("audio_seconds", samples / cfg.sampling_rate)
+                    METRICS.observe("request_latency", time.perf_counter() - r.enqueued_at)
+            except Exception as exc:  # noqa: BLE001 — a failed readback fails its group only
+                for r in group:
+                    if not r.future.done():
+                        r.future.set_exception(RuntimeError(f"readback failed: {exc}"))
+                METRICS.add("batch_failures")

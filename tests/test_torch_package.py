@@ -56,6 +56,29 @@ def test_base_speaker_tts_without_device_raises_when_cuda_is_absent(monkeypatch)
     assert tts.device.type == "cpu" and tts.version == "v1"
 
 
+@pytest.mark.parametrize("make", ["ConvertBatcher", "VoiceService", "VoiceApp"])
+def test_serving_tier_without_device_raises_when_cuda_is_absent(make, monkeypatch):
+    """The serving tier's entry points run on the card unless asked for the
+    CPU, like the converter's."""
+    from openvoice_tpu_torch.serve.app import VoiceApp
+    from openvoice_tpu_torch.serve.batcher import ConvertBatcher
+    from openvoice_tpu_torch.serve.server import VoiceService
+
+    cfg = torch_cfg(TINY)
+    tc = ToneColorConverter(cfg=cfg, device="cpu")
+    tc.init_random(0)
+    build = {"ConvertBatcher": lambda **kw: ConvertBatcher(tc.model, cfg, **kw),
+             "VoiceService": lambda **kw: VoiceService(tc, **kw),
+             "VoiceApp": lambda **kw: VoiceApp(tc, **kw)}[make]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    made = build(device="cpu")
+    assert made.device.type == "cpu"
+    if make == "VoiceService":
+        made.close()
+
+
 def test_serving_mode_is_refused_until_its_kernels_exist():
     """The kernels exist now, so the serving mode runs (on the CPU through
     their plain versions); what is still refused is the graph's fast mode
