@@ -6,6 +6,10 @@
                                    # instead: time K1-K4 (or those named) over
                                    # tile sizes, warps, K1's and K2's cluster
                                    # size and K3's ring depth
+    python3 chip_smoke.py --tf32-control
+                                   # instead: phase 9.4's gradients, plus the
+                                   # card's f32 pass again with TF32 on, which
+                                   # the f32 gradient bar must refuse
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -60,8 +64,23 @@ Phases, in order; any failure exits non-zero before the result line:
    8d. ``convert_streaming`` of a 60 s clip against one-shot ``convert`` in
    both modes, and the peak device memory of streaming at 60 s and 240 s and
    of one-shot at 60 s;
-7. one JSON line of every ported kernel, one of the serving tier's numbers,
-   the card's ``nvidia-smi`` line, then the result line
+9. training, at full width (after the serving tier, before the result): a
+   synthetic set of 2 speakers × 2 files × 8 s; ``train()`` of the V2
+   converter with the GAN recipe (B 8, 128-frame segments) for 4 steps with
+   a checkpoint every 2, then again to 6 (it resumes: on_step sees 5 and 6);
+   every loss finite, G and D moved, the train step launched no kernel, the
+   step-4 checkpoint loads bit for bit; a warm step's wall, profiler busy
+   share, FLOPs and f32 bound, peak memory; 20 mel/KL steps overfitting one
+   batch; one B = 1 GAN step on the card against the CPU (losses, every
+   gradient leaf in f64, D's and G's gradients in f32 against the CPU's own
+   f32 rounding, a whole step's metrics); the trained converter
+   through ``extract_se`` and ``convert`` in both modes (K5 1, K1 1, K2 2,
+   K3 2, K4 2 in serving mode), ``mcd`` / ``se_cosine`` and the
+   SE-conditioned dataset's first batch (K5, in the prefetch thread)
+   against the CPU;
+7. one JSON line of every ported kernel (with ``launches_train_phase``), one
+   of the serving tier's numbers, one of training's, the card's
+   ``nvidia-smi`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a CUDA card, or outside a checkout of the
@@ -1077,30 +1096,50 @@ def stage_times(tc, audio: np.ndarray, se_src, se_tgt, fast: bool) -> dict:
         }
 
 
-def device_profile(fn, wall_ms: float, what: str = "warm convert") -> None:
+def device_profile(fn, wall_ms: float | None, what: str = "warm convert") -> float | None:
     """torch.profiler over one warm call: the device's busy share of a warm
-    call's wall time `wall_ms` (the call is `what`), and the kernels with the
-    most device time.  (A first profiled call pays the profiler's own
+    call's wall time `wall_ms` (the call is `what`; None: the profiled call's
+    own wall, for calls the profiler itself slows), printed with the kernels
+    with the most device time, and returned (None when the profiler recorded
+    no device time).  (A first profiled call pays the profiler's own
     start-up, so the second one is read.)"""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
-    # the kernels' own rows (device_type CUDA): the operators' rows would
-    # count the same device time again
-    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+            profiled_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms = profiled_ms if wall_ms is None else wall_ms
+
+    def kernel(e) -> bool:
+        # the kernels' own rows (device_type CUDA): the operators' rows would
+        # count the same device time again, and so would the ranges of user
+        # annotations on the device's timeline (Optimizer.step#AdamW.step)
+        return (e.device_type == torch.autograd.DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and not e.key.startswith("Optimizer."))
+
+    rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages() if kernel(e)),
+                  reverse=True)
     if not rows or rows[0][0] <= 0:
         print("profiler: no device time recorded (not measured)")
-        return
-    busy = sum(r[0] for r in rows)
-    print(f"profiler: {sum(r[1] for r in rows)} kernel launches, device busy {busy:.2f} ms = "
-          f"{100 * busy / wall_ms:.1f}% of the {what}'s {wall_ms:.2f} ms; top kernels:")
+        return None
+    # busy: the union of the kernels' intervals on the timeline, which counts
+    # kernels that overlap (other streams) once
+    busy, end = 0.0, -math.inf
+    for t0, t1 in sorted((e.time_range.start, e.time_range.end) for e in prof.events() if kernel(e)):
+        busy += max(0.0, t1 - max(t0, end))
+        end = max(end, t1)
+    busy /= 1e3
+    summed = sum(r[0] for r in rows)
+    print(f"profiler: {sum(r[1] for r in rows)} kernel launches, {summed:.2f} ms of kernel time covering "
+          f"{busy:.2f} ms of the timeline = device busy {100 * busy / wall_ms:.1f}% of the {what}'s {wall_ms:.2f} ms; "
+          "top kernels:")
     for ms, count, key in rows[:8]:
         print(f"  {ms:8.3f} ms {count:5d}×  {key[:90]}")
+    return busy / wall_ms
 
 
 def card_vs_cpu(tc, ses: dict) -> None:
@@ -1901,6 +1940,404 @@ def streaming_phase(tc, ses: dict, smi: str) -> dict:
     return memory
 
 
+# -- phase 9: converter training -----------------------------------------------------
+
+TRAIN_STEPS = 4            # the first run's steps; the resumed run goes on to RESUME_STEPS
+RESUME_STEPS = 6
+TRAIN_BATCH = 8            # train()'s defaults: B 8, 128-frame segments, 32-frame decoder slice
+TRAIN_SEGMENT = 128
+OVERFIT_STEPS = 20
+TRAIN_METRIC_TOL = 1e-4    # card against CPU: each loss, relative
+TRAIN_GRAD_F64_TOL = 1e-10  # card against CPU in f64: each gradient leaf, of the leaf's peak
+TRAIN_GRAD_F32_RATIO = 3.0  # f32 gradients' median leaf distance from f64: the card's over the CPU's, D and G each
+QUALITY_TOL = 1e-4         # mcd / se_cosine / dataset SEs: K5 on the card against the CPU's plain path
+
+
+def write_train_set(root: str) -> None:
+    """2 speakers × 2 WAV files of 8 s at 22,050 Hz, from seeded voices."""
+    from openvoice_tpu_torch.audio.io import write_wav
+
+    for s, f0 in enumerate((120.0, 210.0)):
+        os.makedirs(os.path.join(root, f"speaker{s}"))
+        for i in range(2):
+            write_wav(os.path.join(root, f"speaker{s}", f"utt{i}.wav"), voice(8.0, f0 + 15.0 * i, seed=40 + 2 * s + i),
+                      SR)
+
+
+def same_tree(a, b) -> bool:
+    """Bitwise equality of two state dicts (nested dicts and lists of
+    tensors and plain values), wherever their tensors live."""
+    import torch
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(map(same_tree, a, b))
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a.cpu(), b.cpu())
+    return a == b
+
+
+def same_state(a, b) -> bool:
+    """Two GAN train states hold the same weights, optimizer states and steps, bit for bit."""
+    return all(x.step == y.step and same_tree(x.model.state_dict(), y.model.state_dict())
+               and same_tree(x.opt.state_dict(), y.opt.state_dict()) for x, y in ((a.gen, b.gen), (a.disc, b.disc)))
+
+
+def leaves_moved(before, after) -> list[str]:
+    """The names of the leaves of module `after` that still equal module `before`'s."""
+    import torch
+
+    now = after.state_dict()
+    return [k for k, v in before.state_dict().items() if torch.equal(v, now[k])]
+
+
+def gan_run(root: str, ckpt: str, steps: int, smi: str) -> tuple:
+    """One `train()` call on the card: → (state, {step: wall s}, {step: metrics}).
+    Each step's wall ends at its on_step (after a synchronise): it holds the
+    step, the batch's upload and any checkpoint saved at that step; the first
+    also the init (or the resume) and the first batch."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG
+    from openvoice_tpu_torch.training.loop import train
+
+    walls, metrics, last = {}, {}, [time.perf_counter()]
+
+    def on_step(step, m):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        walls[step], last[0] = now - last[0], now
+        metrics[step] = {k: float(v) for k, v in m.items()}
+
+    state = train(root, V2_CONVERTER_CONFIG, steps=steps, batch_size=TRAIN_BATCH, segment_frames=TRAIN_SEGMENT,
+                  adversarial=True, ckpt_dir=ckpt, ckpt_every=2, log_every=0, seed=SEED, on_step=on_step)
+    for step in sorted(walls):
+        print(f"  step {step}: {walls[step] * 1e3:.1f} ms  " + ", ".join(f"{k} {v:.5g}" for k, v in metrics[step].items())
+              + f"  [{smi}]")
+    return state, walls, metrics
+
+
+def first_batch(root: str, cfg, batch: int, converter=None) -> tuple:
+    """The first batch `ConverterDataset` gives (seed SEED), through the
+    prefetch worker thread as `train()` takes it."""
+    from openvoice_tpu_torch.training.data import ConverterDataset, PrefetchIterator
+
+    ds = ConverterDataset(root, cfg, batch, TRAIN_SEGMENT, seed=SEED, converter=converter)
+    with PrefetchIterator(iter(ds)) as it:
+        return next(it)
+
+
+def train_gan(root: str, tmp: str, smi: str, kind: str) -> dict:
+    """9.1-9.2: the data, the short GAN run and its resume, and the step's numbers."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.ckpt import native_io as CIO
+    from openvoice_tpu_torch.training import train as T
+
+    phase(f"9. training: V2 converter at full width, GAN recipe, B {TRAIN_BATCH}, {TRAIN_SEGMENT}-frame segments, "
+          f"32-frame decoder slice; train() {TRAIN_STEPS} steps, then resumed to {RESUME_STEPS}")
+    write_train_set(root)
+    ckpt = os.path.join(tmp, "ckpt")
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    first, walls, metrics = gan_run(root, ckpt, TRAIN_STEPS, smi)  # left as the step-4 checkpoint saved it
+    check(sorted(metrics) == list(range(1, TRAIN_STEPS + 1)), f"on_step saw {sorted(metrics)}")
+    check(CIO.latest_step(ckpt) == TRAIN_STEPS, f"latest checkpoint {CIO.latest_step(ckpt)}")
+    second, walls2, metrics2 = gan_run(root, ckpt, RESUME_STEPS, smi)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = launch_counts()
+    print(f"resumed run: on_step saw {sorted(metrics2)}; kernel launches in both runs {launches}; "
+          f"peak device memory {peak_gb:.2f} GB  [{smi}]")
+    check(sorted(metrics2) == list(range(TRAIN_STEPS + 1, RESUME_STEPS + 1)), "the resumed run did not see [5, 6]")
+    check(not any(launches.values()), "the train step launched a kernel: it runs on stock layers, as JAX's does")
+    all_metrics = {**metrics, **metrics2}
+    check(all(math.isfinite(v) for m in all_metrics.values() for v in m.values()), "a loss is not finite")
+    check(second.gen.step == second.disc.step == RESUME_STEPS, "steps counted wrong")
+
+    # the step-4 state back from its checkpoint, bit for bit
+    template = T.init_gan_train_state(cfg, torch.Generator().manual_seed(SEED + 9))
+    loaded = CIO.load_checkpoint(os.path.join(ckpt, f"step_{TRAIN_STEPS}"), template=template)
+    same = same_state(first, loaded)
+    fresh = T.init_gan_train_state(cfg, torch.Generator().manual_seed(SEED))  # the loop's init
+    still_g = leaves_moved(fresh.gen.model, second.gen.model)
+    still_d = leaves_moved(fresh.disc.model, second.disc.model)
+    n_g, n_d = len(fresh.gen.model.state_dict()), len(fresh.disc.model.state_dict())
+    print(f"step-{TRAIN_STEPS} checkpoint loads bit for bit: {same}; leaves moved since init: "
+          f"G {n_g - len(still_g)}/{n_g} (unmoved: {still_g}), D {n_d - len(still_d)}/{n_d} (unmoved: {still_d})")
+    check(same, "the loaded checkpoint differs from the state saved")
+    check(len(still_g) < n_g and len(still_d) < n_d, "G or D did not move")
+    del first, template, loaded, fresh
+
+    # the warm step alone, on one fixed batch: walls, profiler, FLOPs
+    spec, audio, lengths, g = (torch.from_numpy(a).cuda() for a in first_batch(root, cfg, TRAIN_BATCH))
+    gen = torch.Generator().manual_seed(SEED + 5)
+
+    def step():
+        T.gan_train_step(second, cfg, spec, audio, lengths, g, gen, segment_frames=32)
+        torch.cuda.synchronize()
+
+    step()
+    step_walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        step()
+        step_walls.append((time.perf_counter() - t0) * 1e3)
+    step_ms = statistics.median(step_walls)
+    busy = device_profile(step, None, "profiled warm GAN step")
+    with FlopCounterMode(display=False) as counter:
+        step()
+    flop = counter.get_total_flops()
+    backward = sum(n for op, n in counter.get_flop_counts()["Global"].items() if "backward" in str(op))
+    f32_rate = card_peaks(kind)[0]
+    bound_ms = flop / f32_rate * 1e3
+    loop_warm = [walls[s] * 1e3 for s in sorted(walls)[1:]] + [walls2[s] * 1e3 for s in sorted(walls2)[1:]]
+    print(f"train() step walls (ms, first of each run holds its init): "
+          f"{[round(w * 1e3, 1) for w in walls.values()]} then {[round(w * 1e3, 1) for w in walls2.values()]}; "
+          f"median of the warm ones {statistics.median(loop_warm):.1f} ms (steps 2 and 4 hold a checkpoint save)")
+    print(f"warm GAN step alone: {step_ms:.1f} ms (median of 5: {[round(w, 1) for w in step_walls]}); "
+          f"{flop / 1e12:.3f} TFLOP (matmuls and convolutions, forward and backward, torch.utils.flop_counter; "
+          f"convolution backward {backward / 1e12:.3f}); "
+          f"f32 bound {bound_ms:.2f} ms at {f32_rate / 1e12:.1f} TFLOP/s = {100 * bound_ms / step_ms:.1f}% of the step  "
+          f"[{smi}]")
+    return {"state": second, "loop_step_ms": {**{s: w * 1e3 for s, w in walls.items()},
+                                              **{s: w * 1e3 for s, w in walls2.items()}},
+            "loop_warm_median_ms": statistics.median(loop_warm), "step_ms": step_ms, "step_walls_ms": step_walls,
+            "busy_share": busy, "tflop": flop / 1e12, "f32_bound_ms": bound_ms, "peak_gb": peak_gb,
+            "metrics": all_metrics}
+
+
+def train_overfit(root: str, smi: str) -> list[float]:
+    """9.3: 20 mel/KL steps at lr 1e-3 on one fixed batch with fixed draws."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.training import train as T
+
+    state = T.init_train_state(cfg, torch.Generator().manual_seed(SEED + 3), lr=1e-3)
+    spec, audio, lengths, g = (torch.from_numpy(a).cuda() for a in first_batch(root, cfg, TRAIN_BATCH))
+    mels, walls = [], []
+    for _ in range(OVERFIT_STEPS):
+        t0 = time.perf_counter()
+        state, m = T.train_step(state, cfg, spec, audio, lengths, g, torch.Generator().manual_seed(42), lr=1e-3)
+        mels.append(float(m["mel"]))  # reads back: the step has ended
+        walls.append((time.perf_counter() - t0) * 1e3)
+    first, last = statistics.mean(mels[:5]), statistics.mean(mels[-5:])
+    print(f"mel/KL overfit, {OVERFIT_STEPS} steps at lr 1e-3: mel {[round(v, 4) for v in mels]}; mean of the first 5 "
+          f"{first:.4f}, of the last 5 {last:.4f}; warm step {statistics.median(walls[1:]):.1f} ms  [{smi}]")
+    check(all(math.isfinite(v) for v in mels) and last < first, "the mel/KL steps did not lower the mel loss")
+    return mels
+
+
+def grad_worst(got: list, ref: list, names: list[str]) -> tuple[float, str]:
+    """The worst leaf's max |got − ref| over its peak |ref|, and its name."""
+    rows = []
+    for name, a, b in zip(names, got, ref):
+        peak, err = float(b.abs().max()), float((a - b).abs().max())
+        rows.append((err / peak if peak > 0 else (0.0 if err == 0 else math.inf), name))
+    return max(rows)
+
+
+def grad_distance(got: list, ref: list) -> float:
+    """‖got − ref‖ over ‖ref‖, each norm over every element of every leaf."""
+    num = sum(float(((a - b) ** 2).sum()) for a, b in zip(got, ref))
+    return math.sqrt(num / sum(float((b ** 2).sum()) for b in ref))
+
+
+def leaf_distances(got: list, ref: list) -> dict[int, float]:
+    """`grad_distance` of each leaf whose reference is not all zeros, by index."""
+    return {j: grad_distance([a], [b]) for j, (a, b) in enumerate(zip(got, ref)) if b.any()}
+
+
+def train_card_vs_cpu(root: str, smi: str, seed: int = SEED + 4, tf32_control: bool = False) -> dict:
+    """9.4: one GAN step at full width, B = 1, on the card and on the CPU from
+    the same weights, noise and starts, TF32 off: the losses of D and of G
+    through the fixed D (f32), every gradient leaf of both in f64, D's and
+    G's gradients in f32, then a whole f32 step's metrics.
+
+    The f32 bar: the discriminators are leaky-ReLU stacks whose random-init
+    activations sit near the kink, and one f32 pre-activation that rounds to
+    the other side of zero scales its gradient element by 10; the change
+    flows into every leaf upstream of it in that sub-network.  Which sums
+    flip differs between the card's cuDNN and the CPU, so the worst leaf and
+    a norm over all leaves show the flips, not the precision.  The median
+    leaf's distance from f64 shows the precision: the card's is held to
+    TRAIN_GRAD_F32_RATIO times the CPU's, for D and for G.  In f64 no sum
+    sits that close to a kink, and each leaf is held to TRAIN_GRAD_F64_TOL
+    of its peak.  With `tf32_control` the card's f32 pass is made again with
+    TF32 on, the leaves farthest from f64 are printed, and the readings are
+    returned unchecked (the caller checks them over several seeds) without
+    the whole step."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.training import train as T
+
+    gen = torch.Generator().manual_seed(seed)
+    cpu = T.init_gan_train_state(cfg, gen, device="cpu")
+    seed_flow_posts(cpu.gen.model, seed + 2)
+    card = T.GanTrainState(gen=T.make_train_state(copy.deepcopy(cpu.gen.model).cuda()),
+                           disc=T.make_train_state(copy.deepcopy(cpu.disc.model).cuda()))
+    card_dev = next(card.gen.model.parameters()).device
+    batch = [torch.from_numpy(a[:1].copy()) for a in first_batch(root, cfg, TRAIN_BATCH)]
+    noise, starts = T.draw_noise_and_starts(cfg, batch[2], batch[0].shape[1], gen, 32)
+    d_names = [n for n, _ in cpu.disc.model.named_parameters()]
+    g_names = [n for n, _ in cpu.gen.model.named_parameters()]
+
+    def pieces(state, dev, dtype=torch.float32):
+        gm, dm = (state.gen.model, state.disc.model) if dtype == torch.float32 else \
+            (copy.deepcopy(state.gen.model).to(dtype), copy.deepcopy(state.disc.model).to(dtype))
+        spec, audio, lengths, g = (a.to(dev) if a.dtype == torch.int32 else a.to(dev, dtype) for a in batch)
+        fwd = T._generator_forward(gm, cfg, spec, audio, lengths, g, None, 32, noise.to(dev, dtype),
+                                   starts.to(dev))
+        d_loss = T.discriminator_loss(dm, fwd.target, fwd.audio_hat)
+        d_grads = T.grads_of(d_loss, dm)
+        g_loss, m = T.generator_loss(dm, fwd, cfg)
+        g_grads = T.grads_of(g_loss, gm)
+        losses = {"disc": float(d_loss.detach()), "gen_total": float(g_loss.detach()),
+                  **{k: float(v.detach()) for k, v in m.items()}}
+        return losses, [gr.double().cpu() for gr in d_grads], [gr.double().cpu() for gr in g_grads]
+
+    t0 = time.perf_counter()
+    ref = pieces(cpu, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    got = pieces(card, card_dev)
+    loss_rel = {k: abs(got[0][k] - v) / abs(v) for k, v in ref[0].items()}
+    ref64, got64 = pieces(cpu, torch.device("cpu"), torch.float64), pieces(card, card_dev, torch.float64)
+    if tf32_control:
+        matmul = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=False, allow_tf32=True):
+                tf32 = pieces(card, card_dev)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+    rows = {}
+    for part, i, names in (("D", 1, d_names), ("G", 2, g_names)):
+        cpu_leaves, card_leaves = leaf_distances(ref[i], ref64[i]), leaf_distances(got[i], ref64[i])
+        rows[part] = {"f64 card vs cpu, worst leaf": grad_worst(got64[i], ref64[i], names)[0],
+                      "f32 card vs cpu, worst leaf": grad_worst(got[i], ref[i], names)[0],
+                      "f32 cpu vs f64, norm": grad_distance(ref[i], ref64[i]),
+                      "f32 card vs f64, norm": grad_distance(got[i], ref64[i]),
+                      "f32 cpu vs f64, median leaf": statistics.median(cpu_leaves.values()),
+                      "f32 card vs f64, median leaf": statistics.median(card_leaves.values())}
+        rows[part]["f32 ratio"] = rows[part]["f32 card vs f64, median leaf"] / rows[part]["f32 cpu vs f64, median leaf"]
+        if tf32_control:
+            rows[part]["tf32 card vs f64, norm"] = grad_distance(tf32[i], ref64[i])
+            rows[part]["tf32 card vs f64, median leaf"] = statistics.median(leaf_distances(tf32[i], ref64[i]).values())
+            rows[part]["tf32 ratio"] = rows[part]["tf32 card vs f64, median leaf"] / rows[part]["f32 cpu vs f64, median leaf"]
+            rows[part]["tf32 losses, worst relative"] = max(abs(tf32[0][k] - v) / abs(v) for k, v in ref[0].items())
+            far = sorted(((card_leaves[j], cpu_leaves[j], names[j]) for j in card_leaves), reverse=True)[:5]
+            print(f"  {part} leaves farthest from f64 on the card (card, cpu): "
+                  + "; ".join(f"{n} {x:.2e}, {y:.2e}" for x, y, n in far))
+    print(f"card against CPU, seed {seed}, fixed D, f32 losses relative: "
+          f"{', '.join(f'{k} {v:.2e}' for k, v in loss_rel.items())} (bar {TRAIN_METRIC_TOL}); CPU {cpu_s:.1f} s  [{smi}]")
+    for part, r in rows.items():
+        print(f"  {part} gradients (worst leaf: max err / peak; else norms over all leaves): "
+              + "; ".join(f"{k} {v:.3e}" for k, v in r.items())
+              + f"  (bars: f64 worst leaf {TRAIN_GRAD_F64_TOL}, f32 ratio {TRAIN_GRAD_F32_RATIO})")
+    if tf32_control:
+        return rows
+    check(all(v <= TRAIN_METRIC_TOL for v in loss_rel.values()), "card and CPU disagree on a training loss")
+    check(all(r["f64 card vs cpu, worst leaf"] <= TRAIN_GRAD_F64_TOL for r in rows.values()),
+          "card and CPU disagree on a gradient leaf in f64")
+    check(all(r["f32 ratio"] <= TRAIN_GRAD_F32_RATIO for r in rows.values()),
+          "the card's f32 gradients stray from the CPU's by more than f32 rounding")
+
+    # a whole f32 step from the same states (the pieces above left them as they were)
+    metrics = []
+    for state, dev in ((cpu, torch.device("cpu")), (card, card_dev)):
+        spec, audio, lengths, g = (a.to(dev) for a in batch)
+        _, m = T.gan_train_step(state, cfg, spec, audio, lengths, g, segment_frames=32, noise=noise.to(dev),
+                                starts=starts.to(dev))
+        metrics.append({k: float(v) for k, v in m.items()})
+    step_rel = {k: abs(metrics[1][k] - v) / abs(v) for k, v in metrics[0].items()}
+    print(f"card against CPU, one gan_train_step: relative {', '.join(f'{k} {v:.2e}' for k, v in step_rel.items())} "
+          f"(bar {TRAIN_METRIC_TOL})")
+    check(all(v <= TRAIN_METRIC_TOL for v in step_rel.values()), "card and CPU disagree on a step's metrics")
+    return {"losses_rel": loss_rel, "step_rel": step_rel, "grads": rows}
+
+
+def trained_weights(trained, root: str, tmp: str, smi: str) -> dict:
+    """9.5: the trained converter through the kernels, as
+    benchmarks/train_real_demo.py uses it, and the quality metrics and the
+    SE-conditioned dataset with K5 on the card against the CPU."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch import ToneColorConverter
+    from openvoice_tpu_torch.audio.io import write_wav
+    from openvoice_tpu_torch.training.quality import mcd, se_cosine
+
+    tc = ToneColorConverter(cfg=cfg, enable_watermark=False)
+    tc.set_model(trained)  # packs the serving cache again from the trained weights
+    cpu = ToneColorConverter(cfg=cfg, device="cpu", enable_watermark=False)
+    cpu.set_model(copy.deepcopy(trained).cpu())
+    ref_wav = os.path.join(tmp, "train_ref.wav")
+    write_wav(ref_wav, voice(6.0, 260.0, seed=50), SR)
+    src = voice(4.0, 150.0, seed=51)
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    se_tgt = tc.extract_se([ref_wav])
+    se_src = tc.extract_se([os.path.join(root, "speaker0", "utt0.wav")])
+    f32 = tc.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message="")
+    f32_launches = launch_counts()
+    zero_launch_counts()
+    fast = tc.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message="", fast=True)
+    torch.cuda.synchronize()
+    fast_launches = launch_counts()
+    diff, peak = float(np.abs(fast - f32).max()), float(np.abs(f32).max())
+    print(f"trained weights: extract_se ×2 + convert f32 launched {f32_launches}; convert(fast=True) launched "
+          f"{fast_launches}; max |fast - f32| = {diff:.3e} = {diff / peak:.4f} of the f32 peak {peak:.3e} "
+          f"(bar {FAST_VS_F32_TOL})")
+    check(f32_launches == {"stft_magnitude": 3, "wn_stack": 0, "coupling_block": 0, "mrf_stage": 0,
+                           "tail_stage": 0}, "extract_se ×2 + f32 convert must launch K5 3 times and nothing else")
+    check(fast_launches == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2,
+                            "tail_stage": 2}, "the trained serving convert must launch K5 1, K1 1, K2 2, K3 2, K4 2")
+    check(bool(np.isfinite(fast).all()) and fast.shape == f32.shape and diff <= FAST_VS_F32_TOL * peak,
+          "the trained converter's serving mode strays from its f32 mode")
+
+    # quality metrics and the SE-conditioned dataset: K5 on the card, counted
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    q_card = {"mcd": mcd(src, f32, SR), "se_cosine": se_cosine(tc, f32, se_tgt)}
+    batch_card = first_batch(root, cfg, TRAIN_BATCH, converter=tc)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    q_cpu = {"mcd": mcd(src, f32, SR, device="cpu"), "se_cosine": se_cosine(cpu, f32, se_tgt)}
+    batch_cpu = first_batch(root, cfg, TRAIN_BATCH, converter=cpu)
+    speakers = len({float(row[0, 0]) for row in batch_cpu[3]})
+    g_diff = float(np.abs(batch_card[3] - batch_cpu[3]).max())
+    g_peak = float(np.abs(batch_cpu[3]).max())
+    q_diff = {k: abs(q_card[k] - v) / max(abs(v), 1e-12) if k == "mcd" else abs(q_card[k] - v) for k, v in q_cpu.items()}
+    print(f"quality on the card {q_card}, on the CPU {q_cpu}: mcd relative {q_diff['mcd']:.2e}, se_cosine absolute "
+          f"{q_diff['se_cosine']:.2e} (bar {QUALITY_TOL}); dataset g (worker thread, {speakers} speakers) "
+          f"max |card - cpu| {g_diff:.2e} of peak {g_peak:.4f}; launches {launches}")
+    check(all(v <= QUALITY_TOL for v in q_diff.values()), "the quality metrics disagree between card and CPU")
+    check(g_peak > 0 and g_diff <= QUALITY_TOL * g_peak, "the dataset's SEs disagree between card and CPU")
+    check(launches == {"stft_magnitude": 3 + speakers, "wn_stack": 0, "coupling_block": 0, "mrf_stage": 0,
+                       "tail_stage": 0}, f"mcd (2), se_cosine (1) and the dataset ({speakers}) must launch K5 only")
+    for a, c in zip(batch_card[:3], batch_cpu[:3]):
+        check(np.array_equal(a, c), "the dataset's spectrograms or audio differ between card and CPU runs")
+    return {"quality_card": q_card, "quality_cpu": q_cpu, "quality_diff": q_diff, "dataset_g_diff": g_diff,
+            "launches": launches, "fast_vs_f32": diff / peak}
+
+
+def training_phase(tmp: str, smi: str, kind: str) -> dict:
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "train_set")
+    run = train_gan(root, tmp, smi, kind)
+    mels = train_overfit(root, smi)
+    cvc = train_card_vs_cpu(root, smi)
+    kernels = trained_weights(run.pop("state").gen.model, root, tmp, smi)
+    print(f"training phase: {time.perf_counter() - t0:.1f} s")
+    return {**run, "overfit_mel": mels, "card_vs_cpu": cvc, **kernels}
+
+
 def main() -> int:
     import torch
 
@@ -1911,6 +2348,19 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi, kind = toolchain()
+    if sys.argv[1:] == ["--tf32-control"]:  # the train step runs no kernel of the port: nothing to build
+        with tempfile.TemporaryDirectory() as tmp:
+            root = os.path.join(tmp, "train_set")
+            write_train_set(root)
+            phase("9.4 with a TF32 control: one B = 1 GAN step's gradients, card against CPU, three seeds")
+            rows = [r for i in range(3) for r in train_card_vs_cpu(root, smi, SEED + 4 + 10 * i, True).values()]
+        check(all(r["f64 card vs cpu, worst leaf"] <= TRAIN_GRAD_F64_TOL for r in rows),
+              "card and CPU disagree on a gradient leaf in f64")
+        check(all(r["f32 ratio"] <= TRAIN_GRAD_F32_RATIO for r in rows),
+              "the card's f32 gradients stray from the CPU's by more than f32 rounding")
+        check(all(r["tf32 ratio"] > TRAIN_GRAD_F32_RATIO for r in rows), "the f32 gradient bar let TF32 through")
+        print(smi)
+        return 0
     build()
     if sys.argv[1:2] == ["--sweep"]:
         with torch.inference_mode():
@@ -1940,6 +2390,7 @@ def main() -> int:
         fused = fused_phase(v1["tts"], v1_conv["conv"], v1_conv["ses"], smi)
         memory = streaming_phase(tc, ses, smi)
         print(f"serving-tier phase: {time.perf_counter() - t0:.1f} s")
+        training = training_phase(tmp, smi, kind)
     for k in kernels:
         name = k["name"]
         k["launches"] = launches[name]
@@ -1948,9 +2399,11 @@ def main() -> int:
         k["launches_batcher_group"] = serving["per_group"][name]  # K5: PCM groups only
         k["launches_fused_group"] = fused["per_group"][name]
         k["batcher_b8"] = serving["group_times"].get(name)
+        k["launches_train_phase"] = training["launches"][name]  # the quality calls and the SE dataset: K5 only
         check(k["launches"] > 0, f"the serving path never launched {name}")
     print(json.dumps({"serving_tier": {"rates": serving["rates"], "worst": serving["worst"],
                                        "batchmates": serving["batchmates"], "streaming_memory": memory}}))
+    print(json.dumps({"training": {k: v for k, v in training.items() if k != "launches"}}))
 
     phase("7. result")
     print(json.dumps({"kernels": kernels}))

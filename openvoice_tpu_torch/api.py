@@ -27,7 +27,8 @@ import torch
 from openvoice_tpu_torch.audio.io import load_audio, write_wav
 from openvoice_tpu_torch.audio.stft import host_spectrogram
 from openvoice_tpu_torch.ckpt.from_jax import load_ckpt as _load_reference_ckpt
-from openvoice_tpu_torch.ckpt.from_jax import load_params_npz, synthesizer_from_jax
+from openvoice_tpu_torch.ckpt.from_jax import synthesizer_from_jax
+from openvoice_tpu_torch.ckpt.native_io import load_npz
 from openvoice_tpu_torch.config import HParams, SynthesizerConfig, load_hparams
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
@@ -102,7 +103,7 @@ class OpenVoiceBaseClass:
         report (strict=False semantics, api.py:35-39; an ``.npz`` loads
         strictly and reports nothing, as in the JAX package)."""
         if ckpt_path.endswith(".npz"):
-            model = synthesizer_from_jax(load_params_npz(ckpt_path), self.cfg)
+            model = synthesizer_from_jax(load_npz(ckpt_path), self.cfg)
             report = {"missing": [], "unexpected": []}
         else:
             model = S.Synthesizer(self.cfg)

@@ -27,6 +27,41 @@ _WAVE_FORMAT_IEEE_FLOAT = 0x0003
 _WAVE_FORMAT_EXTENSIBLE = 0xFFFE
 
 
+def wav_num_samples(path: str, target_sr: int | None = None) -> int:
+    """Per-channel sample count from the WAV header alone (no decode).
+
+    With target_sr, returns the length the file would have after
+    load_audio(path, sr=target_sr) resampling (ceil, matching resample()).
+    """
+    with open(path, "rb") as f:
+        head = f.read(12)
+        if head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+            raise ValueError(f"{path}: not a RIFF/WAVE file")
+        sr = n_ch = bits = None
+        data_bytes = None
+        while True:
+            hdr = f.read(8)
+            if len(hdr) < 8:
+                break
+            cid = hdr[:4]
+            (csz,) = struct.unpack("<I", hdr[4:])
+            if cid == b"fmt ":
+                body = f.read(csz + (csz & 1))
+                _, n_ch, sr, _, _, bits = struct.unpack_from("<HHIIHH", body, 0)
+            else:
+                if cid == b"data":
+                    data_bytes = csz
+                f.seek(csz + (csz & 1), 1)
+            if sr is not None and data_bytes is not None:
+                break
+    if sr is None or data_bytes is None:
+        raise ValueError(f"{path}: missing fmt/data chunk")
+    n = data_bytes // (n_ch * bits // 8)
+    if target_sr is None or target_sr == sr:
+        return n
+    return -(-n * target_sr // sr)
+
+
 def read_wav(path: str) -> tuple[np.ndarray, int]:
     """Read a RIFF/WAVE file → (float32 samples [T] or [T, C], sample_rate)."""
     with open(path, "rb") as f:

@@ -144,3 +144,21 @@ def masked_linear_spectrogram(audio: torch.Tensor, sample_lengths: torch.Tensor,
 
     signal = reflect_frames_signal(audio, sample_lengths, n_fft, hop)
     return stft_magnitude(signal, n_fft, hop, win_length)
+
+
+def linear_spectrogram(y: torch.Tensor, n_fft: int = 1024, hop: int = 256, win_length: int = 1024,
+                       pad_signal: bool = True) -> torch.Tensor:
+    """Reference-semantics linear spectrogram (the JAX package's
+    ``linear_spectrogram``): y [B, T] audio in [-1, 1] → [B, n_freq,
+    n_frames] float32 magnitudes (the reference layout, enc_q's input).
+
+    With `pad_signal` each row is reflect-padded by (n_fft − hop)/2 on both
+    sides first.  The magnitudes come from
+    `openvoice_tpu_torch.ops.stft_cuda.stft_magnitude`: the STFT kernel on a
+    CUDA tensor, its plain version `stft_magnitude_plain` on a CPU one."""
+    from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude  # here: stft_cuda imports this module
+
+    y = y.float()
+    if pad_signal:
+        y = _reflect_pad_1d(y, (n_fft - hop) // 2)
+    return stft_magnitude(y.contiguous(), n_fft, hop, win_length).transpose(1, 2)

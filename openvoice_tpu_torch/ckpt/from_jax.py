@@ -14,21 +14,30 @@
   cache, so that a test starts both packages from the same arrays.
 * `load_ckpt`: a reference-format ``.pth`` checkpoint → a state dict with
   weight norm folded into plain weights, ready for ``load_state_dict``.
-* `load_params_npz`: an ``.npz`` the JAX package wrote
-  (``ckpt/native_io.py::save_npz``) → the pytree, for `synthesizer_from_jax`.
+* `synthesizer_to_jax`: a converter `Synthesizer` → the JAX pytree, the
+  inverse of `synthesizer_from_jax` (what ``ckpt/native_io.py::save_npz``
+  writes for the JAX package to read).
+* `discriminators_from_jax`: the JAX discriminators' pytree
+  (``training/discriminator.py::init_discriminators``) → the port's
+  `Discriminators`: conv2d HWIO (5, 1, C_in, C_out) → [C_out, C_in, 5, 1],
+  grouped conv1d (K, C_in/groups, C_out) → [C_out, C_in/groups, K].
 
-Only numpy arrays cross the boundary: nothing here imports JAX.
+The pytrees cross as ``.npz`` files through ``ckpt/native_io.py``
+(`load_npz` / `save_npz`).  Only numpy arrays cross the boundary: nothing here imports JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import TYPE_CHECKING, Any, Mapping
 
 import numpy as np
 import torch
 
 from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models.synthesizer import Synthesizer, make_dec_cache
+
+if TYPE_CHECKING:
+    from openvoice_tpu_torch.training.discriminator import Discriminators
 
 
 def _conv(p: Mapping[str, Any], prefix: str, sd: dict) -> None:
@@ -222,25 +231,89 @@ def load_ckpt(path: str) -> dict[str, torch.Tensor]:
     return fold_weight_norm({k: v for k, v in sd.items() if isinstance(v, torch.Tensor)})
 
 
-def load_params_npz(path: str) -> dict:
-    """The nested pytree (dicts and lists of numpy arrays) of an ``.npz``
-    whose keys are dotted paths, as ``openvoice_tpu/ckpt/torch_import.py::
-    load_params_npz`` rebuilds it, without the conversion to JAX arrays."""
-    root: dict = {}
-    with np.load(path) as flat:
-        for key in flat.files:
-            parts = key.split(".")
-            node = root
-            for part in parts[:-1]:
-                node = node.setdefault(part, {})
-            node[parts[-1]] = flat[key]
+def _np(sd: Mapping[str, torch.Tensor], key: str) -> np.ndarray:
+    return sd[key].detach().cpu().numpy()
 
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        keys = list(node)
-        if keys and all(k.isdigit() for k in keys):
-            return [listify(node[k]) for k in sorted(keys, key=int)]
-        return {k: listify(v) for k, v in node.items()}
 
-    return listify(root)
+def _conv_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> dict:
+    p = {"w": np.ascontiguousarray(np.transpose(_np(sd, f"{prefix}.weight"), (2, 1, 0)))}
+    if f"{prefix}.bias" in sd:
+        p["b"] = _np(sd, f"{prefix}.bias")
+    return p
+
+
+def _conv_transpose_to_jax(sd: Mapping[str, torch.Tensor], prefix: str) -> dict:
+    w = np.transpose(_np(sd, f"{prefix}.weight"), (2, 0, 1))[::-1]  # the import-time kernel flip
+    return {"w": np.ascontiguousarray(w), "b": _np(sd, f"{prefix}.bias")}
+
+
+def _wn_to_jax(sd: Mapping[str, torch.Tensor], wn, prefix: str) -> dict:
+    p = {"in": [_conv_to_jax(sd, f"{prefix}.in_layers.{i}") for i in range(len(wn.in_layers))],
+         "res_skip": [_conv_to_jax(sd, f"{prefix}.res_skip_layers.{i}") for i in range(len(wn.res_skip_layers))]}
+    if wn.cond_layer is not None:
+        p["cond"] = _conv_to_jax(sd, f"{prefix}.cond_layer")
+    return p
+
+
+def synthesizer_to_jax(model: Synthesizer) -> dict:
+    """A converter (n_speakers == 0) → the JAX package's parameter pytree of
+    numpy arrays: the inverse of `synthesizer_from_jax`, exact."""
+    if model.cfg.n_speakers != 0:
+        raise ValueError("synthesizer_to_jax takes a converter (n_speakers == 0)")
+    sd = model.state_dict()
+    dec = model.dec
+    resblocks = []
+    for n, rb in enumerate(dec.resblocks):
+        names = ("convs1", "convs2") if hasattr(rb, "convs1") else ("convs",)
+        resblocks.append({name: [_conv_to_jax(sd, f"dec.resblocks.{n}.{name}.{j}")
+                                 for j in range(len(getattr(rb, name)))] for name in names})
+    dec_p = {"conv_pre": _conv_to_jax(sd, "dec.conv_pre"),
+             "ups": [_conv_transpose_to_jax(sd, f"dec.ups.{i}") for i in range(len(dec.ups))],
+             "resblocks": resblocks,
+             "conv_post": _conv_to_jax(sd, "dec.conv_post")}
+    if dec.cond is not None:
+        dec_p["cond"] = _conv_to_jax(sd, "dec.cond")
+    flows = model.flow.flows[::2]  # odd slots are the parameter-free flips
+    ref = model.ref_enc
+    return {
+        "enc_q": {"pre": _conv_to_jax(sd, "enc_q.pre"), "wn": _wn_to_jax(sd, model.enc_q.enc, "enc_q.enc"),
+                  "proj": _conv_to_jax(sd, "enc_q.proj")},
+        "flow": {"layers": [{"pre": _conv_to_jax(sd, f"flow.flows.{2 * i}.pre"),
+                             "wn": _wn_to_jax(sd, layer.enc, f"flow.flows.{2 * i}.enc"),
+                             "post": _conv_to_jax(sd, f"flow.flows.{2 * i}.post")}
+                            for i, layer in enumerate(flows)]},
+        "dec": dec_p,
+        "ref_enc": {
+            "layernorm": {"gamma": _np(sd, "ref_enc.layernorm.weight"), "beta": _np(sd, "ref_enc.layernorm.bias")},
+            "convs": [{"w": np.ascontiguousarray(np.transpose(_np(sd, f"ref_enc.convs.{i}.weight"), (2, 3, 1, 0))),
+                       "b": _np(sd, f"ref_enc.convs.{i}.bias")} for i in range(len(ref.convs))],
+            "gru": {"w_ih": np.ascontiguousarray(_np(sd, "ref_enc.gru.weight_ih_l0").T),
+                    "w_hh": np.ascontiguousarray(_np(sd, "ref_enc.gru.weight_hh_l0").T),
+                    "b_ih": _np(sd, "ref_enc.gru.bias_ih_l0"), "b_hh": _np(sd, "ref_enc.gru.bias_hh_l0")},
+            "proj": {"w": np.ascontiguousarray(_np(sd, "ref_enc.proj.weight").T), "b": _np(sd, "ref_enc.proj.bias")},
+        },
+    }
+
+
+def discriminators_from_jax(d_params: Mapping[str, Any]) -> Discriminators:
+    """The JAX discriminators' pytree (``{"scale": {"convs", "post"},
+    "periods": [{"convs", "post"}, ...]}``) → a CPU `Discriminators` (strict).
+    The training layer is imported here, so that loading a converter's
+    weights does not load it."""
+    from openvoice_tpu_torch.training.discriminator import Discriminators
+
+    def conv2d_hwio(c: Mapping[str, Any], prefix: str) -> None:
+        sd[f"{prefix}.weight"] = np.transpose(np.asarray(c["w"]), (3, 2, 0, 1))
+        sd[f"{prefix}.bias"] = np.asarray(c["b"])
+
+    sd: dict[str, np.ndarray] = {}
+    for i, c in enumerate(d_params["scale"]["convs"]):
+        _conv(c, f"scale.convs.{i}", sd)  # (K, C_in/groups, C_out) → [C_out, C_in/groups, K]
+    _conv(d_params["scale"]["post"], "scale.post", sd)
+    for n, per in enumerate(d_params["periods"]):
+        for i, c in enumerate(per["convs"]):
+            conv2d_hwio(c, f"periods.{n}.convs.{i}")
+        conv2d_hwio(per["post"], f"periods.{n}.post")
+    disc = Discriminators()
+    disc.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}, strict=True)
+    return disc

@@ -1,0 +1,280 @@
+"""Train steps for the tone-colour converter stack (the port of
+``openvoice_tpu/training/train.py``).
+
+One step: posterior encode → flow → random-slice decode (VITS segment
+slicing bounds the decoder's cost) → mel L1 + prior KL → AdamW update, and
+for the adversarial recipe a discriminator update before the generator's.
+The JAX package trains on stock XLA ops (no Pallas kernel has a backward
+pass), and so does the port: the f32 ``nn.Module``s of ``models/`` under
+``torch.autograd``, with TF32 off on the card.  The mel of the loss is the
+windowed DFT-basis product, which is differentiable; the STFT kernel has no
+backward pass and is not used here.
+
+Randomness (the posterior noise and the slice starts) comes from an explicit
+``torch.Generator`` on the CPU, or is passed in as `noise` and `starts`, so
+that tests can feed both packages the same draws.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from openvoice_tpu_torch.api import resolve_device
+from openvoice_tpu_torch.audio.mel import mel_filterbank
+from openvoice_tpu_torch.audio.stft import stft_basis
+from openvoice_tpu_torch.config import SynthesizerConfig
+from openvoice_tpu_torch.models import synthesizer as S
+from openvoice_tpu_torch.models.align import sequence_mask
+from openvoice_tpu_torch.nn.flows import apply_coupling_block
+from openvoice_tpu_torch.training import losses as L
+from openvoice_tpu_torch.training.discriminator import Discriminators, init_discriminators
+
+
+@dataclass
+class TrainState:
+    """A model, its optimizer and the count of steps taken.  The steps
+    update the model and the optimizer in place and return the same state."""
+
+    model: nn.Module
+    opt: torch.optim.Optimizer
+    step: int = 0
+
+
+class GanTrainState(NamedTuple):
+    gen: TrainState
+    disc: TrainState
+
+
+def make_optimizer(params, lr: float = 2e-4, b1: float = 0.8, b2: float = 0.99) -> torch.optim.AdamW:
+    """AdamW with the HiFi-GAN/VITS betas: optax ``adamw``'s algebra
+    (bias-corrected moments, eps 1e-8 outside the root, weight decay 0.01
+    decoupled and applied to the old parameter).
+
+    AdamW skips a parameter whose ``.grad`` is None, where optax decays
+    every leaf: the steps hand it zeros instead (`grads_of`)."""
+    return torch.optim.AdamW(params, lr=lr, betas=(b1, b2), eps=1e-8, weight_decay=0.01)
+
+
+def training_device(device: str | torch.device | None) -> torch.device:
+    """`api.resolve_device` (the card unless the caller asks for the CPU),
+    with TF32 off on the card: the JAX package trains at full f32 precision
+    (``Precision.HIGHEST``), and cuDNN convolutions default to TF32."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return dev
+
+
+def make_train_state(model: nn.Module, lr: float = 2e-4) -> TrainState:
+    return TrainState(model=model, opt=make_optimizer(model.parameters(), lr))
+
+
+def init_train_state(cfg: SynthesizerConfig, generator: torch.Generator, lr: float = 2e-4,
+                     device: str | torch.device | None = None) -> TrainState:
+    """A random converter (`models.synthesizer.init_synthesizer`) on the
+    device, with its optimizer."""
+    model = S.init_synthesizer(cfg, generator).to(training_device(device))
+    return make_train_state(model, lr)
+
+
+def init_gan_train_state(cfg: SynthesizerConfig, generator: torch.Generator, lr: float = 2e-4,
+                         device: str | torch.device | None = None) -> GanTrainState:
+    """The converter's state, then the discriminators' (both drawn from
+    `generator`, in that order)."""
+    dev = training_device(device)
+    gen = init_train_state(cfg, generator, lr, dev)
+    return GanTrainState(gen=gen, disc=make_train_state(init_discriminators(generator).to(dev), lr))
+
+
+# the loss's constant matrices on each device and in each dtype, made once:
+# a copy from pageable host memory to the card waits for every kernel queued
+# before it
+_CONSTANTS: dict[tuple, torch.Tensor] = {}
+
+
+def _constant(key: tuple, make, like: torch.Tensor) -> torch.Tensor:
+    full = (*key, like.device, like.dtype)
+    if full not in _CONSTANTS:
+        _CONSTANTS[full] = torch.from_numpy(make()).to(like.device, like.dtype)
+    return _CONSTANTS[full]
+
+
+def _mel_from_audio_frames(audio_bt: torch.Tensor, cfg: SynthesizerConfig, num_mels: int = 80) -> torch.Tensor:
+    """[B, T_samples] → [B, frames, mels] log-mel, differentiable: reflect pad
+    (n_fft − hop)/2, frames at multiples of hop, the windowed DFT basis,
+    sqrt(re² + im² + 1e-6), the mel filterbank, log(clamp(·, 1e-5))."""
+    n_fft, hop = cfg.filter_length, cfg.hop_length
+    pad = (n_fft - hop) // 2
+    x = F.pad(audio_bt[:, None], (pad, pad), mode="reflect")[:, 0]
+    frames = x.unfold(-1, n_fft, hop)  # [B, F, n_fft]
+    basis = _constant(("basis", n_fft, cfg.win_length), lambda: stft_basis(n_fft, cfg.win_length), x)
+    proj = torch.matmul(frames, basis)
+    n_freq = n_fft // 2 + 1
+    mag = torch.sqrt(proj[..., :n_freq] ** 2 + proj[..., n_freq:] ** 2 + 1e-6)
+    fb = _constant(("mel_t", cfg.sampling_rate, n_fft, num_mels),
+                   lambda: np.ascontiguousarray(mel_filterbank(cfg.sampling_rate, n_fft, num_mels, 0.0, None).T), x)
+    return torch.log(torch.clamp(torch.matmul(mag, fb), min=1e-5))
+
+
+def _slice_segments(x: torch.Tensor, starts: torch.Tensor, seg: int) -> torch.Tensor:
+    """Per-row slice [B, T, C] → [B, seg, C] (commons.py:48-54).  Each start
+    is clamped to [0, T − seg], as ``jax.lax.dynamic_slice_in_dim`` does."""
+    starts = torch.clamp(starts.to(device=x.device, dtype=torch.int64), 0, x.shape[1] - seg)
+    idx = starts[:, None] + torch.arange(seg, device=x.device)[None, :]
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
+
+
+def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A CPU tensor on `device`; to the card through pinned memory and an
+    asynchronous copy, which does not wait for the kernels queued before it."""
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
+
+
+def draw_noise_and_starts(cfg: SynthesizerConfig, spec_lengths: torch.Tensor, t: int,
+                          generator: torch.Generator | None, segment_frames: int,
+                          noise: torch.Tensor | None = None, starts: torch.Tensor | None = None):
+    """The step's random draws, each taken only when the caller did not pass
+    it: noise [B, T, inter] standard normal, then starts [B] =
+    ⌊u · max(length − segment_frames, 1)⌋ with u uniform in [0, 1)
+    (commons.py:57-64).  Drawn on the CPU from `generator`, then moved to
+    the lengths' device (the lengths are not read back)."""
+    b, dev = spec_lengths.shape[0], spec_lengths.device
+    if (noise is None or starts is None) and generator is None:
+        raise ValueError("pass a torch.Generator, or both noise and starts")
+    if noise is None:
+        noise = upload(torch.randn(b, t, cfg.inter_channels, generator=generator), dev)
+    if starts is None:
+        u = upload(torch.rand(b, generator=generator), dev)
+        max_start = torch.clamp(spec_lengths - segment_frames, min=1).float()
+        starts = (u * max_start).to(torch.int64)
+    return noise, starts
+
+
+class GeneratorOut(NamedTuple):
+    audio_hat: torch.Tensor  # [B, seg·upsample] decoded slice
+    target: torch.Tensor     # [B, seg·upsample] the same slice of the input audio
+    z_p: torch.Tensor        # [B, T, inter]
+    m_q: torch.Tensor
+    logs_q: torch.Tensor
+    mask: torch.Tensor       # [B, T, 1]
+
+
+def _generator_forward(model: S.Synthesizer, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
+                       spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None,
+                       segment_frames: int, noise: torch.Tensor | None = None,
+                       starts: torch.Tensor | None = None) -> GeneratorOut:
+    """enc_q → flow → slice → dec, shared by both steps.
+
+    spec [B, T, n_freq], audio [B, T·hop], spec_lengths [B], g [B, 1, gin].
+    With zero_g (V2) the posterior encoder and the decoder see zeros and the
+    flow sees the real g, as in conversion."""
+    b, t = spec.shape[0], spec.shape[1]
+    mask = sequence_mask(spec_lengths, t)[..., None].to(spec.dtype)
+    noise, starts = draw_noise_and_starts(cfg, spec_lengths, t, generator, segment_frames, noise, starts)
+    g_enc = torch.zeros_like(g) if cfg.zero_g else g
+    z, m_q, logs_q = S.posterior_encode(model, spec, mask, g_enc, 1.0, noise)
+    z_p = apply_coupling_block(model.flow, z, mask, g=g, reverse=False)
+    z_slice = _slice_segments(z, starts, segment_frames)
+    audio_hat = model.dec(z_slice.transpose(1, 2), g=g_enc.transpose(1, 2))[:, 0]  # [B, seg·up]
+    target = _slice_segments(audio.reshape(b, -1)[..., None], starts * cfg.hop_length,
+                             segment_frames * cfg.upsample_factor)[..., 0]
+    return GeneratorOut(audio_hat, target, z_p, m_q, logs_q, mask)
+
+
+def _mel_kl(fwd: GeneratorOut, cfg: SynthesizerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    loss_mel = L.mel_l1(_mel_from_audio_frames(fwd.audio_hat, cfg), _mel_from_audio_frames(fwd.target, cfg))
+    return loss_mel, L.kl_to_standard_normal(fwd.z_p, fwd.m_q, fwd.logs_q, fwd.mask)
+
+
+def converter_loss(model: S.Synthesizer, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
+                   spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None = None,
+                   segment_frames: int = 32, c_mel: float = 45.0, c_kl: float = 1.0,
+                   noise: torch.Tensor | None = None, starts: torch.Tensor | None = None):
+    """The self-reconstruction objective: → (total, {"mel", "kl"})."""
+    fwd = _generator_forward(model, cfg, spec, audio, spec_lengths, g, generator, segment_frames, noise, starts)
+    loss_mel, loss_kl = _mel_kl(fwd, cfg)
+    return c_mel * loss_mel + c_kl * loss_kl, {"mel": loss_mel, "kl": loss_kl}
+
+
+def discriminator_loss(disc: Discriminators, target: torch.Tensor, fake: torch.Tensor) -> torch.Tensor:
+    """LSGAN loss of `disc` on the real slice and a (detached) fake one."""
+    logits_real, _ = disc(target)
+    logits_fake, _ = disc(fake.detach())
+    return L.discriminator_adv_loss(logits_real, logits_fake)
+
+
+def generator_loss(disc: Discriminators, fwd: GeneratorOut, cfg: SynthesizerConfig, c_mel: float = 45.0,
+                   c_kl: float = 1.0, c_fm: float = 2.0) -> tuple[torch.Tensor, dict]:
+    """The generator's adversarial objective through `disc`, the real
+    slice's feature maps detached: → (total, {"mel", "kl", "adv", "fm"})."""
+    loss_mel, loss_kl = _mel_kl(fwd, cfg)
+    with torch.no_grad():
+        _, fmaps_real = disc(fwd.target)
+    logits_fake, fmaps_fake = disc(fwd.audio_hat)
+    loss_adv = L.generator_adv_loss(logits_fake)
+    loss_fm = L.feature_matching_loss(fmaps_real, fmaps_fake)
+    total = c_mel * loss_mel + c_kl * loss_kl + loss_adv + c_fm * loss_fm
+    return total, {"mel": loss_mel, "kl": loss_kl, "adv": loss_adv, "fm": loss_fm}
+
+
+def grads_of(loss: torch.Tensor, module: nn.Module) -> list[torch.Tensor]:
+    """d loss / d every parameter of `module`, in ``parameters()`` order,
+    zeros where the loss does not reach (optax sees a zero gradient there).
+    Nothing is written to ``.grad``."""
+    params = list(module.parameters())
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if gr is None else gr for p, gr in zip(params, grads)]
+
+
+def _apply_grads(state: TrainState, grads: list[torch.Tensor], lr: float) -> None:
+    """One AdamW update of every parameter (each gets its gradient, zeros
+    included, so that each is decayed as optax decays every leaf)."""
+    for p, gr in zip(state.model.parameters(), grads):
+        p.grad = gr
+    for group in state.opt.param_groups:
+        group["lr"] = lr
+    state.opt.step()
+    state.opt.zero_grad(set_to_none=True)
+    state.step += 1
+
+
+def train_step(state: TrainState, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
+               spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None = None,
+               segment_frames: int = 32, lr: float = 2e-4, noise: torch.Tensor | None = None,
+               starts: torch.Tensor | None = None) -> tuple[TrainState, dict]:
+    """One mel + KL step → (state, {"mel", "kl", "total"}), the metrics as
+    detached 0-d tensors on the device.  `lr` applies to this step (pass the
+    value used at init, or a schedule's output)."""
+    loss, metrics = converter_loss(state.model, cfg, spec, audio, spec_lengths, g, generator,
+                                   segment_frames=segment_frames, noise=noise, starts=starts)
+    _apply_grads(state, grads_of(loss, state.model), lr)
+    return state, {**{k: v.detach() for k, v in metrics.items()}, "total": loss.detach()}
+
+
+def gan_train_step(state: GanTrainState, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
+                   spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None = None,
+                   segment_frames: int = 32, c_mel: float = 45.0, c_kl: float = 1.0, c_fm: float = 2.0,
+                   lr: float = 2e-4, noise: torch.Tensor | None = None,
+                   starts: torch.Tensor | None = None) -> tuple[GanTrainState, dict]:
+    """One adversarial step in the JAX package's order: the generator's
+    forward once (JAX runs it twice on the same draws, to the same values),
+    the discriminator's update on the detached fake, then the generator's
+    loss through the UPDATED discriminator and the generator's update.  The
+    generator's gradients are taken over its own parameters alone, so the
+    discriminator's parameters and moments see only their own update.
+    → (state, {"mel", "kl", "adv", "fm", "gen_total", "disc"})."""
+    fwd = _generator_forward(state.gen.model, cfg, spec, audio, spec_lengths, g, generator, segment_frames,
+                             noise, starts)
+    d_loss = discriminator_loss(state.disc.model, fwd.target, fwd.audio_hat)
+    _apply_grads(state.disc, grads_of(d_loss, state.disc.model), lr)
+    g_loss, metrics = generator_loss(state.disc.model, fwd, cfg, c_mel, c_kl, c_fm)
+    _apply_grads(state.gen, grads_of(g_loss, state.gen.model), lr)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return state, {**metrics, "gen_total": g_loss.detach(), "disc": d_loss.detach()}

@@ -6,6 +6,8 @@ kernel's library is rebuilt when a header it shares changes."""
 import ast
 import pathlib
 import shutil
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -40,6 +42,16 @@ def test_port_imports_no_jax(path):
     for name in _imported_modules(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "openvoice_tpu"), f"{path.name} imports {name}"
+
+
+def test_inference_and_checkpoints_load_no_training_module():
+    """The layers stack one way: the API and the checkpoint layer load
+    without the training layer, which builds on them."""
+    code = ("import sys, openvoice_tpu_torch.api, openvoice_tpu_torch.ckpt.from_jax, "
+            "openvoice_tpu_torch.ckpt.native_io; "
+            "print([m for m in sys.modules if m.startswith('openvoice_tpu_torch.training')])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
 
 
 def test_converter_without_device_raises_when_cuda_is_absent(monkeypatch):
@@ -77,6 +89,28 @@ def test_serving_tier_without_device_raises_when_cuda_is_absent(make, monkeypatc
     assert made.device.type == "cpu"
     if make == "VoiceService":
         made.close()
+
+
+@pytest.mark.parametrize("entry", ["train", "init_train_state", "init_gan_train_state", "mel_cepstra"])
+def test_training_entry_points_without_device_raise_when_cuda_is_absent(entry, tmp_path, monkeypatch):
+    """Training and its quality metrics run on the card unless asked for the
+    CPU, like the converter."""
+    from openvoice_tpu_torch.audio.io import write_wav
+    from openvoice_tpu_torch.training import train as T
+    from openvoice_tpu_torch.training.loop import train
+    from openvoice_tpu_torch.training.quality import mel_cepstra
+
+    cfg = torch_cfg(TINY)
+    (tmp_path / "spk").mkdir()
+    write_wav(str(tmp_path / "spk" / "a.wav"), np.zeros(22050, np.float32), 22050)
+    call = {"train": lambda **kw: train(str(tmp_path), cfg, steps=0, batch_size=1, segment_frames=16, **kw),
+            "init_train_state": lambda **kw: T.init_train_state(cfg, torch.Generator().manual_seed(0), **kw),
+            "init_gan_train_state": lambda **kw: T.init_gan_train_state(cfg, torch.Generator().manual_seed(0), **kw),
+            "mel_cepstra": lambda **kw: mel_cepstra(np.zeros(4096, np.float32), 22050, **kw)}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call()
+    call(device="cpu")
 
 
 def test_serving_mode_is_refused_until_its_kernels_exist():
