@@ -78,10 +78,29 @@ Phases, in order; any failure exits non-zero before the result line:
    K3 2, K4 2 in serving mode), ``mcd`` / ``se_cosine`` and the
    SE-conditioned dataset's first batch (K5, in the prefetch thread)
    against the CPU;
-7. one JSON line of every ported kernel (with ``launches_train_phase``), one
-   of the serving tier's numbers, one of training's, the card's
-   ``nvidia-smi`` line, then the result line
-   ``{"ok": true, "device": {...}}``.
+10. audio formats and the mesh tier (after training, before the result):
+   10a. the codec libraries built from ``native/src``, the codecs this
+   machine has printed (a missing system library is printed, not failed;
+   FLAC and WAV always run); a 10 s clip written in every available format
+   through ``load_audio`` → ``extract_se_from_file`` → ``convert(fast=True)``
+   (K5 1, K1 1, K2 2, K3 2, K4 2), held against the WAV clip (FLAC lossless
+   at PCM16, a lossy codec by its aligned SNR and the speaker embedding's
+   cosine); ``serve()`` answering ``format: "mp3", kbps: 64``;
+   10b. on a one-process mesh over the card: the sequence-parallel and the
+   tensor-parallel f32 convert (1×2) against the single-device convert at
+   the JAX suite's bar, a serving-mode ``ConvertBatcher`` over a 2×1 mesh on
+   8 requests against the single-device batcher (K5 1 a PCM group's shard,
+   K1 1, K2 2, K3 2, K4 2 a shard; padded rows exactly 0), a heartbeat;
+   10c. two processes of this script (``--mesh-child``) on the card over
+   gloo: the global batch and the collectives, a data-parallel serving-mode
+   convert round (K1 1, K2 2, K3 2, K4 2 a rank) against one process, and a
+   data-parallel B = 8 GAN step at full width whose losses and every
+   gradient leaf match one process's step in f64 (1e-10 of the leaf's peak),
+   then a warm f32 step's wall; then one NCCL rank through the same helpers;
+7. one JSON line of every ported kernel (with ``launches_train_phase`` and
+   phase 10's launch counts), one of the serving tier's numbers, one of
+   training's, one of phase 10's, the card's ``nvidia-smi`` line, then the
+   result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a CUDA card, or outside a checkout of the
 repository, it fails.
@@ -1565,19 +1584,20 @@ def serve_stream_fields(tc, ses: dict) -> tuple[list[dict], list[np.ndarray]]:
     return fields, clips
 
 
-def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False) -> dict:
-    """Submit `fields` together to a serving-mode batcher on `tc`'s model;
-    wait for every result.  Returns the results, the wall time from the first
-    submit to the last result, the run's own metrics snapshot, and the groups
-    it dispatched (mode, bucket, rows, padded batch); with `capture`, each
-    group's int16 wire tensor too."""
+def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False, mesh=None) -> dict:
+    """Submit `fields` together to a serving-mode batcher on `tc`'s model
+    (over `mesh` where given); wait for every result.  Returns the results,
+    the wall time from the first submit to the last result, the run's own
+    metrics snapshot, and the groups it dispatched (mode, bucket, rows, padded
+    batch); with `capture`, each call's int16 wire tensor too (one a group,
+    one a shard of a group over a mesh)."""
     import torch
 
     from openvoice_tpu_torch.runtime.profiler import Metrics
     from openvoice_tpu_torch.serve import batcher as B
 
     batcher = B.ConvertBatcher(tc.model, tc.cfg, max_batch=max_batch, max_wait_ms=5.0, fast=True,
-                               device=tc.device)
+                               device=None if mesh else tc.device, mesh=mesh)
     groups, wires, metrics = [], [], Metrics()
     real_dispatch, real_wire, real_metrics = batcher._dispatch, B._wire_int16, B.METRICS
 
@@ -2338,6 +2358,501 @@ def training_phase(tmp: str, smi: str, kind: str) -> dict:
     return {**run, "overfit_mel": mels, "card_vs_cpu": cvc, **kernels}
 
 
+# -- phase 10: audio formats and the mesh tier --------------------------------------
+
+# a lossy codec's decode of the 10 s clip against the WAV decode, time-aligned:
+# the SNR floor in dB (this clip measured mp3 128 kbps 25.7, Vorbis q0.4
+# 29.6, AAC 128 kbps 42.5 with the libraries of one x86 host; the floors
+# leave 5-7 dB for other library versions)
+CODEC_SNR_DB = {"mp3": 20.0, "ogg": 24.0, "m4a": 35.0}
+SE_COSINE_MIN = 0.9    # a lossy clip's speaker embedding against the WAV clip's
+MESH_ATOL, MESH_RTOL = 2e-5, 1e-4  # the JAX suite's distributed bar (tests/test_distributed.py)
+MESH_FRAMES = [861, 700, 512, 430, 300, 200, 600, 172]  # the 2-rank convert round's rows, bucket 1024
+CHILD_TIMEOUT_S = 420
+
+
+def aligned_snr(a: np.ndarray, ref: np.ndarray, max_lag: int = 4096) -> tuple[int, float]:
+    """(lag, SNR in dB) of `a` against `ref` at the lag of their peak
+    cross-correlation within ±max_lag samples (a codec's delay)."""
+    n = len(ref)
+    m = 1 << int(np.ceil(np.log2(len(a) + n)))
+    xc = np.fft.irfft(np.fft.rfft(a, m) * np.conj(np.fft.rfft(ref, m)), m)
+    lags = np.r_[np.arange(0, max_lag + 1), np.arange(-max_lag, 0)]
+    lag = int(lags[np.argmax(xc[lags % m])])
+    seg = a[lag : lag + n] if lag >= 0 else np.concatenate([np.zeros(-lag, a.dtype), a])[:n]
+    err = np.pad(seg, (0, n - len(seg))) - ref
+    return lag, float(10 * np.log10(np.sum(ref.astype(np.float64) ** 2) / max(np.sum(err.astype(np.float64) ** 2),
+                                                                           1e-30)))
+
+
+def codecs() -> dict:
+    """Build the codec libraries from native/src and report which codecs this
+    machine has (a missing system library is reported, not failed)."""
+    from openvoice_tpu_torch.audio import _native_build, ffdec, flac, mp3, ogg, opus
+
+    t0 = time.perf_counter()
+    built = [_native_build.build("ovt_audio").name]
+    if _native_build.ffmpeg_found():
+        built.append(_native_build.build("ovt_ffdec").name)
+    print(f"built {built} with {_native_build._cxx()} in {time.perf_counter() - t0:.2f} s")
+    mpg123 = True
+    try:  # the decoder answers -3 before it opens the file where libmpg123 is absent
+        mp3.read_mp3(os.path.join(tempfile.gettempdir(), "no-such-file.mp3"))
+    except ValueError as exc:
+        mpg123 = "code -3" not in str(exc)
+    found = {"flac": flac.available(), "mp3 decode (libmpg123)": mpg123,
+             "mp3 encode (libmp3lame)": mp3.encoder_available(),
+             "ogg (libvorbis, libvorbisfile)": ogg.available(),
+             "m4a/aac/mp4/… (ffmpeg)": ffdec.available(), "opus (libopus)": opus.available()}
+    print("codecs: " + ", ".join(f"{k} {'yes' if v else 'ABSENT'}" for k, v in found.items()))
+    check(found["flac"], "the in-repo FLAC codec did not build")
+    return found
+
+
+def audio_formats_phase(tc, ses: dict, tmp: str, smi: str) -> dict:
+    """10a: every available format of a 10 s clip through load_audio →
+    extract_se_from_file → convert(fast=True), held against the WAV clip."""
+    import base64
+    import urllib.error
+    import urllib.request
+
+    import torch
+
+    from openvoice_tpu_torch.audio import ffdec, flac, mp3, ogg
+    from openvoice_tpu_torch.audio.io import load_audio, write_wav
+    from openvoice_tpu_torch.serve import server as tserver
+
+    phase("10a. audio formats: a 10 s clip written as wav, flac, mp3, ogg, m4a through load_audio → "
+          "extract_se_from_file → convert(fast=True), V2 full width")
+    found = codecs()
+    clip = voice(10.0, 140.0, seed=31)
+    writers = {"wav": write_wav, "flac": flac.write_flac}
+    if found["mp3 encode (libmp3lame)"]:
+        writers["mp3"] = mp3.write_mp3
+    if found["ogg (libvorbis, libvorbisfile)"]:
+        writers["ogg"] = ogg.write_ogg
+    if found["m4a/aac/mp4/… (ffmpeg)"]:
+        writers["m4a"] = ffdec.write_m4a
+    runs, decode_ms, convert_launches = {}, {}, {}
+    expected = {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2}
+    for fmt, write in writers.items():
+        path = os.path.join(tmp, f"clip.{fmt}")
+        write(path, clip, SR)
+        try:
+            t0 = time.perf_counter()
+            audio, _ = load_audio(path, sr=SR)
+            decode_ms[fmt] = (time.perf_counter() - t0) * 1e3
+        except ValueError as exc:  # mp3 written but libmpg123 absent: the decoder answers -3
+            check(fmt == "mp3" and "code -3" in str(exc), f"{fmt} decode failed: {exc}")
+            print(f"{fmt}: written, not decodable here (libmpg123 absent)")
+            continue
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        se = tc.extract_se_from_file(path)
+        torch.cuda.synchronize()
+        se_launches = launch_counts()
+        zero_launch_counts()
+        out = tc.convert(audio, ses["se_src"], se, tau=0.3, seed=SEED, message="", fast=True)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        check(se_launches["stft_magnitude"] == 1 and sum(se_launches.values()) == 1,
+              f"{fmt}: extract_se_from_file launched {se_launches}")
+        check(launches == expected, f"{fmt}: convert(fast=True) launched {launches}, not {expected}")
+        check(bool(np.isfinite(out).all()) and out.shape[0] % tc.cfg.upsample_factor == 0, f"{fmt}: bad audio")
+        runs[fmt] = (audio, se.reshape(-1), out)
+        convert_launches[fmt] = launches
+        print(f"{fmt}: {os.path.getsize(path)} bytes, decoded {len(audio)} samples in {decode_ms[fmt]:.2f} ms; "
+              f"launches extract_se {se_launches['stft_magnitude']} K5, convert {launches}")
+    wav_audio, wav_se, wav_out = runs["wav"]
+    flac_audio, _, flac_out = runs["flac"]
+    # FLAC's PCM16 grid: llround(x · 32767) encoded, read back × 2⁻¹⁵
+    scaled = np.clip(clip.astype(np.float64), -1.0, 1.0) * 32767.0
+    grid = (np.sign(scaled) * np.floor(np.abs(scaled) + 0.5)).astype(np.float32) * np.float32(2.0 ** -15)
+    check(np.array_equal(flac_audio, grid), "FLAC is not lossless at PCM16")
+    check(float(np.abs(flac_audio - wav_audio).max()) <= 1.5 / 32768.0, "FLAC and WAV decodes differ by > 1 LSB")
+    d = float(np.abs(flac_out - wav_out).max())
+    check(flac_out.shape == wav_out.shape and d <= FAST_VS_F32_TOL * float(np.abs(wav_out).max()),
+          "the FLAC clip's convert strays from the WAV clip's")
+    agreement = {"flac": {"decode": "lossless at PCM16", "convert_max_over_peak": d / float(np.abs(wav_out).max())}}
+    for fmt, floor in CODEC_SNR_DB.items():
+        if fmt not in runs:
+            continue
+        audio, se, out = runs[fmt]
+        lag, snr = aligned_snr(audio, wav_audio)
+        cos = float(np.dot(se, wav_se) / (np.linalg.norm(se) * np.linalg.norm(wav_se)))
+        _, out_snr = aligned_snr(out, wav_out)
+        agreement[fmt] = {"decode_lag": lag, "decode_snr_db": snr, "se_cosine": cos, "convert_snr_db": out_snr}
+        print(f"{fmt} against wav: decode lag {lag} samples, SNR {snr:.2f} dB (floor {floor}); speaker embedding "
+              f"cosine {cos:.5f} (floor {SE_COSINE_MIN}); converted audio SNR {out_snr:.2f} dB")
+        check(snr >= floor and cos >= SE_COSINE_MIN, f"{fmt} strays from the WAV clip beyond its codec's bar")
+
+    # serve(): format mp3 at 64 kbps (a 400 where the encoder is absent)
+    svc = tserver.VoiceService(tc, max_batch=2, device=tc.device)
+    httpd = tserver.serve(svc, port=0)
+    try:
+        src = os.path.join(tmp, "clip.mp3" if "mp3" in runs else "clip.wav")
+        body = {"audio_path": src, "tgt_se": ses["se_tgt"].reshape(-1).tolist(), "format": "mp3", "kbps": 64}
+        req = urllib.request.Request(f"http://127.0.0.1:{httpd.server_address[1]}/convert",
+                                     data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                code, resp = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, resp = e.code, json.loads(e.read())
+    finally:
+        httpd.shutdown()
+        svc.close()
+    if found["mp3 encode (libmp3lame)"]:
+        check(code == 200 and resp["encoding"] == "mp3" and resp["kbps"] == 64, f"serve() mp3 answered {code}")
+        path = os.path.join(tmp, "answer.mp3")
+        with open(path, "wb") as f:
+            f.write(base64.b64decode(resp["audio_b64"]))
+        n = resp["num_samples"]
+        served = len(load_audio(path)[0]) if "mp3" in runs else n
+        check(n <= served <= n + 4608, f"the served mp3 decodes to {served} samples, not {n} + codec padding")
+        print(f"serve(): /convert of {os.path.basename(src)} answered format mp3 at kbps {resp['kbps']} "
+              f"({len(resp['audio_b64'])} base64 bytes, {served} samples decoded for {n})")
+    else:
+        check(code == 400, f"serve() answered mp3 without an encoder with {code}")
+        print("serve(): mp3 answered 400 (libmp3lame absent)")
+    # the kernels line's counts: those measured on the FLAC clip, which every card decodes
+    return {"codecs": found, "decode_ms": decode_ms, "agreement": agreement, "launches": convert_launches["flac"]}
+
+
+def mesh_close(label: str, got, ref) -> float:
+    d = (got - ref).abs()
+    ok = bool((d <= MESH_ATOL + MESH_RTOL * ref.abs()).all())
+    worst = float(d.max())
+    print(f"{label}: max |diff| {worst:.3e}, peak {float(ref.abs().max()):.4f} (bar atol {MESH_ATOL}, "
+          f"rtol {MESH_RTOL})")
+    check(got.shape == ref.shape and ok, f"{label} strays from the single-device convert")
+    return worst
+
+
+def wall_ms(fn, runs: int = 3) -> float:
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def mesh_phase(tc, ses: dict, smi: str) -> dict:
+    """10b: the one-process mesh on the card."""
+    import torch
+
+    from openvoice_tpu_torch.api import _spec_from_audio
+    from openvoice_tpu_torch.models import synthesizer as S
+    from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
+    from openvoice_tpu_torch.runtime.mesh import make_mesh
+    from openvoice_tpu_torch.runtime.multihost import HeartbeatMonitor
+    from openvoice_tpu_torch.runtime.parallel import TensorParallel
+    from openvoice_tpu_torch.runtime.sequence_parallel import required_halo, voice_conversion_sp
+
+    cfg, dev = tc.cfg, tc.device
+    phase(f"10b. one-process mesh on {dev}: sequence- and tensor-parallel convert (1×2), the batcher over 2×1")
+    padded, n = _spec_from_audio(voice(10.0, 150.0, seed=7), cfg)
+    x = torch.from_numpy(padded)[None].to(dev)
+    spec = torch.zeros(1, BUCKET, cfg.spec_channels, device=dev)
+    with torch.inference_mode():
+        spec[:, :n] = stft_magnitude(x, cfg.filter_length, cfg.hop_length, cfg.win_length)[:, :n]
+    lens = torch.tensor([n], device=dev)
+    g_src, g_tgt = (torch.from_numpy(ses[k].reshape(1, 1, -1)).to(dev) for k in ("se_src", "se_tgt"))
+    noise = torch.randn(1, BUCKET, cfg.inter_channels, generator=torch.Generator().manual_seed(SEED + 40)).to(dev)
+    mesh = make_mesh(2, data=1, model=2, devices=[dev, dev])
+    halo = required_halo(cfg)
+    check(BUCKET // 2 >= halo, f"a {BUCKET // 2}-frame shard is shorter than the halo {halo}")
+    zero_launch_counts()
+    with torch.inference_mode():
+        def single():
+            return S.voice_conversion(tc.model, spec, lens, g_src, g_tgt, 0.3, noise)[0]
+
+        def sp():
+            return voice_conversion_sp(tc.model, spec, lens, g_src, g_tgt, 0.3, noise, mesh=mesh).gather()
+
+        tp_model = TensorParallel(tc.model, cfg, mesh)
+
+        def tp():
+            return tp_model.convert(spec, lens, g_src, g_tgt, 0.3, noise).gather()
+
+        ref = single()
+        sp_err = mesh_close(f"sequence parallel, 2 shards of {BUCKET // 2} frames (halo {halo})", sp(), ref)
+        tp_err = mesh_close("tensor parallel, 2 model positions", tp(), ref)
+        walls = {"single": wall_ms(single), "sp": wall_ms(sp), "tp": wall_ms(tp)}
+        # where the threads' time goes: the device's busy share of each wall,
+        # and the walls again with the interpreter handing its lock between
+        # threads every 10 µs (default 5 ms)
+        busy = {k: device_profile(fn, walls[k], f"{k} f32 convert") for k, fn in
+                (("single", single), ("sp", sp), ("tp", tp))}
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-5)
+        try:
+            fine = {"sp": wall_ms(sp), "tp": wall_ms(tp)}
+        finally:
+            sys.setswitchinterval(interval)
+    launched = launch_counts()
+    check(launched["stft_magnitude"] == 0 and sum(launched.values()) == 0,
+          f"the f32 mesh converts launched {launched}: they run stock layers")
+    print(f"walls (ms, median of 3, host clock to a synchronise): single-device f32 {walls['single']:.2f}, "
+          f"sequence parallel {walls['sp']:.2f}, tensor parallel {walls['tp']:.2f}; with a 10 µs switch interval "
+          f"sequence parallel {fine['sp']:.2f}, tensor parallel {fine['tp']:.2f}  [{smi}]")
+
+    fields, _ = serve_stream_fields(tc, ses)
+    eight = fields[:8]
+    bmesh = make_mesh(2, data=2, model=1, devices=[dev, dev])
+    run_stream(tc, eight[:2], SERVE_BATCH, mesh=bmesh)  # warm-up
+    single_run = run_stream(tc, eight, SERVE_BATCH)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    run = run_stream(tc, eight, SERVE_BATCH, capture=True, mesh=bmesh)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    groups = run["groups"]
+    n_groups, n_pcm = len(groups), sum(g[0] == "pcm" for g in groups)
+    per_shard = {k: v / (2 * (n_pcm if k == "stft_magnitude" else n_groups)) for k, v in launches.items()}
+    print(f"mesh batcher: groups (mode, bucket, rows, padded batch) {groups}; launches {launches}")
+    check(per_shard == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2},
+          f"each shard of a group must launch K5 1 (PCM), K1 1, K2 2, K3 2, K4 2, not {per_shard}")
+    check(len(run["wires"]) == 2 * n_groups, f"{len(run['wires'])} shard calls for {n_groups} groups")
+    zero_rows = 0
+    for i, (_, _, rows, _) in enumerate(groups):
+        wire = torch.cat([w.cpu() for w in run["wires"][2 * i : 2 * i + 2]])
+        check(wire.shape[0] % 2 == 0 and bool((wire[rows:] == 0).all()), "a padded row of length 0 is not exactly 0")
+        zero_rows += wire.shape[0] - rows
+    worst = 0.0
+    for one, got in zip(single_run["outs"], run["outs"]):
+        d = float(np.abs(got - one).max())
+        check(got.shape == one.shape and d <= serve_bar(one), "the mesh batcher strays from the single batcher")
+        worst = max(worst, d / float(np.abs(one).max()))
+    print(f"mesh batcher against the single-device batcher, 8 requests: max diff over the peak {worst:.4f}; "
+          f"{zero_rows} padded rows of length 0, each exactly 0; launches per shard of a group {per_shard}; "
+          f"walls single {single_run['wall_s'] * 1e3:.1f} ms, mesh {run['wall_s'] * 1e3:.1f} ms  [{smi}]")
+    mon = HeartbeatMonitor(timeout_s=30.0)
+    check(mon.beat(), "heartbeat failed")
+    mon.inject_failure()
+    check(not mon.beat(), "an injected failure still beat")
+    print("heartbeat: beat True, after inject_failure False")
+    return {"sp_max_err": sp_err, "tp_max_err": tp_err, "walls_ms": walls, "busy_share": busy,
+            "walls_ms_switch_10us": fine, "per_shard": per_shard,
+            "batcher_walls_ms": {"single": single_run["wall_s"] * 1e3, "mesh": run["wall_s"] * 1e3},
+            "batcher_worst": worst}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn_children(world: int, backend: str, timeout_s: float = CHILD_TIMEOUT_S) -> list[dict]:
+    """`world` processes of this script in child mode on cuda:0; each prints
+    one ``child-result`` JSON line.  A child that fails or hangs fails the
+    phase; every child is stopped before this returns."""
+    addr = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-child", addr, str(world), str(r),
+                               backend], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = [""] * world
+    try:
+        deadline = time.time() + timeout_s
+        for r, p in enumerate(procs):
+            outs[r], _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if not line.startswith("child-result "):
+                print(f"  [rank {r}] {line}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("child-result ")]
+        check(p.returncode == 0 and len(lines) == 1, f"{backend} rank {r} of {world} failed (exit {p.returncode})")
+        results.append(json.loads(lines[0][len("child-result "):]))
+    return results
+
+
+def two_rank_phase(smi: str) -> dict:
+    """10c: two ranks on cuda:0 over gloo, then one NCCL rank."""
+    phase("10c. two processes on cuda:0 over gloo (NCCL refuses two ranks on one device): initialize → "
+          "global_mesh → make_global_batch, a data-parallel B = 8 GAN step at full width, a data-parallel "
+          "serving-mode convert round; then an NCCL group at world size 1")
+    t0 = time.perf_counter()
+    gloo = spawn_children(2, "gloo")
+    nccl = spawn_children(1, "nccl")[0]
+    print(f"2-rank gloo: {json.dumps(gloo)}  [{smi}]")
+    print(f"1-rank nccl: {json.dumps(nccl)}  [{smi}]")
+    print(f"two-process phase: {time.perf_counter() - t0:.1f} s")
+    return {"gloo": gloo, "nccl": nccl}
+
+
+def child_main(addr: str, world: int, rank: int, backend: str) -> int:
+    """One rank of 10c (``chip_smoke.py --mesh-child``)."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.models import synthesizer as S
+    from openvoice_tpu_torch.runtime import multihost as MH
+    from openvoice_tpu_torch.runtime.mesh import GroupComm
+    from openvoice_tpu_torch.runtime.parallel import data_parallel_convert
+    from openvoice_tpu_torch.training import train as T
+    from openvoice_tpu_torch.training.data import make_global_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    topo = MH.initialize(addr, world, rank, device="cuda:0", backend=backend, timeout_s=CHILD_TIMEOUT_S)
+    check((topo.process_id, topo.num_processes) == (rank, world), f"topology {topo}")
+    mesh = MH.global_mesh(model_parallel=1)
+    check(mesh.shape == {"data": world, "model": 1} and mesh.local_coords() == [(rank, 0)], f"mesh {mesh}")
+    dev = mesh.devices[rank, 0]
+    out: dict = {"rank": rank, "backend": torch.distributed.get_backend(), "device": str(dev)}
+
+    local = torch.arange(4, dtype=torch.float32)[:, None] + 10.0 * rank
+    batch = make_global_batch(local, mesh)
+    total = float(batch.sum())
+    check(abs(total - sum(6.0 + 40.0 * r for r in range(world))) < 1e-4, f"global sum {total}")
+    check(torch.equal(batch.gather().cpu()[:, 0], torch.cat([torch.arange(4.0) + 10.0 * r for r in range(world)])),
+          "gathered batch")
+    comm = GroupComm(mesh, "data", (rank, 0))
+    x = torch.full((3,), float(rank + 1), device=dev)
+    check(float(comm.all_reduce(x)[0]) == world * (world + 1) / 2, "all_reduce")
+    shifted = comm.shift(x, 1)
+    check(float(shifted[0]) == (rank if rank > 0 else 0.0), "shift")
+    check(MH.HeartbeatMonitor(timeout_s=60.0).beat(), "heartbeat")
+
+    # a data-parallel serving-mode convert round, against this process alone
+    tc_model = S.init_synthesizer(cfg, torch.Generator().manual_seed(SEED)).eval()
+    seed_flow_posts(tc_model, SEED + 1)
+    model = tc_model.to(dev)
+    n_rows = 4 * world
+    frames = MESH_FRAMES[:n_rows]
+    gen = torch.Generator().manual_seed(SEED + 60)
+    spec = torch.rand(n_rows, BUCKET, cfg.spec_channels, generator=gen)
+    for i, n in enumerate(frames):
+        spec[i, n:] = 0.0
+    lens = torch.tensor(frames)
+    g_src = torch.randn(n_rows, 1, cfg.gin_channels, generator=gen) * 0.1
+    g_tgt = torch.randn(n_rows, 1, cfg.gin_channels, generator=gen) * 0.1
+    noise = torch.randn(n_rows, BUCKET, cfg.inter_channels, generator=gen)
+    rows = slice(4 * rank, 4 * rank + 4)
+    cache = S.make_dec_cache(model)
+    replicas = {dev: (model, cache)}
+    with torch.inference_mode():
+        ref = S.voice_conversion(model, *(a.to(dev) for a in (spec, lens, g_src, g_tgt)), 0.3, noise.to(dev),
+                                 fast=True, dec_cache=cache)[0]
+
+        def dp_round():
+            args = [make_global_batch(a[rows], mesh) for a in (spec, lens, g_src, g_tgt, noise)]
+            return data_parallel_convert(model, mesh, *args[:4], 0.3, args[4], fast=True, replicas=replicas)
+
+        dp_round()
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        got = dp_round()
+        torch.cuda.synchronize()
+        out["convert_round_ms"] = (time.perf_counter() - t0) * 1e3
+        out["convert_round_launches"] = launch_counts()
+        whole = got.gather()
+    check(out["convert_round_launches"] == {"stft_magnitude": 0, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2,
+                                            "tail_stage": 2}, f"a rank's round launched {out['convert_round_launches']}")
+    peak = float(ref.abs().max())
+    out["convert_round_max_over_peak"] = float((whole - ref).abs().max()) / peak
+    check(out["convert_round_max_over_peak"] <= FAST_VS_F32_TOL, "the data-parallel round strays from one process")
+    if world == 1:
+        torch.distributed.destroy_process_group()
+        print("child-result " + json.dumps(out), flush=True)
+        return 0
+
+    # one data-parallel GAN step at full width, B = 8 (4 a rank), against
+    # the one-process step on the whole batch: in f64 the losses and every
+    # gradient leaf each update applies; in f32 a warm step's wall
+    b_tr = TRAIN_BATCH
+    tr = torch.Generator().manual_seed(SEED + 61)
+    tr_spec = torch.rand(b_tr, TRAIN_SEGMENT, cfg.spec_channels, generator=tr, dtype=torch.float64)
+    tr_audio = torch.randn(b_tr, TRAIN_SEGMENT * cfg.hop_length, generator=tr, dtype=torch.float64) * 0.1
+    tr_len = torch.tensor([TRAIN_SEGMENT - (7 * i) % 40 for i in range(b_tr)])
+    tr_g = torch.randn(b_tr, 1, cfg.gin_channels, generator=tr, dtype=torch.float64) * 0.1
+    mine = slice(rank * b_tr // world, (rank + 1) * b_tr // world)
+    seen, apply = [], T._apply_grads
+
+    def record(state, grads, lr):
+        seen.append([g.detach().clone() for g in grads])
+        apply(state, grads, lr)
+
+    def gan_step(dtype, dp: bool):
+        state = T.init_gan_train_state(cfg, torch.Generator().manual_seed(SEED + 62), 2e-4, dev)
+        for part in state:
+            part.model.to(dtype)
+        args = [a if a.dtype == torch.int64 else a.to(dtype) for a in (tr_spec, tr_audio, tr_len, tr_g)]
+        draws = torch.Generator().manual_seed(SEED + 63)
+        if dp:
+            args = [make_global_batch(a[mine], mesh) for a in args]
+            return state, lambda: T.gan_train_step(state, cfg, *args, draws, lr=2e-4, mesh=mesh)[1]
+        args = [a.to(dev) for a in args]
+        return state, lambda: T.gan_train_step(state, cfg, *args, draws, lr=2e-4)[1]
+
+    T._apply_grads = record
+    try:
+        runs = []
+        for dp in (True, False):
+            seen.clear()
+            _, step = gan_step(torch.float64, dp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = {k: float(v) for k, v in step().items()}
+            torch.cuda.synchronize()
+            runs.append((metrics, [list(s) for s in seen], (time.perf_counter() - t0) * 1e3))
+    finally:
+        T._apply_grads = apply
+    (m_dp, g_dp, ms_dp), (m_ref, g_ref, _) = runs
+    worst = 0.0
+    for k in m_ref:
+        check(abs(m_dp[k] - m_ref[k]) <= TRAIN_GRAD_F64_TOL * max(1.0, abs(m_ref[k])), f"metric {k}")
+    check(len(g_dp) == len(g_ref) == 2, "the GAN step applies two updates")
+    for a_list, r_list in zip(g_dp, g_ref):
+        for a, r in zip(a_list, r_list):
+            peak = float(r.abs().max())
+            err = float((a - r).abs().max())
+            worst = max(worst, err / peak if peak else err)
+            check(err <= TRAIN_GRAD_F64_TOL * peak or err == 0.0, "a data-parallel gradient leaf strays in f64")
+    out["gan_f64"] = {"metrics": m_dp, "worst_leaf_over_peak": worst, "step_ms": ms_dp}
+    _, step32 = gan_step(torch.float32, True)
+    step32()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step32()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["gan_f32_step_ms"] = statistics.median(walls)
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("child-result " + json.dumps(out), flush=True)
+    return 0
+
+
+def mesh_tier_phase(tc, ses: dict, tmp: str, smi: str) -> dict:
+    t0 = time.perf_counter()
+    formats = audio_formats_phase(tc, ses, tmp, smi)
+    one = mesh_phase(tc, ses, smi)
+    two = two_rank_phase(smi)
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    return {"formats": formats, "one_process": one, "two_process": two}
+
+
 def main() -> int:
     import torch
 
@@ -2347,6 +2862,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions are real f32
     torch.backends.cudnn.allow_tf32 = False
 
+    if sys.argv[1:2] == ["--mesh-child"]:  # one rank of phase 10c, started by the smoke run itself
+        addr, world, rank, backend = sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
+        return child_main(addr, world, rank, backend)
     smi, kind = toolchain()
     if sys.argv[1:] == ["--tf32-control"]:  # the train step runs no kernel of the port: nothing to build
         with tempfile.TemporaryDirectory() as tmp:
@@ -2391,6 +2909,7 @@ def main() -> int:
         memory = streaming_phase(tc, ses, smi)
         print(f"serving-tier phase: {time.perf_counter() - t0:.1f} s")
         training = training_phase(tmp, smi, kind)
+        mesh_tier = mesh_tier_phase(tc, ses, tmp, smi)
     for k in kernels:
         name = k["name"]
         k["launches"] = launches[name]
@@ -2400,10 +2919,17 @@ def main() -> int:
         k["launches_fused_group"] = fused["per_group"][name]
         k["batcher_b8"] = serving["group_times"].get(name)
         k["launches_train_phase"] = training["launches"][name]  # the quality calls and the SE dataset: K5 only
+        k["launches_audio_format_convert"] = mesh_tier["formats"]["launches"][name]  # the FLAC clip's convert, measured
+        k["launches_mesh_batcher_shard"] = mesh_tier["one_process"]["per_shard"][name]  # K5: PCM groups only
+        k["launches_2rank_round"] = mesh_tier["two_process"]["gloo"][0]["convert_round_launches"][name]  # a rank's
         check(k["launches"] > 0, f"the serving path never launched {name}")
     print(json.dumps({"serving_tier": {"rates": serving["rates"], "worst": serving["worst"],
                                        "batchmates": serving["batchmates"], "streaming_memory": memory}}))
     print(json.dumps({"training": {k: v for k, v in training.items() if k != "launches"}}))
+    print(json.dumps({"mesh_tier": {"card": smi, "decode_ms": mesh_tier["formats"]["decode_ms"],
+                                    "codecs": mesh_tier["formats"]["codecs"],
+                                    "codec_agreement": mesh_tier["formats"]["agreement"],
+                                    **mesh_tier["one_process"], **mesh_tier["two_process"]}}))
 
     phase("7. result")
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@
 A pure-numpy RIFF/WAVE codec (PCM 8/16/24/32-bit and IEEE float) plus a
 polyphase resampler.  All functions return float32 mono in [-1, 1] at the
 requested rate, matching ``librosa.load(path, sr=...)`` semantics used
-throughout the reference API.  Other containers (mp3, ogg, flac, m4a) are
-not ported yet: `load_audio` raises for them.
+throughout the reference API.  `load_audio` decodes the other containers
+through the native codecs, as the JAX package does: mp3 and Ogg/Vorbis over
+the system mpg123 / libvorbisfile, FLAC with the in-repo decoder, and
+m4a/aac/mp4/wma/webm/mka through ffmpeg (``audio/{mp3,ogg,flac,ffdec}.py``).
 """
 
 from __future__ import annotations
@@ -171,12 +173,21 @@ def resample(audio: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
 
 
 def load_audio(path: str, sr: int | None = None, mono: bool = True) -> tuple[np.ndarray, int]:
-    """librosa.load-compatible entry for WAV files: decode → mono mixdown →
-    resample."""
+    """librosa.load-compatible entry: decode by extension (.mp3, .ogg/.oga,
+    .flac, .m4a/.aac/.mp4/.wma/.webm/.mka; any other extension reads as WAV)
+    → mono mixdown → resample."""
     ext = os.path.splitext(path)[1].lower()
-    if ext not in ("", ".wav", ".wave"):
-        raise ValueError(f"{path}: only WAV input is ported so far, not {ext}")
-    audio, file_sr = read_wav(path)
+    if ext == ".mp3":
+        from openvoice_tpu_torch.audio.mp3 import read_mp3 as read
+    elif ext in (".ogg", ".oga"):
+        from openvoice_tpu_torch.audio.ogg import read_ogg as read
+    elif ext == ".flac":
+        from openvoice_tpu_torch.audio.flac import read_flac as read
+    elif ext in (".m4a", ".aac", ".mp4", ".wma", ".webm", ".mka"):
+        from openvoice_tpu_torch.audio.ffdec import read_any as read
+    else:
+        read = read_wav
+    audio, file_sr = read(path)
     if mono and audio.ndim > 1:
         audio = audio.mean(axis=1)
     if sr is not None and sr != file_sr:

@@ -38,6 +38,7 @@ import threading
 import time
 import traceback
 from concurrent.futures import Future
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -48,6 +49,8 @@ from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
 from openvoice_tpu_torch.runtime.bucketing import allowed_batch_sizes, plan_groups
+from openvoice_tpu_torch.runtime.mesh import Mesh, upload
+from openvoice_tpu_torch.runtime.parallel import replicate
 from openvoice_tpu_torch.runtime.profiler import METRICS, trace
 
 
@@ -72,8 +75,7 @@ def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     queued before it, which would hold the dispatch thread until the
     previous group's compute ends, and one group's packing could not overlap
     another's compute."""
-    t = torch.from_numpy(a)
-    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+    return upload(torch.from_numpy(a), device)
 
 
 def _wire_int16(audio: torch.Tensor) -> torch.Tensor:
@@ -101,18 +103,40 @@ def _convert_pcm16(model: S.Synthesizer, cfg: SynthesizerConfig, pcm: torch.Tens
 
 class ConvertBatcher:
     """Background thread batching voice-conversion requests by bucket, on
-    one device."""
+    one device or data-parallel over a mesh's data axis."""
 
     def __init__(self, model: S.Synthesizer, cfg: SynthesizerConfig, max_batch: int = 8,
-                 max_wait_ms: float = 5.0, fast: bool = False, device: str | torch.device | None = None) -> None:
+                 max_wait_ms: float = 5.0, fast: bool = False, device: str | torch.device | None = None,
+                 mesh: Mesh | None = None) -> None:
         """`model` moves to `device` (the GPU unless the caller passes
         ``device="cpu"``).  fast=True serves in the bf16 serving mode, with
-        the packed weights made once here."""
-        self.device = resolve_device(device)
+        the packed weights made once here.
+
+        mesh (a `runtime.mesh.Mesh`, instead of `device`): data-parallel
+        serving from one batcher.  The weights, and in the serving mode the
+        packed cache, are replicated once per data-axis device here; each
+        dispatched group is split by rows over the data positions this
+        process holds, its padded batch rounded up to a multiple of their
+        count (padded rows carry length 0), and each position runs the same
+        call on its own device.  The model axis, if any, replicates."""
+        self.mesh = mesh
+        if mesh is None:
+            devices = [resolve_device(device)]
+        else:
+            if device is not None:
+                raise ValueError("pass a device or a mesh, not both")
+            by_data: dict[int, torch.device] = {}
+            for coord in mesh.local_coords():
+                by_data.setdefault(coord[0], mesh.devices[coord])
+            devices = [by_data[d] for d in sorted(by_data)]
+        self.device = devices[0]
         self.model = model.to(self.device).eval()
+        copies = {dev: (m.eval(), S.make_dec_cache(m) if fast else None)
+                  for dev, m in replicate(self.model, devices).items()}
+        self.dec_cache = copies[self.device][1]
+        self._shards = [(dev, *copies[dev]) for dev in devices]  # one a data position
         self.cfg = cfg
         self.fast = fast
-        self.dec_cache = S.make_dec_cache(self.model) if fast else None
         self.max_batch = max_batch
         # largest batch size the planner can emit (the set plan_groups uses)
         self._full_batch = max(allowed_batch_sizes(max_batch))
@@ -251,9 +275,10 @@ class ConvertBatcher:
             pending[:] = keep
 
     def _dispatch(self, bucket: int, group: list[ConvertRequest], padded_batch: int) -> None:
-        cfg, dev = self.cfg, self.device
+        cfg = self.cfg
         try:
-            n = padded_batch
+            n_shards = len(self._shards)
+            n = -(-padded_batch // n_shards) * n_shards  # whole rows per data shard
             lengths = np.zeros(n, np.int64)  # padded rows stay length 0: fully masked
             g_src = np.zeros((n, 1, cfg.gin_channels), np.float32)
             g_tgt = np.zeros((n, 1, cfg.gin_channels), np.float32)
@@ -264,7 +289,6 @@ class ConvertBatcher:
                 g_tgt[i, 0] = np.asarray(r.g_tgt, np.float32).reshape(-1)
                 taus[i, 0, 0] = r.tau
             t0 = time.perf_counter()
-            args = [_upload(a, dev) for a in (lengths, g_src, g_tgt, taus)]
             if group[0].audio is not None:
                 pad = (cfg.filter_length - cfg.hop_length) // 2
                 target = (bucket - 1) * cfg.hop_length + cfg.filter_length
@@ -275,9 +299,6 @@ class ConvertBatcher:
                     padded = np.concatenate([a[1 : pad + 1][::-1], a, a[-pad - 1 : -1][::-1]])[:target]
                     pcm[i, : len(padded)] = np.round(np.clip(padded, -1.0, 1.0) * 32767.0).astype(np.int16)
                     seeds[i] = int(r.seed)
-                with trace("convert_batch"):
-                    wire = _convert_pcm16(self.model, cfg, _upload(pcm, dev), *args, seeds,
-                                          fast=self.fast, dec_cache=self.dec_cache)
             else:
                 spec = np.zeros((n, bucket, cfg.spec_channels), np.float32)
                 noise = np.zeros((n, bucket, cfg.inter_channels), np.float32)
@@ -285,23 +306,37 @@ class ConvertBatcher:
                     spec[i, : r.n_frames] = r.spec
                     noise[i] = np.random.default_rng(r.seed).standard_normal(
                         (bucket, cfg.inter_channels)).astype(np.float32)
-                with trace("convert_batch"):
-                    audio, _ = S.voice_conversion(self.model, _upload(spec, dev), args[0], args[1],
-                                                  args[2], args[3], _upload(noise, dev),
-                                                  fast=self.fast, dec_cache=self.dec_cache)
-                    wire = _wire_int16(audio)
-            if wire.device.type == "cuda":
-                # an asynchronous copy into pinned memory; the reader thread
-                # waits on the event, this thread goes on to the next group
-                host = torch.empty(wire.shape, dtype=torch.int16, pin_memory=True)
-                host.copy_(wire, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-            else:
-                host, done = wire, None
+            per = n // n_shards
+            host, events = None, []
+            for k, (dev, model, cache) in enumerate(self._shards):
+                rows = slice(k * per, (k + 1) * per)
+                # a kernel launches on the current device, which the tensors' device must be
+                with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
+                    args = [_upload(a[rows], dev) for a in (lengths, g_src, g_tgt, taus)]
+                    with trace("convert_batch"):
+                        if group[0].audio is not None:
+                            wire = _convert_pcm16(model, cfg, _upload(pcm[rows], dev), *args, seeds[rows],
+                                                  fast=self.fast, dec_cache=cache)
+                        else:
+                            audio, _ = S.voice_conversion(model, _upload(spec[rows], dev), args[0], args[1],
+                                                          args[2], args[3], _upload(noise[rows], dev),
+                                                          fast=self.fast, dec_cache=cache)
+                            wire = _wire_int16(audio)
+                    if dev.type == "cuda":
+                        # an asynchronous copy into pinned memory; the reader
+                        # thread waits on the events, this thread goes on to
+                        # the next group
+                        if host is None:
+                            host = torch.empty((n, wire.shape[1]), dtype=torch.int16, pin_memory=True)
+                        host[rows].copy_(wire, non_blocking=True)
+                        done = torch.cuda.Event()
+                        done.record()
+                        events.append(done)
+                    else:
+                        host = wire if host is None else torch.cat([host, wire])
             METRICS.add("busy_seconds", time.perf_counter() - t0)
             METRICS.add("batches")
-            self._readq.put((host, done, group))
+            self._readq.put((host, events, group))
         except Exception as exc:  # noqa: BLE001 — a failed call fails its group only
             tb = traceback.format_exc()
             for r in group:
@@ -315,9 +350,9 @@ class ConvertBatcher:
             item = self._readq.get()
             if item is None:
                 break
-            host, done, group = item
+            host, events, group = item
             try:
-                if done is not None:
+                for done in events:
                     done.synchronize()
                 audio = host.numpy().astype(np.float32) / 32767.0  # int16 wire → float
                 for i, r in enumerate(group):

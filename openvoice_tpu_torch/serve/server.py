@@ -12,9 +12,10 @@ Endpoints:
   GET  /metrics   JSON metrics snapshot (latency, audio-seconds)
 
 Audio-bearing responses take an optional `format`: "f32" (default, exact),
-"pcm16" or "wav".  This package has no mp3 encoder yet, so "mp3" is a 400,
-the one the JAX package's server gives when its encoder is absent; unknown
-formats are 400s too.  Request audio is WAV.
+"pcm16", "wav", or "mp3" (+ optional `kbps`, through the in-repo lame
+encoder; the response reports the effective rate); an unknown format, a
+`kbps` that is not an integer, or an absent encoder is a 400.  Request audio
+is WAV.
 
 Errors carry the app's ``[ERROR]`` strings (openvoice_app.py:42-120); every
 request is isolated.
@@ -79,11 +80,12 @@ class VoiceService:
 _FORMATS = ("f32", "pcm16", "wav", "mp3")
 
 
-def encode_response_audio(out: np.ndarray, sr: int, fmt: str) -> dict:
+def encode_response_audio(out: np.ndarray, sr: int, fmt: str, kbps: int = 128) -> dict:
     """Audio payload for a JSON response in the requested wire format: f32
-    (default, exact), pcm16 (2 bytes a sample) or wav (a PCM16 container).
-    mp3 raises the ValueError the JAX package raises when its encoder is
-    absent (mapped to a 400)."""
+    (default, exact), pcm16 (2 bytes a sample), wav (a PCM16 container) or
+    mp3 (lossy CBR at `kbps` through the in-repo lame encoder, reporting the
+    effective rate; a ValueError, mapped to a 400, where the encoder is
+    absent)."""
     out = np.asarray(out, np.float32)
     if fmt == "f32":
         return {"encoding": "f32", "audio_b64": base64.b64encode(out.tobytes()).decode()}
@@ -93,8 +95,21 @@ def encode_response_audio(out: np.ndarray, sr: int, fmt: str) -> dict:
     if fmt == "wav":
         return {"encoding": "wav", "audio_b64": base64.b64encode(encode_wav_bytes(out, sr)).decode()}
     if fmt == "mp3":
-        raise ValueError("[ERROR] mp3 output unavailable: this package has no mp3 encoder "
-                         "(formats: f32, pcm16, wav)")
+        from openvoice_tpu_torch.audio.mp3 import encoder_available, write_mp3
+
+        if not encoder_available():
+            raise ValueError("[ERROR] mp3 output unavailable: libmp3lame missing")
+        fd, path = tempfile.mkstemp(suffix=".mp3")
+        os.close(fd)
+        try:
+            # the effective bitrate: lame clamps a request outside the MPEG
+            # table for this sample rate (192 at 22.05 kHz encodes at 160)
+            eff = write_mp3(path, out, sr, kbps=kbps)
+            with open(path, "rb") as f:
+                blob = f.read()
+        finally:
+            os.unlink(path)
+        return {"encoding": "mp3", "kbps": eff, "audio_b64": base64.b64encode(blob).decode()}
     raise ValueError(f"[ERROR] unknown format {fmt!r}: expected one of {_FORMATS}")
 
 
@@ -155,8 +170,10 @@ def make_handler(service: VoiceService):
             """200 with the audio in the requested wire format, or a 400 for
             an unknown format or an absent encoder."""
             try:
-                payload = encode_response_audio(out, sr, req.get("format", "f32"))
-            except ValueError as exc:
+                # TypeError too: a JSON null or list `kbps` is the client's
+                # error (400), not a server fault (500)
+                payload = encode_response_audio(out, sr, req.get("format", "f32"), kbps=int(req.get("kbps", 128)))
+            except (ValueError, TypeError) as exc:
                 self._json(400, {"error": f"[ERROR] {exc}"})
                 return
             self._json(200, {"sample_rate": sr, "num_samples": int(out.shape[0]), **payload})

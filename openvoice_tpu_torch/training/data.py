@@ -1,14 +1,13 @@
 """Training input pipeline (the port of ``openvoice_tpu/training/data.py``).
 
-Host-side: scan a directory of WAV files per speaker, window them into
+Host-side: scan a directory of WAV and mp3 files per speaker, window them into
 fixed-frame training segments, compute linear spectrograms with the same
 front end the models consume (the host reflect pad of
 ``api._spec_from_audio`` and the numpy STFT of ``audio/stft.py::
 host_spectrogram``, as the JAX package does, so that both packages build
 bit-equal batches), and yield numpy batches.  Each process reads its own
 shard of the file list (round-robin by ``torch.distributed``'s rank when it
-is initialised, else process 0 of 1).  Only WAV input is scanned: the port
-reads no other container yet.
+is initialised, else process 0 of 1).
 
 Speaker embeddings for self-reconstruction training come from a converter's
 own reference encoder (``extract_se_from_file`` per speaker, cached), which
@@ -31,6 +30,7 @@ from openvoice_tpu_torch.api import _spec_from_audio
 from openvoice_tpu_torch.audio.io import load_audio, wav_num_samples
 from openvoice_tpu_torch.audio.stft import host_spectrogram
 from openvoice_tpu_torch.config import SynthesizerConfig
+from openvoice_tpu_torch.runtime.mesh import Mesh, Sharded, batch_sharding, shard_rows, upload
 
 
 @dataclass(frozen=True)
@@ -51,11 +51,12 @@ def process_index_count() -> tuple[int, int]:
 
 def scan_dataset(root: str, cfg: SynthesizerConfig, segment_frames: int = 128, hop_segments: int | None = None,
                  process_index: int | None = None, process_count: int | None = None) -> list[Segment]:
-    """root/<speaker>/*.wav → windowed segment index, sharded by process.
+    """root/<speaker>/*.{wav,mp3} → windowed segment index, sharded by
+    process.
 
     Segments are `segment_frames` spectrogram frames (= frames·hop samples),
-    stepped by `hop_segments` frames (default: non-overlapping).  Lengths
-    come from the WAV headers: nothing is decoded at scan time.
+    stepped by `hop_segments` frames (default: non-overlapping).  A WAV's
+    length comes from its header; an mp3 is decoded to get its length.
     """
     pi, pc = process_index_count()
     pi = pi if process_index is None else process_index
@@ -69,14 +70,17 @@ def scan_dataset(root: str, cfg: SynthesizerConfig, segment_frames: int = 128, h
         if not os.path.isdir(sdir):
             continue
         for f in sorted(os.listdir(sdir)):
-            if f.lower().endswith(".wav"):
+            if f.lower().endswith((".wav", ".mp3")):
                 files.append((os.path.join(sdir, f), speaker))
 
     segments: list[Segment] = []
     for idx, (path, speaker) in enumerate(files):
         if idx % pc != pi:  # per-process shard of the file list
             continue
-        length = wav_num_samples(path, target_sr=cfg.sampling_rate)
+        if path.lower().endswith(".wav"):
+            length = wav_num_samples(path, target_sr=cfg.sampling_rate)
+        else:
+            length = len(load_audio(path, sr=cfg.sampling_rate)[0])
         n = (length - seg_samples) // step + 1 if length >= seg_samples else 0
         for j in range(n):
             segments.append(Segment(path, j * step, segment_frames, speaker))
@@ -211,3 +215,22 @@ class PrefetchIterator:
                 raise self._err[0]
             raise StopIteration
         return item
+
+
+def make_global_batch(local_batch, mesh: Mesh) -> Sharded:
+    """This process's batch → one global batch split over the data axis.
+
+    Every process calls it with its own rows: across processes the global
+    batch is every data position's rows in data order (each process one
+    position; processes that share a data index pass the same rows).  As in
+    the JAX package, every process must hold as many rows as the others;
+    nothing checks it, since a check would cost a collective per call.  In
+    one process the local batch is the whole batch, split over the data
+    positions."""
+    x = torch.as_tensor(local_batch)
+    if not mesh.multiprocess:
+        return shard_rows(x, mesh)
+    (coord,) = mesh.local_coords()
+    shape = (x.shape[0] * mesh.shape["data"], *x.shape[1:])
+    return Sharded(mesh, batch_sharding(mesh) + (None,) * (x.dim() - 1), shape,
+                   {coord: upload(x, mesh.devices[coord])})

@@ -3,8 +3,10 @@ data pipeline → (GAN) train step → checkpoints, with resume.
 
 ``train(root, cfg, steps=...)`` on one device.  With ``torch.distributed``
 initialised each process reads its own shard of the files and only rank 0
-writes checkpoints; the data-parallel step across processes (the JAX
-package's ``mesh=``) is not ported yet.
+writes checkpoints; with ``mesh=`` (`runtime.multihost.global_mesh`, one
+process per data position) each step is data-parallel: the processes'
+batches form one global batch (`data.make_global_batch`) and the gradients
+are averaged over the data axis (`train.gan_train_step`).
 """
 
 from __future__ import annotations
@@ -15,13 +17,16 @@ import torch
 
 from openvoice_tpu_torch.ckpt import native_io as CIO
 from openvoice_tpu_torch.config import SynthesizerConfig
+from openvoice_tpu_torch.runtime.mesh import Mesh, upload
 from openvoice_tpu_torch.training import train as T
-from openvoice_tpu_torch.training.data import ConverterDataset, PrefetchIterator, process_index_count
+from openvoice_tpu_torch.training.data import (
+    ConverterDataset, PrefetchIterator, make_global_batch, process_index_count,
+)
 
 
 def train(data_root: str, cfg: SynthesizerConfig, *, steps: int = 1000, batch_size: int = 8,
           segment_frames: int = 128, lr: float = 2e-4, adversarial: bool = True, ckpt_dir: str | None = None,
-          ckpt_every: int = 500, log_every: int = 50, seed: int = 0, on_step=None,
+          ckpt_every: int = 500, mesh: Mesh | None = None, log_every: int = 50, seed: int = 0, on_step=None,
           device: str | torch.device | None = None) -> T.GanTrainState | T.TrainState:
     """Run optimizer steps until the step count reaches `steps`; returns the
     final state.
@@ -34,8 +39,12 @@ def train(data_root: str, cfg: SynthesizerConfig, *, steps: int = 1000, batch_si
     step's checkpoint gate (progress callbacks, early stop by exception).
     The weights and every step's draws come from ``torch.Generator``s seeded
     by `seed`.  `device` as in `api.resolve_device`: the card unless the
-    caller asks for the CPU.
+    caller asks for the CPU; with `mesh`, this process's position's device.
     """
+    if mesh is not None:
+        if device is not None:
+            raise ValueError("pass a device or a mesh, not both")
+        device = mesh.devices[mesh.local_coords()[0]]
     dev = T.training_device(device)
     ds = ConverterDataset(data_root, cfg, batch_size, segment_frames, seed=seed)
     if len(ds.segments) < batch_size:
@@ -70,9 +79,12 @@ def train(data_root: str, cfg: SynthesizerConfig, *, steps: int = 1000, batch_si
             for batch in prefetch:
                 if step >= steps:
                     break
-                spec, audio, lengths, g = (T.upload(torch.from_numpy(a), dev) for a in batch)
+                if mesh is not None:
+                    spec, audio, lengths, g = (make_global_batch(torch.from_numpy(a), mesh) for a in batch)
+                else:
+                    spec, audio, lengths, g = (upload(torch.from_numpy(a), dev) for a in batch)
                 state, metrics = step_fn(state, cfg, spec, audio, lengths, g, draws,
-                                         segment_frames=min(32, segment_frames), lr=lr)
+                                         segment_frames=min(32, segment_frames), lr=lr, mesh=mesh)
                 step += 1
                 if log_every and step % log_every == 0 and writer:
                     ms = {k: round(float(v), 4) for k, v in metrics.items()}

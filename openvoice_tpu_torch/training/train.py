@@ -13,6 +13,15 @@ backward pass and is not used here.
 Randomness (the posterior noise and the slice starts) comes from an explicit
 ``torch.Generator`` on the CPU, or is passed in as `noise` and `starts`, so
 that tests can feed both packages the same draws.
+
+Data parallel (``mesh=``, one process per data position, the batch from
+``training.data.make_global_batch``): every process draws the global batch's
+noise and starts from the same generator state and keeps its own rows; the
+KL term is weighted by the process's share of the global mask count; the
+generator's and the discriminator's gradients, and the reported metrics,
+are averaged over the data axis with one all-reduce each.  A step on the
+data ranks so equals the single-process step on the concatenated batch, up
+to the order of the sums.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.models.align import sequence_mask
 from openvoice_tpu_torch.nn.flows import apply_coupling_block
+from openvoice_tpu_torch.runtime.mesh import Comm, Mesh, Sharded, comms, upload
 from openvoice_tpu_torch.training import losses as L
 from openvoice_tpu_torch.training.discriminator import Discriminators, init_discriminators
 
@@ -131,27 +141,25 @@ def _slice_segments(x: torch.Tensor, starts: torch.Tensor, seg: int) -> torch.Te
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[2]))
 
 
-def upload(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A CPU tensor on `device`; to the card through pinned memory and an
-    asynchronous copy, which does not wait for the kernels queued before it."""
-    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t.to(device)
-
-
 def draw_noise_and_starts(cfg: SynthesizerConfig, spec_lengths: torch.Tensor, t: int,
                           generator: torch.Generator | None, segment_frames: int,
-                          noise: torch.Tensor | None = None, starts: torch.Tensor | None = None):
+                          noise: torch.Tensor | None = None, starts: torch.Tensor | None = None,
+                          rows: tuple[int, int] | None = None):
     """The step's random draws, each taken only when the caller did not pass
     it: noise [B, T, inter] standard normal, then starts [B] =
     ⌊u · max(length − segment_frames, 1)⌋ with u uniform in [0, 1)
     (commons.py:57-64).  Drawn on the CPU from `generator`, then moved to
-    the lengths' device (the lengths are not read back)."""
+    the lengths' device (the lengths are not read back).  rows=(first,
+    global batch): draw for the whole global batch and keep rows first …
+    first + B (a data-parallel step)."""
     b, dev = spec_lengths.shape[0], spec_lengths.device
+    first, total = rows if rows is not None else (0, b)
     if (noise is None or starts is None) and generator is None:
         raise ValueError("pass a torch.Generator, or both noise and starts")
     if noise is None:
-        noise = upload(torch.randn(b, t, cfg.inter_channels, generator=generator), dev)
+        noise = upload(torch.randn(total, t, cfg.inter_channels, generator=generator)[first : first + b], dev)
     if starts is None:
-        u = upload(torch.rand(b, generator=generator), dev)
+        u = upload(torch.rand(total, generator=generator)[first : first + b], dev)
         max_start = torch.clamp(spec_lengths - segment_frames, min=1).float()
         starts = (u * max_start).to(torch.int64)
     return noise, starts
@@ -166,10 +174,41 @@ class GeneratorOut(NamedTuple):
     mask: torch.Tensor       # [B, T, 1]
 
 
+class DataParallel(NamedTuple):
+    """This process's place in a data-parallel step: the data axis's
+    collectives and its rows (first, global batch)."""
+
+    comm: Comm
+    rows: tuple[int, int]
+
+
+def data_parallel(mesh: Mesh | None, batch: tuple) -> tuple[tuple, DataParallel | None]:
+    """(This process's rows of each batch tensor, its `DataParallel`), or
+    the batch as given and None without a mesh.  Data-parallel training
+    runs one process per data position (`runtime.multihost.global_mesh`)."""
+    if mesh is None:
+        return batch, None
+    coords = mesh.local_coords()
+    if len(coords) != 1:
+        raise ValueError(f"data-parallel training runs one process per data position; this process holds "
+                         f"{len(coords)} (build the mesh with runtime.multihost.global_mesh)")
+    local = tuple(x.local() if isinstance(x, Sharded) else x for x in batch)
+    b = local[0].shape[0]
+    return local, DataParallel(comms(mesh, "data")[coords[0]], (coords[0][0] * b, b * mesh.shape["data"]))
+
+
+def _average(tensors: list[torch.Tensor], dp: DataParallel | None) -> list[torch.Tensor]:
+    """The mean over the data axis of each tensor, in one all-reduce."""
+    if dp is None:
+        return tensors
+    flat = dp.comm.all_reduce(torch.cat([t.reshape(-1) for t in tensors])) / dp.comm.size
+    return [p.view_as(t) for p, t in zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
+
+
 def _generator_forward(model: S.Synthesizer, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
                        spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None,
                        segment_frames: int, noise: torch.Tensor | None = None,
-                       starts: torch.Tensor | None = None) -> GeneratorOut:
+                       starts: torch.Tensor | None = None, dp: DataParallel | None = None) -> GeneratorOut:
     """enc_q → flow → slice → dec, shared by both steps.
 
     spec [B, T, n_freq], audio [B, T·hop], spec_lengths [B], g [B, 1, gin].
@@ -177,7 +216,8 @@ def _generator_forward(model: S.Synthesizer, cfg: SynthesizerConfig, spec: torch
     flow sees the real g, as in conversion."""
     b, t = spec.shape[0], spec.shape[1]
     mask = sequence_mask(spec_lengths, t)[..., None].to(spec.dtype)
-    noise, starts = draw_noise_and_starts(cfg, spec_lengths, t, generator, segment_frames, noise, starts)
+    noise, starts = draw_noise_and_starts(cfg, spec_lengths, t, generator, segment_frames, noise, starts,
+                                          rows=None if dp is None else dp.rows)
     g_enc = torch.zeros_like(g) if cfg.zero_g else g
     z, m_q, logs_q = S.posterior_encode(model, spec, mask, g_enc, 1.0, noise)
     z_p = apply_coupling_block(model.flow, z, mask, g=g, reverse=False)
@@ -188,18 +228,28 @@ def _generator_forward(model: S.Synthesizer, cfg: SynthesizerConfig, spec: torch
     return GeneratorOut(audio_hat, target, z_p, m_q, logs_q, mask)
 
 
-def _mel_kl(fwd: GeneratorOut, cfg: SynthesizerConfig) -> tuple[torch.Tensor, torch.Tensor]:
+def _mel_kl(fwd: GeneratorOut, cfg: SynthesizerConfig,
+            dp: DataParallel | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The mel L1 and the KL.  In a data-parallel step the KL (a masked mean)
+    is weighted by this process's share of the global mask count, so that
+    the mean over the data axis is the global batch's KL."""
     loss_mel = L.mel_l1(_mel_from_audio_frames(fwd.audio_hat, cfg), _mel_from_audio_frames(fwd.target, cfg))
-    return loss_mel, L.kl_to_standard_normal(fwd.z_p, fwd.m_q, fwd.logs_q, fwd.mask)
+    loss_kl = L.kl_to_standard_normal(fwd.z_p, fwd.m_q, fwd.logs_q, fwd.mask)
+    if dp is not None:
+        count = torch.clamp(fwd.mask.detach().sum(), min=1.0)
+        loss_kl = loss_kl * (count * dp.comm.size / dp.comm.all_reduce(count))
+    return loss_mel, loss_kl
 
 
 def converter_loss(model: S.Synthesizer, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
                    spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None = None,
                    segment_frames: int = 32, c_mel: float = 45.0, c_kl: float = 1.0,
-                   noise: torch.Tensor | None = None, starts: torch.Tensor | None = None):
+                   noise: torch.Tensor | None = None, starts: torch.Tensor | None = None,
+                   dp: DataParallel | None = None):
     """The self-reconstruction objective: → (total, {"mel", "kl"})."""
-    fwd = _generator_forward(model, cfg, spec, audio, spec_lengths, g, generator, segment_frames, noise, starts)
-    loss_mel, loss_kl = _mel_kl(fwd, cfg)
+    fwd = _generator_forward(model, cfg, spec, audio, spec_lengths, g, generator, segment_frames, noise, starts,
+                             dp)
+    loss_mel, loss_kl = _mel_kl(fwd, cfg, dp)
     return c_mel * loss_mel + c_kl * loss_kl, {"mel": loss_mel, "kl": loss_kl}
 
 
@@ -211,10 +261,10 @@ def discriminator_loss(disc: Discriminators, target: torch.Tensor, fake: torch.T
 
 
 def generator_loss(disc: Discriminators, fwd: GeneratorOut, cfg: SynthesizerConfig, c_mel: float = 45.0,
-                   c_kl: float = 1.0, c_fm: float = 2.0) -> tuple[torch.Tensor, dict]:
+                   c_kl: float = 1.0, c_fm: float = 2.0, dp: DataParallel | None = None) -> tuple[torch.Tensor, dict]:
     """The generator's adversarial objective through `disc`, the real
     slice's feature maps detached: → (total, {"mel", "kl", "adv", "fm"})."""
-    loss_mel, loss_kl = _mel_kl(fwd, cfg)
+    loss_mel, loss_kl = _mel_kl(fwd, cfg, dp)
     with torch.no_grad():
         _, fmaps_real = disc(fwd.target)
     logits_fake, fmaps_fake = disc(fwd.audio_hat)
@@ -245,36 +295,46 @@ def _apply_grads(state: TrainState, grads: list[torch.Tensor], lr: float) -> Non
     state.step += 1
 
 
+def _metrics(metrics: dict, dp: DataParallel | None) -> dict:
+    """Detached metrics, averaged over the data axis in a data-parallel step."""
+    names = list(metrics)
+    return dict(zip(names, _average([metrics[k].detach() for k in names], dp)))
+
+
 def train_step(state: TrainState, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
                spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None = None,
                segment_frames: int = 32, lr: float = 2e-4, noise: torch.Tensor | None = None,
-               starts: torch.Tensor | None = None) -> tuple[TrainState, dict]:
+               starts: torch.Tensor | None = None, mesh: Mesh | None = None) -> tuple[TrainState, dict]:
     """One mel + KL step → (state, {"mel", "kl", "total"}), the metrics as
     detached 0-d tensors on the device.  `lr` applies to this step (pass the
-    value used at init, or a schedule's output)."""
+    value used at init, or a schedule's output).  With `mesh` the step is
+    data-parallel (`data_parallel`; `noise` and `starts`, if passed, are this
+    process's rows)."""
+    (spec, audio, spec_lengths, g), dp = data_parallel(mesh, (spec, audio, spec_lengths, g))
     loss, metrics = converter_loss(state.model, cfg, spec, audio, spec_lengths, g, generator,
-                                   segment_frames=segment_frames, noise=noise, starts=starts)
-    _apply_grads(state, grads_of(loss, state.model), lr)
-    return state, {**{k: v.detach() for k, v in metrics.items()}, "total": loss.detach()}
+                                   segment_frames=segment_frames, noise=noise, starts=starts, dp=dp)
+    _apply_grads(state, _average(grads_of(loss, state.model), dp), lr)
+    return state, _metrics({**metrics, "total": loss}, dp)
 
 
 def gan_train_step(state: GanTrainState, cfg: SynthesizerConfig, spec: torch.Tensor, audio: torch.Tensor,
                    spec_lengths: torch.Tensor, g: torch.Tensor, generator: torch.Generator | None = None,
                    segment_frames: int = 32, c_mel: float = 45.0, c_kl: float = 1.0, c_fm: float = 2.0,
                    lr: float = 2e-4, noise: torch.Tensor | None = None,
-                   starts: torch.Tensor | None = None) -> tuple[GanTrainState, dict]:
+                   starts: torch.Tensor | None = None, mesh: Mesh | None = None) -> tuple[GanTrainState, dict]:
     """One adversarial step in the JAX package's order: the generator's
     forward once (JAX runs it twice on the same draws, to the same values),
     the discriminator's update on the detached fake, then the generator's
     loss through the UPDATED discriminator and the generator's update.  The
     generator's gradients are taken over its own parameters alone, so the
     discriminator's parameters and moments see only their own update.
+    With `mesh` the step is data-parallel, as `train_step`'s.
     → (state, {"mel", "kl", "adv", "fm", "gen_total", "disc"})."""
+    (spec, audio, spec_lengths, g), dp = data_parallel(mesh, (spec, audio, spec_lengths, g))
     fwd = _generator_forward(state.gen.model, cfg, spec, audio, spec_lengths, g, generator, segment_frames,
-                             noise, starts)
+                             noise, starts, dp)
     d_loss = discriminator_loss(state.disc.model, fwd.target, fwd.audio_hat)
-    _apply_grads(state.disc, grads_of(d_loss, state.disc.model), lr)
-    g_loss, metrics = generator_loss(state.disc.model, fwd, cfg, c_mel, c_kl, c_fm)
-    _apply_grads(state.gen, grads_of(g_loss, state.gen.model), lr)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return state, {**metrics, "gen_total": g_loss.detach(), "disc": d_loss.detach()}
+    _apply_grads(state.disc, _average(grads_of(d_loss, state.disc.model), dp), lr)
+    g_loss, metrics = generator_loss(state.disc.model, fwd, cfg, c_mel, c_kl, c_fm, dp)
+    _apply_grads(state.gen, _average(grads_of(g_loss, state.gen.model), dp), lr)
+    return state, _metrics({**metrics, "gen_total": g_loss, "disc": d_loss}, dp)

@@ -196,3 +196,43 @@ def test_library_path_changes_when_a_shared_header_changes(tmp_path, monkeypatch
     (csrc / "build").mkdir()
     (csrc / "build" / "libwn-0.so").write_bytes(b"x")
     assert after == {name: _nvcc.library_path(name) for name in names}
+
+
+@pytest.mark.parametrize("entry", ["global_mesh", "make_mesh", "make_hybrid_mesh", "initialize", "topology",
+                                   "HeartbeatMonitor"])
+def test_mesh_tier_without_devices_raises_when_cuda_is_absent(entry, monkeypatch):
+    """The mesh tier takes the card unless the caller names the CPU: no
+    mesh, topology or heartbeat falls back to the CPU on its own."""
+    from openvoice_tpu_torch.runtime import mesh as M
+    from openvoice_tpu_torch.runtime import multihost as MH
+
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    call = {"global_mesh": lambda cpu: MH.global_mesh(1, **({"devices": ["cpu"]} if cpu else {})),
+            "make_mesh": lambda cpu: M.make_mesh(**({"devices": ["cpu"]} if cpu else {})),
+            "make_hybrid_mesh": lambda cpu: M.make_hybrid_mesh(["cpu"] if cpu else None),
+            "initialize": lambda cpu: MH.initialize(**({"device": "cpu"} if cpu else {})),
+            "topology": lambda cpu: MH.topology(["cpu"] if cpu else None),
+            "HeartbeatMonitor": lambda cpu: MH.HeartbeatMonitor(**({"device": "cpu"} if cpu else {}))}[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(False)
+    call(True)
+
+
+def test_a_group_another_caller_started_takes_the_card_of_its_local_rank(monkeypatch):
+    """A process in a group that `initialize` did not start (torchrun, say)
+    contributes ``cuda:<LOCAL_RANK mod device count>``, whatever the
+    backend, and raises without CUDA."""
+    from openvoice_tpu_torch.runtime import multihost as MH
+
+    monkeypatch.setattr(MH, "_DEVICE", None)
+    monkeypatch.setattr(MH.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(MH.dist, "get_backend", lambda *a: "gloo")
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        MH.process_device()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert MH.process_device() == torch.device("cuda", 1)

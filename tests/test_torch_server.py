@@ -1,7 +1,8 @@
 """The port's HTTP server and demo app: a round trip on port 0 of /convert,
 /tts and /clone (fused and single) held against the port's direct API calls,
-the 400 guards, 404s, /metrics, the response formats (f32, pcm16, wav; mp3
-gives the JAX server's encoder-absent 400), and the app's language
+the 400 guards, 404s, /metrics, the response formats (f32, pcm16, wav, and
+mp3 at its effective kbps, or the JAX server's 400 where the encoder is
+absent), and the app's language
 detection, guard ladder and predict.  The host-only pieces (wire encoding,
 text guards, language detection, the guard ladder) are held against the JAX
 package's own functions (CPU; seeded random weights)."""
@@ -15,6 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+import openvoice_tpu.audio.mp3 as jmp3
+import openvoice_tpu_torch.audio.mp3 as tmp3
 from openvoice_tpu.serve import app as japp
 from openvoice_tpu.serve import server as jserver
 from openvoice_tpu_torch import api as tapi
@@ -182,8 +185,9 @@ def test_metrics_and_health_endpoints(server):
 
 def test_tts_response_formats(server, tmp_path):
     """f32 (default), pcm16 and wav carry the same audio; an unknown format
-    and mp3 (no encoder in this package) are 400s, mp3 with the JAX
-    server's encoder-absent message."""
+    is a 400; mp3 carries the audio at its effective kbps where the encoder
+    is present, and is the JAX server's encoder-absent 400 where it is
+    not."""
     port, _ = server
     body = {"text": TEXT}
     code, f32 = _post(port, "/tts", body)
@@ -201,7 +205,13 @@ def test_tts_response_formats(server, tmp_path):
     code, resp = _post(port, "/tts", dict(body, format="flac"))
     assert code == 400 and "unknown format" in resp["error"]
     code, resp = _post(port, "/tts", dict(body, format="mp3"))
-    assert code == 400 and resp["error"].startswith("[ERROR] [ERROR] mp3 output unavailable:")
+    if jmp3.encoder_available():
+        assert code == 200 and resp["encoding"] == "mp3" and resp["kbps"] == 128, resp
+        (tmp_path / "resp.mp3").write_bytes(base64.b64decode(resp["audio_b64"]))
+        mp3_arr, sr = load_audio(str(tmp_path / "resp.mp3"))
+        assert sr == resp["sample_rate"] and len(ref) <= len(mp3_arr) <= len(ref) + 4608
+    else:
+        assert code == 400 and resp["error"].startswith("[ERROR] [ERROR] mp3 output unavailable:")
 
 
 def test_wire_encodings_match_jax(monkeypatch):
@@ -209,9 +219,9 @@ def test_wire_encodings_match_jax(monkeypatch):
     out = np.clip(rng.standard_normal(5000) * 0.4, -1.2, 1.2).astype(np.float32)
     for fmt in ("f32", "pcm16", "wav"):
         assert tserver.encode_response_audio(out, 22050, fmt) == jserver.encode_response_audio(out, 22050, fmt)
-    import openvoice_tpu.audio.mp3 as jmp3
-
+    # where the encoder is absent both answer with the same message
     monkeypatch.setattr(jmp3, "encoder_available", lambda: False)
+    monkeypatch.setattr(tmp3, "encoder_available", lambda: False)
     with pytest.raises(ValueError) as theirs:
         jserver.encode_response_audio(out, 22050, "mp3")
     with pytest.raises(ValueError) as ours:
