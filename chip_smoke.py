@@ -6,6 +6,7 @@
                                    # instead: time K1-K4 (or those named) over
                                    # tile sizes, warps, K1's and K2's cluster
                                    # size and K3's ring depth
+    python3 chip_smoke.py --elastic     # instead: build, then phase 11 alone
     python3 chip_smoke.py --tf32-control
                                    # instead: phase 9.4's gradients, plus the
                                    # card's f32 pass again with TF32 on, which
@@ -97,10 +98,28 @@ Phases, in order; any failure exits non-zero before the result line:
    data-parallel B = 8 GAN step at full width whose losses and every
    gradient leaf match one process's step in f64 (1e-10 of the leaf's peak),
    then a warm f32 step's wall; then one NCCL rank through the same helpers;
+11. the CLI and the elastic tier (after phase 10, before the result), at V2
+   full width on seeded random weights (conv_post ×100), every process on
+   cuda:0, ranks over gloo:
+   11a. ``tools.main`` in process: ``convert-ckpt`` of a reference-format
+   ``.pth`` (weight-normed convs, a numpy scalar), ``extract-se --device
+   cuda`` (K5, by the counter) against ``extract_se_from_file``; then
+   ``serve --ckpt <converted dir> --port 0`` as a process, one /convert
+   against the in-process ``convert``, stopped by SIGTERM;
+   11b. two ranks of ``DistributedConvertService(fast=True)``, two rounds,
+   rank 1 passing [] in the first: K1 1, K2 2, K3 2, K4 2 a rank a round by
+   the counters, padded rows exactly 0, each request against its
+   one-process ``convert(fast=True)``;
+   11c. a ``Supervisor`` of 2 f32 workers, worker 1 SIGKILLed after the first
+   result; the shrunk world of 1 finishes; each result against one process;
+   11d. a ``TrainSupervisor`` of 2 (mel/KL, 8 steps, a checkpoint every 4),
+   worker 1 dying after step 6; the relaunch resumes from step_4;
+   11e. ``LiveSupervisor`` + ``serve_elastic``, 8 requests over HTTP, a worker
+   dying after 2 done, every answer against one process, worlds 2 then 1;
 7. one JSON line of every ported kernel (with ``launches_train_phase`` and
-   phase 10's launch counts), one of the serving tier's numbers, one of
-   training's, one of phase 10's, the card's ``nvidia-smi`` line, then the
-   result line ``{"ok": true, "device": {...}}``.
+   phase 10's and 11's launch counts), one of the serving tier's numbers,
+   one of training's, one of phase 10's, one of phase 11's, the card's
+   ``nvidia-smi`` line, then the result line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a CUDA card, or outside a checkout of the
 repository, it fails.
@@ -108,6 +127,7 @@ repository, it fails.
 
 from __future__ import annotations
 
+import base64
 import copy
 import functools
 import json
@@ -2853,6 +2873,573 @@ def mesh_tier_phase(tc, ses: dict, tmp: str, smi: str) -> dict:
     return {"formats": formats, "one_process": one, "two_process": two}
 
 
+# -- phase 11: the CLI and the elastic tier ------------------------------------------
+
+ELASTIC_SEED = SEED + 70
+ELASTIC_DEVICE = "cuda:0"    # every process of phase 11 (NCCL refuses two ranks on one device: gloo)
+ELASTIC_HEARTBEAT_S = 60.0   # a dead gloo peer makes the survivor's collective raise at once
+ELASTIC_TIMEOUT_S = 300.0    # one sub-phase's worlds, every attempt (each child is stopped by then)
+ELASTIC_FRAMES = [300, 240, 180, 120, 260, 200, 160, 100]  # 11c's and 11e's requests
+ELASTIC_TRAIN_STEPS = 8
+# 11b: rank 1 sits out the first round; frames 861/700 take bucket 1024, then 512
+ROUND_FRAMES = [861, 700, 512, 430, 300]
+ROUND_IDS = {0: [[0, 1], [2]], 1: [[], [3, 4]]}
+ROUND_LAUNCHES = {"stft_magnitude": 0, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2}
+
+
+def self_argv() -> list[str]:
+    """How this script starts one of its own child processes."""
+    return [sys.executable, os.path.abspath(__file__)]
+
+
+def config_json(cfg, path: str) -> None:
+    """`cfg` as a reference-format config.json (what ``--config`` reads)."""
+    import dataclasses
+
+    data_keys = ("sampling_rate", "filter_length", "hop_length", "win_length", "n_speakers", "add_blank")
+    fields = dataclasses.asdict(cfg)
+    model = {k: v for k, v in fields.items() if k not in data_keys + ("n_vocab", "spec_channels")}
+    with open(path, "w") as f:
+        json.dump({"_version_": "v2" if cfg.zero_g else "v1", "data": {k: fields[k] for k in data_keys},
+                   "model": model}, f)
+
+
+def elastic_model():
+    """Phase 11's full-width V2 converter on the CPU: seeded random weights,
+    the flow's posts seeded, conv_post ×100 (as `louder`: the audio stands
+    well above the parity bar and the int16 wire's step)."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.models import synthesizer as S
+
+    model = S.init_synthesizer(cfg, torch.Generator().manual_seed(ELASTIC_SEED)).eval()
+    seed_flow_posts(model, ELASTIC_SEED + 1)
+    with torch.no_grad():
+        model.dec.conv_post.weight.mul_(100.0)
+    return model
+
+
+def elastic_requests(frames: list[int], seed: int) -> list[dict]:
+    """Spectrogram-mode requests as the WorkLog stores them."""
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+
+    rng = np.random.default_rng(seed)
+    return [{"spec": (np.abs(rng.standard_normal((nf, cfg.spec_channels))) * 0.3).astype(np.float32),
+             "n_frames": nf, "g_src": (rng.standard_normal(cfg.gin_channels) * 0.1).astype(np.float32),
+             "g_tgt": (rng.standard_normal(cfg.gin_channels) * 0.1).astype(np.float32), "tau": 0.3,
+             "seed": seed * 100 + i} for i, nf in enumerate(frames)]
+
+
+def one_process_truth(model, req: dict, fast: bool = False, cache=None):
+    """One request converted alone on the model's device, in its own
+    bucket, with the distributed service's noise (its live frames from
+    ``default_rng(seed)``) → audio [n_frames · upsample] on the host."""
+    import torch
+
+    from openvoice_tpu_torch.models import synthesizer as S
+    from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+
+    cfg = model.cfg
+    dev = next(model.parameters()).device
+    nf = int(req["n_frames"])
+    bucket = round_up_to_bucket(nf)
+    spec = np.zeros((1, bucket, cfg.spec_channels), np.float32)
+    spec[0, :nf] = req["spec"]
+    noise = np.zeros((1, bucket, cfg.inter_channels), np.float32)
+    noise[0, :nf] = np.random.default_rng(int(req["seed"])).standard_normal((nf, cfg.inter_channels))
+    g_src, g_tgt = (torch.from_numpy(np.asarray(req[k], np.float32).reshape(1, 1, -1)).to(dev)
+                    for k in ("g_src", "g_tgt"))
+    with torch.inference_mode():
+        audio, _ = S.voice_conversion(model, torch.from_numpy(spec).to(dev), torch.tensor([nf], device=dev), g_src,
+                                      g_tgt, float(req["tau"]), torch.from_numpy(noise).to(dev), fast=fast,
+                                      dec_cache=cache)
+    return audio[0, : nf * cfg.upsample_factor, 0].float().cpu().numpy()
+
+
+def parity_close(label: str, out: np.ndarray, ref: np.ndarray) -> float:
+    """f32 against f32 on the card: within the port's parity-mode audio bar."""
+    check(out.shape == ref.shape and bool(np.isfinite(out).all()), f"{label}: shape {out.shape} vs {ref.shape}")
+    err = float(np.abs(out - ref).max())
+    check(err <= CPU_AUDIO_TOL, f"{label}: max |diff| {err:.3e} over the bar {CPU_AUDIO_TOL} (peak "
+                                f"{float(np.abs(ref).max()):.4f})")
+    return err
+
+
+def write_reference_pth(model, path: str) -> None:
+    """The model as a reference training script saves it: the WaveNets',
+    upsamples' and resblocks' convs weight-normed as (weight_g, weight_v),
+    beside an iteration count and a numpy learning rate."""
+    import torch
+
+    sd = {}
+    gen = torch.Generator().manual_seed(ELASTIC_SEED + 2)
+    for key, value in model.state_dict().items():
+        normed = ".enc." in key or key.startswith(("dec.ups.", "dec.resblocks."))
+        if normed and key.endswith(".weight") and value.any():
+            v = value * (1.0 + torch.rand(value.shape[0], 1, 1, generator=gen))
+            prefix = key[: -len(".weight")]
+            sd[prefix + ".weight_g"] = torch.sqrt(torch.sum(value * value, dim=(1, 2), keepdim=True))
+            sd[prefix + ".weight_v"] = v
+        else:
+            sd[key] = value.clone()
+    torch.save({"model": sd, "iteration": 1000, "learning_rate": np.float64(2e-4)}, path)
+
+
+def cli_phase(tmp: str, smi: str) -> dict:
+    """11a: the CLI in process, then its server as a process."""
+    import signal
+    import threading
+    import urllib.request
+
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch import ToneColorConverter, tools
+    from openvoice_tpu_torch.audio.io import load_audio, write_wav
+    from openvoice_tpu_torch.ckpt import native_io as CIO
+
+    phase("11a. CLI: convert-ckpt of a reference-format .pth (weight norm, a numpy scalar) → extract-se "
+          "--device cuda:0 (K5) → serve --ckpt <converted dir> --port 0 as a process, one /convert against convert()")
+    t0 = time.perf_counter()
+    model = elastic_model()
+    pth, conv_dir = os.path.join(tmp, "reference.pth"), os.path.join(tmp, "converted")
+    config = os.path.join(tmp, "config.json")
+    config_json(cfg, config)
+    write_reference_pth(model, pth)
+    check(tools.main(["convert-ckpt", pth, conv_dir, "--config", config, "--device", ELASTIC_DEVICE]) == 0,
+          "convert-ckpt")
+    back = CIO.load_checkpoint(conv_dir)["model"]
+    fold = max(float((back[k] - v).abs().max() / max(float(v.abs().max()), 1e-30))
+               for k, v in model.state_dict().items())
+    print(f"convert-ckpt: {len(back)} tensors; weight norm folded back to the model's weights within {fold:.2e} of "
+          "each tensor's peak")
+    check(set(back) == set(model.state_dict()) and fold <= 1e-6, "the converted weights are not the model's")
+
+    wav, se_path = os.path.join(tmp, "cli_src.wav"), os.path.join(tmp, "cli_se.npy")
+    write_wav(wav, serve_clip(4.0, 150.0, seed=71), SR)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    check(tools.main(["extract-se", wav, "--ckpt", pth, "--config", config, "--device", ELASTIC_DEVICE, "--no-vad",
+                      "--out", se_path]) == 0, "extract-se")
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"extract-se launches: {launches}")
+    check(launches["stft_magnitude"] >= 1 and all(launches[k] == 0 for k in KERNEL_NAMES[1:]),
+          f"extract-se launched {launches}")
+    tc = ToneColorConverter(config_path=config, device=ELASTIC_DEVICE)
+    check(tc.cfg == cfg, "config.json does not give back the model's config")
+    check(tc.load_ckpt(pth) == {"missing": [], "unexpected": []}, "the reference .pth reports keys")
+    se_cli, se_ref = np.load(se_path), tc.extract_se_from_file(wav, vad=False)
+    check(se_cli.shape == (1, cfg.gin_channels, 1) and float(np.abs(se_cli - se_ref).max()) <= SE_TOL,
+          "extract-se disagrees with extract_se_from_file")
+    tgt = (np.random.default_rng(72).standard_normal(cfg.gin_channels) * 0.1).astype(np.float32)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen([sys.executable, "-m", "openvoice_tpu_torch.tools", "serve", "--ckpt", conv_dir,
+                             "--config", config, "--device", ELASTIC_DEVICE, "--port", "0"], cwd=root,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list[str] = []
+    ready = threading.Event()
+
+    def read() -> None:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving on"):
+                ready.set()
+        ready.set()
+
+    threading.Thread(target=read, daemon=True).start()
+    try:
+        check(ready.wait(CHILD_TIMEOUT_S) and lines and lines[-1].startswith("serving on"),
+              "serve did not start:\n" + "\n".join(lines))
+        url = lines[-1].split()[-1]
+        t1 = time.perf_counter()
+        body = json.dumps({"audio_path": wav, "src_se": se_ref.reshape(-1).tolist(), "tgt_se": tgt.tolist(),
+                           "tau": 0.0}).encode()
+        req = urllib.request.Request(url + "/convert", data=body, headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            resp = json.loads(r.read())
+        served = np.frombuffer(base64.b64decode(resp["audio_b64"]), np.float32)
+        post_s = time.perf_counter() - t1
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    check(proc.returncode == 0, f"serve exited {proc.returncode} on SIGTERM:\n" + "\n".join(lines))
+    direct = tc.convert(load_audio(wav, sr=SR)[0], se_ref, tgt, tau=0.0)
+    same_path("11a serve --ckpt <dir> /convert against convert(tau=0) of the .pth", served, direct, lsb=WIRE_LSB)
+    wall = time.perf_counter() - t0
+    print(f"11a: {wall:.1f} s (the /convert round trip {post_s:.3f} s)  [{smi}]")
+    return {"wall_s": wall, "launches_extract_se": launches, "post_s": post_s}
+
+
+def round_child(addr: str, rank: int) -> int:
+    """One rank of 11b (``chip_smoke.py --elastic-child round``)."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.runtime import multihost as MH
+    from openvoice_tpu_torch.runtime.elastic import dist_request
+    from openvoice_tpu_torch.serve import distributed as D
+
+    MH.initialize(addr, 2, rank, device=ELASTIC_DEVICE, backend="gloo", timeout_s=CHILD_TIMEOUT_S)
+    mesh = MH.global_mesh(model_parallel=1)
+    svc = D.DistributedConvertService(elastic_model(), cfg, mesh, fast=True, device=ELASTIC_DEVICE)
+    model, cache = next(iter(svc.replicas.values()))
+    reqs = elastic_requests(ROUND_FRAMES, seed=73)
+    captured = []
+    real = D.data_parallel_convert
+
+    def capture(*args, **kwargs):
+        captured.append(real(*args, **kwargs))
+        return captured[-1]
+
+    D.data_parallel_convert = capture
+    out: dict = {"rank": rank, "rounds": []}
+    for ids in ROUND_IDS[rank]:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        outs = svc.convert_round([dist_request(reqs[i]) for i in ids])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        check(launches == ROUND_LAUNCHES, f"rank {rank}: a round launched {launches}")
+        rows = captured[-1].local()[..., 0]
+        pad_max = float(rows[len(ids):].abs().max()) if rows.shape[0] > len(ids) else 0.0
+        check(pad_max == 0.0, f"rank {rank}: a row of length 0 came out {pad_max}")
+        worst = 0.0
+        for i, got in zip(ids, outs):
+            ref = one_process_truth(model, reqs[i], fast=True, cache=cache)
+            check(got.shape == ref.shape, f"request {i}: shape {got.shape} vs {ref.shape}")
+            worst = max(worst, float(np.abs(got - ref).max()) / float(np.abs(ref).max()))
+        check(worst <= FAST_VS_F32_TOL, f"rank {rank}: a request strays {worst} of its peak from one process")
+        out["rounds"].append({"requests": ids, "rows": int(rows.shape[0]),
+                              "bucket": int(captured[-1].shape[1]) // cfg.upsample_factor, "wall_ms": wall_ms,
+                              "launches": launches, "max_over_peak": worst, "padded_rows_max": pad_max})
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    print("child-result " + json.dumps(out), flush=True)
+    return 0
+
+
+def spawn_elastic_round(timeout_s: float = CHILD_TIMEOUT_S) -> list[dict]:
+    """The two ranks of 11b; every child is stopped before this returns."""
+    addr = f"127.0.0.1:{free_port()}"
+    procs = [subprocess.Popen([*self_argv(), "--elastic-child", "round", addr, str(r)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = [""] * 2
+    try:
+        deadline = time.time() + timeout_s
+        for r, p in enumerate(procs):
+            outs[r], _ = p.communicate(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if not line.startswith("child-result "):
+                print(f"  [rank {r}] {line}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("child-result ")]
+        check(p.returncode == 0 and len(lines) == 1, f"11b rank {r} failed (exit {p.returncode})")
+        results.append(json.loads(lines[0][len("child-result "):]))
+    return results
+
+
+def distributed_phase(smi: str) -> dict:
+    """11b: two ranks of DistributedConvertService(fast=True) on cuda:0."""
+    phase("11b. DistributedConvertService(fast=True), two ranks on cuda:0 over gloo, V2 full width: two rounds, "
+          "rank 1 passes [] in the first; K1 1, K2 2, K3 2, K4 2 a rank a round; each request against one process")
+    t0 = time.perf_counter()
+    ranks = spawn_elastic_round()
+    for r in ranks:
+        for rnd in r["rounds"]:
+            print(f"rank {r['rank']}: requests {rnd['requests']}, {rnd['rows']} rows at bucket {rnd['bucket']}, "
+                  f"{rnd['wall_ms']:.1f} ms, max |diff| {rnd['max_over_peak']:.2e} of the peak, padded rows "
+                  f"max {rnd['padded_rows_max']}, launches {rnd['launches']}  [{smi}]")
+    wall = time.perf_counter() - t0
+    print(f"11b: {wall:.1f} s")
+    return {"wall_s": wall, "ranks": ranks}
+
+
+def elastic_child(mode: str, args: list[str]) -> int:
+    """One worker of 11c-11e (``chip_smoke.py --elastic-child worker|train|live
+    <dir> <coordinator|none> <world> <pid> [die_spec] [data_root]``), on cuda:0
+    over gloo.  It writes its pid to ``<dir>/pid.<pid>`` first, so that the
+    smoke run can kill it."""
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.runtime.elastic import train_worker_main, worker_main
+    from openvoice_tpu_torch.serve.elastic_live import live_worker_main
+
+    if mode == "round":
+        return round_child(args[0], int(args[1]))
+    state, coord, world, pid = args[0], None if args[1] == "none" else args[1], int(args[2]), int(args[3])
+    os.makedirs(state, exist_ok=True)
+    with open(os.path.join(state, f"pid.{pid}"), "w") as f:
+        f.write(str(os.getpid()))
+    die = None
+    if len(args) > 4 and args[4] != "none":
+        die_pid, n, marker = args[4].split(":", 2)
+        if pid == int(die_pid) and not os.path.exists(marker):
+            open(marker, "w").close()
+            die = int(n)
+    kw = dict(coordinator=coord, num_processes=world, process_id=pid, heartbeat_timeout_s=ELASTIC_HEARTBEAT_S,
+              device=ELASTIC_DEVICE, backend="gloo")
+    if mode == "worker":
+        worker_main(state, cfg, max_batch=2, round_sleep_s=1.0, die_after_round=die, **kw)
+    elif mode == "train":
+        train_worker_main(args[5], state, cfg, steps=ELASTIC_TRAIN_STEPS, batch_size=4, segment_frames=TRAIN_SEGMENT,
+                          ckpt_every=4, adversarial=False, die_after_step=die, **kw)
+    elif mode == "live":
+        live_worker_main(state, cfg, max_batch=2, die_after_done=die, **kw)
+    else:
+        raise SmokeFailure(f"unknown elastic child {mode}")
+    return 0
+
+
+def elastic_cmd(mode: str, state: str, *extra: str):
+    def cmd(coordinator, world, pid):
+        return [*self_argv(), "--elastic-child", mode, state, coordinator or "none", str(world), str(pid), *extra]
+    return cmd
+
+
+def print_history(sup) -> None:
+    for n, h in enumerate(sup.history):
+        print(f"  attempt {n + 1}: world {h['world']}, exit codes {h['rcs']}")
+        for pid, text in enumerate(h["outs"]):
+            for line in text.strip().splitlines()[-3:]:
+                print(f"    [{pid}] {line}")
+
+
+def elastic_convert_phase(tmp: str, smi: str) -> dict:
+    """11c: a Supervisor's world of 2 loses a worker to SIGKILL mid-stream."""
+    import threading
+
+    import torch
+
+    from openvoice_tpu_torch.runtime.elastic import EX_TEMPFAIL, Supervisor, WorkLog
+
+    phase("11c. elastic convert: Supervisor, 2 workers on cuda:0 (f32, gloo), 8 requests; worker 1 SIGKILLed after "
+          "the first done/ file; the shrunk world of 1 finishes; each result against one process")
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    state = os.path.join(tmp, "elastic")
+    model = elastic_model()
+    log = WorkLog(state)
+    log.write_params(model)
+    reqs = elastic_requests(ELASTIC_FRAMES, seed=74)
+    log.write_requests(reqs)
+    sup = Supervisor(state, elastic_cmd("worker", state), world=2, max_restarts=2)
+    result: dict = {}
+    runner = threading.Thread(target=lambda: result.update(ok=sup.run(timeout_s=ELASTIC_TIMEOUT_S)), daemon=True)
+    runner.start()
+    killed_at = None
+    while runner.is_alive() and killed_at is None:
+        if log.done_ids() and not sup.history and os.path.exists(os.path.join(state, "pid.1")):
+            with open(os.path.join(state, "pid.1")) as f:
+                os.kill(int(f.read()), 9)
+            killed_at = len(log.done_ids())
+        time.sleep(0.05)
+    runner.join(ELASTIC_TIMEOUT_S + 30)
+    print_history(sup)
+    check(result.get("ok"), "the elastic convert did not finish")
+    check(killed_at is not None, "no worker was killed")
+    first = sup.history[0]
+    check(first["world"] == 2 and first["rcs"][1] == -9 and first["rcs"][0] == EX_TEMPFAIL,
+          f"attempt 1: {first['rcs']} (want [75, -9])")
+    check([h["world"] for h in sup.history[1:]] == [1], f"worlds {[h['world'] for h in sup.history]}")
+    model = model.to(ELASTIC_DEVICE)
+    worst = max(parity_close(f"11c request {i}", log.load_result(i), one_process_truth(model, r))
+                for i, r in enumerate(reqs))
+    wall = time.perf_counter() - t0
+    print(f"11c: killed worker 1 after {killed_at} done; worlds {[h['world'] for h in sup.history]}; "
+          f"max |diff| against one process {worst:.3e} (bar {CPU_AUDIO_TOL}); launches here {launch_counts()} "
+          f"(f32 spectrogram input: none); {wall:.1f} s  [{smi}]")
+    del model
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "worlds": [h["world"] for h in sup.history], "killed_after_done": killed_at,
+            "max_abs_err": worst}
+
+
+def elastic_train_phase(tmp: str, smi: str) -> dict:
+    """11d: a TrainSupervisor's world of 2 loses worker 1 after step 6."""
+    import threading
+
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.ckpt import native_io as CIO
+    from openvoice_tpu_torch.runtime.elastic import EX_TEMPFAIL, TrainSupervisor
+    from openvoice_tpu_torch.training import train as T
+
+    phase(f"11d. elastic training: TrainSupervisor, 2 workers on cuda:0 (gloo), the mel/KL step at V2 full width, "
+          f"B 4 a process, {ELASTIC_TRAIN_STEPS} steps, a checkpoint every 4; worker 1 dies after step 6; the "
+          "relaunch resumes from step_4")
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    root, ckpt = os.path.join(tmp, "elastic_train_set"), os.path.join(tmp, "elastic_ckpt")
+    write_train_set(root)
+    marker = os.path.join(tmp, "elastic_train.marker")
+    sup = TrainSupervisor(ckpt, ELASTIC_TRAIN_STEPS, elastic_cmd("train", ckpt, f"1:6:{marker}", root), world=2,
+                          max_restarts=2)
+    result: dict = {}
+    runner = threading.Thread(target=lambda: result.update(ok=sup.run(timeout_s=ELASTIC_TIMEOUT_S)), daemon=True)
+    runner.start()
+    step4 = os.path.join(ckpt, "step_4", CIO.STATE_FILE)
+    while not sup.history and runner.is_alive():
+        time.sleep(0.02)
+    written = os.stat(step4).st_ino if os.path.exists(step4) else None
+    runner.join(ELASTIC_TIMEOUT_S + 30)
+    print_history(sup)
+    check(result.get("ok"), "the elastic training did not reach its step")
+    first = sup.history[0]
+    check(os.path.exists(marker) and first["world"] == 2 and first["rcs"][1] == 9 and first["rcs"][0] == EX_TEMPFAIL,
+          f"attempt 1: {first['rcs']} (want [75, 9])")
+    check([h["world"] for h in sup.history[1:]] == [1], f"worlds {[h['world'] for h in sup.history]}")
+    check(written is not None and os.stat(step4).st_ino == written, "the relaunch wrote step 4 again: no resume")
+    check(CIO.latest_step(ckpt) == ELASTIC_TRAIN_STEPS, f"latest step {CIO.latest_step(ckpt)}")
+    payload = CIO.load_checkpoint(os.path.join(ckpt, f"step_{ELASTIC_TRAIN_STEPS}"))
+    state = T.init_train_state(cfg, torch.Generator().manual_seed(0), 0.0, ELASTIC_DEVICE)
+    state.model.load_state_dict(payload["model"])
+    rng = np.random.default_rng(75)
+    spec = torch.from_numpy((np.abs(rng.standard_normal((2, 64, cfg.spec_channels))) * 0.3).astype(np.float32))
+    audio = torch.from_numpy((rng.standard_normal((2, 64 * cfg.hop_length)) * 0.1).astype(np.float32))
+    dev = ELASTIC_DEVICE
+    _, metrics = T.train_step(state, cfg, spec.to(dev), audio.to(dev), torch.tensor([64, 50], device=dev),
+                              torch.zeros(2, 1, cfg.gin_channels, device=dev), torch.Generator().manual_seed(5),
+                              segment_frames=32, lr=0.0)
+    losses = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in losses.values()), f"step {ELASTIC_TRAIN_STEPS}'s probe loss {losses}")
+    wall = time.perf_counter() - t0
+    print(f"11d: worlds {[h['world'] for h in sup.history]}, resumed from step_4 to step "
+          f"{CIO.latest_step(ckpt)}, probe loss {losses}; launches here {launch_counts()} (the train step: none); "
+          f"{wall:.1f} s  [{smi}]")
+    del state
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "worlds": [h["world"] for h in sup.history], "probe_loss": losses}
+
+
+def live_phase(tmp: str, smi: str) -> dict:
+    """11e: LiveSupervisor + serve_elastic, a worker dies after 2 done."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.serve.elastic_live import ElasticConvertClient, LiveSupervisor, LiveWorkLog, serve_elastic
+
+    phase("11e. live elastic serving: LiveSupervisor (2 workers on cuda:0, f32, gloo) + serve_elastic, 8 requests "
+          "over HTTP one every 0.4 s; worker 1 dies after 2 done; every answer against one process")
+    t0 = time.perf_counter()
+    zero_launch_counts()
+    state = os.path.join(tmp, "live")
+    model = elastic_model()
+    log = LiveWorkLog(state)
+    log.write_params(model)
+    marker = os.path.join(tmp, "live.marker")
+    sup = LiveSupervisor(state, elastic_cmd("live", state, f"1:2:{marker}"), world=2, max_restarts=2)
+    result: dict = {}
+    runner = threading.Thread(target=lambda: result.update(ok=sup.run(timeout_s=ELASTIC_TIMEOUT_S)), daemon=True)
+    runner.start()
+    httpd = serve_elastic(ElasticConvertClient(state, cfg))
+    port = httpd.server_address[1]
+    reqs = elastic_requests(ELASTIC_FRAMES, seed=76)
+    answers: list = [None] * len(reqs)
+    errors: list = []
+    latency: list = [None] * len(reqs)
+
+    def post(i: int) -> None:
+        r = reqs[i]
+        body = json.dumps({"spec_b64": base64.b64encode(r["spec"].tobytes()).decode(), "n_frames": r["n_frames"],
+                           "src_se": r["g_src"].tolist(), "tgt_se": r["g_tgt"].tolist(), "tau": r["tau"],
+                           "seed": r["seed"], "timeout": ELASTIC_TIMEOUT_S}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/convert", data=body,
+                                     headers={"Content-Type": "application/json"})
+        t = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=ELASTIC_TIMEOUT_S + 10) as resp:
+                answers[i] = np.frombuffer(base64.b64decode(json.loads(resp.read())["audio_b64"]), np.float32)
+            latency[i] = time.perf_counter() - t
+        except Exception as exc:  # noqa: BLE001 — reported by the check below
+            errors.append((i, repr(exc)))
+
+    threads = []
+    try:
+        for i in range(len(reqs)):
+            th = threading.Thread(target=post, args=(i,), daemon=True)
+            th.start()
+            threads.append(th)
+            time.sleep(0.4)
+        for th in threads:
+            th.join(ELASTIC_TIMEOUT_S + 20)
+    finally:
+        log.signal_stop()
+        runner.join(ELASTIC_TIMEOUT_S + 30)
+        httpd.shutdown()
+    print_history(sup)
+    check(not errors, f"requests failed: {errors}")
+    check(result.get("ok"), "the live world did not drain")
+    check(os.path.exists(marker), "the injected death never fired")
+    check([h["world"] for h in sup.history] == [2, 1], f"worlds {[h['world'] for h in sup.history]}")
+    model = model.to(ELASTIC_DEVICE)
+    worst = max(parity_close(f"11e request {i}", answers[i], one_process_truth(model, r)) for i, r in enumerate(reqs))
+    wall = time.perf_counter() - t0
+    print(f"11e: worlds {[h['world'] for h in sup.history]}, request latency s "
+          f"{[round(x, 3) for x in latency]}, max |diff| against one process {worst:.3e} (bar {CPU_AUDIO_TOL}); "
+          f"launches here {launch_counts()} (f32 spectrogram input: none); {wall:.1f} s  [{smi}]")
+    del model
+    torch.cuda.empty_cache()
+    return {"wall_s": wall, "worlds": [h["world"] for h in sup.history], "max_abs_err": worst,
+            "latency_s": latency}
+
+
+def kill_children() -> list[int]:
+    """SIGKILL every process this one started that still runs (a failed
+    sub-phase can leave a supervisor's workers behind); returns their pids."""
+    me, left = os.getpid(), []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+        except (OSError, IndexError, ValueError):
+            continue  # gone, or not readable
+        if ppid == me:
+            left.append(int(entry))
+            try:
+                os.kill(int(entry), 9)
+            except ProcessLookupError:
+                pass
+    return left
+
+
+def elastic_tier_phase(tmp: str, smi: str) -> dict:
+    t0 = time.perf_counter()
+    try:
+        out = {"cli": cli_phase(tmp, smi), "distributed": distributed_phase(smi),
+               "elastic_convert": elastic_convert_phase(tmp, smi), "elastic_train": elastic_train_phase(tmp, smi),
+               "live": live_phase(tmp, smi)}
+    finally:
+        left = kill_children()
+        if left:
+            print(f"phase 11: killed child processes still running: {left}")
+    check(not left, "phase 11 left child processes running")
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"phase 11: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2865,6 +3452,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--mesh-child"]:  # one rank of phase 10c, started by the smoke run itself
         addr, world, rank, backend = sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5]
         return child_main(addr, world, rank, backend)
+    if sys.argv[1:2] == ["--elastic-child"]:  # one process of phase 11b-11e, started by the smoke run itself
+        return elastic_child(sys.argv[2], sys.argv[3:])
     smi, kind = toolchain()
     if sys.argv[1:] == ["--tf32-control"]:  # the train step runs no kernel of the port: nothing to build
         with tempfile.TemporaryDirectory() as tmp:
@@ -2883,6 +3472,11 @@ def main() -> int:
     if sys.argv[1:2] == ["--sweep"]:
         with torch.inference_mode():
             sweep(kind, sys.argv[2:])
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--elastic"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"elastic_tier": elastic_tier_phase(tmp, smi)}))
         print(smi)
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
@@ -2910,6 +3504,7 @@ def main() -> int:
         print(f"serving-tier phase: {time.perf_counter() - t0:.1f} s")
         training = training_phase(tmp, smi, kind)
         mesh_tier = mesh_tier_phase(tc, ses, tmp, smi)
+        elastic = elastic_tier_phase(tmp, smi)
     for k in kernels:
         name = k["name"]
         k["launches"] = launches[name]
@@ -2922,6 +3517,9 @@ def main() -> int:
         k["launches_audio_format_convert"] = mesh_tier["formats"]["launches"][name]  # the FLAC clip's convert, measured
         k["launches_mesh_batcher_shard"] = mesh_tier["one_process"]["per_shard"][name]  # K5: PCM groups only
         k["launches_2rank_round"] = mesh_tier["two_process"]["gloo"][0]["convert_round_launches"][name]  # a rank's
+        k["launches_cli_extract_se"] = elastic["cli"]["launches_extract_se"][name]  # 11a, K5 only
+        k["launches_dist_round"] = [rnd["launches"][name] for r in elastic["distributed"]["ranks"]
+                                    for rnd in r["rounds"]]  # 11b: each rank's rounds, rank 0 first
         check(k["launches"] > 0, f"the serving path never launched {name}")
     print(json.dumps({"serving_tier": {"rates": serving["rates"], "worst": serving["worst"],
                                        "batchmates": serving["batchmates"], "streaming_memory": memory}}))
@@ -2930,6 +3528,9 @@ def main() -> int:
                                     "codecs": mesh_tier["formats"]["codecs"],
                                     "codec_agreement": mesh_tier["formats"]["agreement"],
                                     **mesh_tier["one_process"], **mesh_tier["two_process"]}}))
+
+    print(json.dumps({"elastic_tier": {"card": smi, "wall_s": elastic["wall_s"],
+                                       **{k: v for k, v in elastic.items() if k != "wall_s"}}}))
 
     phase("7. result")
     print(json.dumps({"kernels": kernels}))

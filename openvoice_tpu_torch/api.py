@@ -26,9 +26,9 @@ import torch
 
 from openvoice_tpu_torch.audio.io import load_audio, write_wav
 from openvoice_tpu_torch.audio.stft import host_spectrogram
-from openvoice_tpu_torch.ckpt.from_jax import load_ckpt as _load_reference_ckpt
 from openvoice_tpu_torch.ckpt.from_jax import synthesizer_from_jax
 from openvoice_tpu_torch.ckpt.native_io import load_npz
+from openvoice_tpu_torch.ckpt.torch_import import load_torch_checkpoint
 from openvoice_tpu_torch.config import HParams, SynthesizerConfig, load_hparams
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
@@ -100,15 +100,16 @@ class OpenVoiceBaseClass:
     def load_ckpt(self, ckpt_path: str) -> dict:
         """Load a reference ``.pth`` or a JAX-package ``.npz`` (its
         ``ckpt/native_io.py::save_npz``); returns the missing/unexpected
-        report (strict=False semantics, api.py:35-39; an ``.npz`` loads
-        strictly and reports nothing, as in the JAX package)."""
+        report.  A ``.pth`` goes through ``ckpt/torch_import.py``, with the
+        JAX importer's semantics key for key (a missing bias is zeros, a
+        missing conv weight raises; strict=False reporting, api.py:35-39);
+        an ``.npz`` loads strictly and reports nothing, as in the JAX
+        package."""
         if ckpt_path.endswith(".npz"):
             model = synthesizer_from_jax(load_npz(ckpt_path), self.cfg)
             report = {"missing": [], "unexpected": []}
         else:
-            model = S.Synthesizer(self.cfg)
-            result = model.load_state_dict(_load_reference_ckpt(ckpt_path), strict=False)
-            report = {"missing": list(result.missing_keys), "unexpected": list(result.unexpected_keys)}
+            model, report = load_torch_checkpoint(ckpt_path, self.cfg)
         self.set_model(model)
         print(f"Loaded checkpoint '{ckpt_path}'")
         print("missing/unexpected keys:", report["missing"], report["unexpected"])

@@ -17,6 +17,8 @@
 * `synthesizer_to_jax`: a converter `Synthesizer` → the JAX pytree, the
   inverse of `synthesizer_from_jax` (what ``ckpt/native_io.py::save_npz``
   writes for the JAX package to read).
+* `extras_from_jax`: the pytree of one of the JAX package's auxiliary
+  blocks (``nn/extras.py``) → the port's module of it.
 * `discriminators_from_jax`: the JAX discriminators' pytree
   (``training/discriminator.py::init_discriminators``) → the port's
   `Discriminators`: conv2d HWIO (5, 1, C_in, C_out) → [C_out, C_in, 5, 1],
@@ -35,6 +37,7 @@ import torch
 
 from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models.synthesizer import Synthesizer, make_dec_cache
+from openvoice_tpu_torch.nn.extras import ConvReluNorm, Decoder, TransformerCouplingLayer
 
 if TYPE_CHECKING:
     from openvoice_tpu_torch.training.discriminator import Discriminators
@@ -197,40 +200,6 @@ def dec_cache_from_jax(params: Mapping[str, Any], cfg: SynthesizerConfig,
     return model, make_dec_cache(model, dtype)
 
 
-def _fold_weight_norm(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """torch._weight_norm(v, g, dim=0): w = g · v / ‖v‖, norm over dims > 0."""
-    norm = torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.dim())), keepdim=True))
-    return g * v / norm
-
-
-def fold_weight_norm(state_dict: Mapping[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    """Replace every ``X.weight_g``/``X.weight_v`` pair (and torch ≥ 2.1's
-    ``X.parametrizations.weight.original0/1``) with a plain ``X.weight``."""
-    out: dict[str, torch.Tensor] = {}
-    pairs = ((".weight_g", ".weight_v"),
-             (".parametrizations.weight.original0", ".parametrizations.weight.original1"))
-    for key, value in state_dict.items():
-        for g_suffix, v_suffix in pairs:
-            if key.endswith(g_suffix):
-                prefix = key[: -len(g_suffix)]
-                out[f"{prefix}.weight"] = _fold_weight_norm(
-                    value.float(), state_dict[prefix + v_suffix].float())
-                break
-            if key.endswith(v_suffix):
-                break
-        else:
-            out[key] = value.float() if value.is_floating_point() else value
-    return out
-
-
-def load_ckpt(path: str) -> dict[str, torch.Tensor]:
-    """Reference ``.pth`` (``torch.load`` → ``checkpoint['model']``) → a
-    state dict with weight norm folded, on the CPU."""
-    checkpoint = torch.load(path, map_location="cpu", weights_only=True)
-    sd = checkpoint["model"] if "model" in checkpoint else checkpoint
-    return fold_weight_norm({k: v for k, v in sd.items() if isinstance(v, torch.Tensor)})
-
-
 def _np(sd: Mapping[str, torch.Tensor], key: str) -> np.ndarray:
     return sd[key].detach().cpu().numpy()
 
@@ -293,6 +262,41 @@ def synthesizer_to_jax(model: Synthesizer) -> dict:
             "proj": {"w": np.ascontiguousarray(_np(sd, "ref_enc.proj.weight").T), "b": _np(sd, "ref_enc.proj.bias")},
         },
     }
+
+
+def extras_from_jax(module, params: Mapping[str, Any]):
+    """Load the JAX package's parameter pytree of an ``nn/extras.py`` block
+    (``init_conv_relu_norm``, ``init_transformer_coupling_layer``,
+    ``init_decoder``) into the port's module of the same shapes, strictly;
+    returns the module.  Layouts as in `synthesizer_from_jax`; the decoder's
+    attention projections are 1×1 convs, the coupling's speaker projection
+    ``spk_emb`` is the reference's ``enc.spk_emb_linear`` (an nn.Linear)."""
+    sd: dict[str, np.ndarray] = {}
+    if isinstance(module, ConvReluNorm):
+        for i, (c, n) in enumerate(zip(params["convs"], params["norms"])):
+            _conv(c, f"conv_layers.{i}", sd)
+            _ln(n, f"norm_layers.{i}", sd)
+        _conv(params["proj"], "proj", sd)
+    elif isinstance(module, TransformerCouplingLayer):
+        _conv(params["pre"], "pre", sd)
+        _attn_encoder(params["enc"], "enc", sd)
+        if params["enc"].get("spk_emb") is not None:
+            sd["enc.spk_emb_linear.weight"] = np.asarray(params["enc"]["spk_emb"]["w"]).T
+            sd["enc.spk_emb_linear.bias"] = np.asarray(params["enc"]["spk_emb"]["b"])
+        _conv(params["post"], "post", sd)
+    elif isinstance(module, Decoder):
+        for i, lp in enumerate(params["layers"]):
+            for attn, prefix in (("self_attn", "self_attn_layers"), ("cross_attn", "encdec_attn_layers")):
+                for name in ("q", "k", "v", "o"):
+                    _linear_1x1(lp[attn][name], f"{prefix}.{i}.conv_{name}", sd)
+            for n in range(3):
+                _ln(lp[f"norm{n}"], f"norm_layers_{n}.{i}", sd)
+            _conv(lp["ffn"]["conv1"], f"ffn_layers.{i}.conv_1", sd)
+            _conv(lp["ffn"]["conv2"], f"ffn_layers.{i}.conv_2", sd)
+    else:
+        raise TypeError(f"no JAX bridge for {type(module).__name__}")
+    module.load_state_dict({k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}, strict=True)
+    return module
 
 
 def discriminators_from_jax(d_params: Mapping[str, Any]) -> Discriminators:

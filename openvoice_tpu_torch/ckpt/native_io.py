@@ -9,13 +9,17 @@
   (``ckpt/from_jax.py``): ``save_npz(path, synthesizer_to_jax(model))``
   writes what its ``load_npz`` + ``synthesizer_from_jax`` read, and
   `load_npz` + `synthesizer_from_jax` read what it writes.
-* **training state** (`save_checkpoint` / `load_checkpoint` / `latest_step`):
-  ``torch.save`` of the models' and optimizers' state dicts and the step,
-  one ``step_N/state.pt`` a step.  A train state is anything with
-  ``model``, ``opt`` and ``step`` (``training/train.py::TrainState``), or
-  with ``gen`` and ``disc`` states (``GanTrainState``), so this module needs
-  nothing of the training layer.  The JAX package keeps this tier in Orbax,
-  which is its own and is not ported: the two tiers do not read each other.
+* **checkpoint directories** (`save_checkpoint` / `load_checkpoint` /
+  `latest_step`): ``torch.save`` of the models' and optimizers' state dicts
+  and the step, one ``step_N/state.pt`` a step, or of a bare model's state
+  dict.  A train state is anything with ``model``, ``opt`` and ``step``
+  (``training/train.py::TrainState``), or with ``gen`` and ``disc`` states
+  (``GanTrainState``), so this module needs nothing of the training layer.
+  `convert_torch_checkpoint` writes a reference ``.pth``'s weights (weight
+  norm folded, ``ckpt/torch_import.py``) as such a directory, which
+  ``load_checkpoint(dir, template=<a Synthesizer>)`` reads back.  The JAX
+  package keeps this tier in Orbax, which is its own and is not ported: the
+  two tiers do not read each other.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ from typing import Any
 
 import numpy as np
 import torch
+from torch import nn
 
 STATE_FILE = "state.pt"
 
@@ -102,18 +107,20 @@ def _is_train(state: Any) -> bool:
 
 def _payload(state: Any) -> Any:
     """What `save_checkpoint` writes: a train state's model and optimizer
-    state dicts and its step (a GAN state's as ``gen`` and ``disc``);
-    anything else as it is."""
+    state dicts and its step (a GAN state's as ``gen`` and ``disc``); a bare
+    model's state dict as ``model``; anything else as it is."""
     if _is_gan(state):
         return {"gen": _payload(state.gen), "disc": _payload(state.disc)}
     if _is_train(state):
         return {"model": state.model.state_dict(), "opt": state.opt.state_dict(), "step": state.step}
+    if isinstance(state, nn.Module):
+        return {"model": state.state_dict()}
     return state
 
 
 def _restore(template: Any, payload: Any) -> Any:
-    """`payload` loaded into the train state `template` in place (which is
-    returned); anything else: the payload."""
+    """`payload` loaded into the train state or model `template` in place
+    (which is returned); anything else: the payload."""
     if _is_gan(template):
         _restore(template.gen, payload["gen"])
         _restore(template.disc, payload["disc"])
@@ -122,6 +129,9 @@ def _restore(template: Any, payload: Any) -> Any:
         template.model.load_state_dict(payload["model"], strict=True)
         template.opt.load_state_dict(payload["opt"])
         template.step = int(payload["step"])
+        return template
+    if isinstance(template, nn.Module):
+        template.load_state_dict(payload["model"], strict=True)
         return template
     return payload
 
@@ -142,7 +152,7 @@ def save_checkpoint(directory: str, state: Any, step: int | None = None) -> str:
 
 def load_checkpoint(directory: str, template: Any | None = None) -> Any:
     """Read what `save_checkpoint` wrote at `directory`.  With a `template`
-    (a train state of the same shapes) the weights, the
+    (a train state or a model of the same shapes) the weights, the
     optimizers' moments and the step are loaded into it, on its devices, and
     it is returned; without one, the raw payload (on the CPU)."""
     payload = torch.load(os.path.join(os.path.abspath(directory), STATE_FILE), map_location="cpu",
@@ -156,3 +166,16 @@ def latest_step(directory: str) -> int | None:
         return None
     steps = [int(name[5:]) for name in os.listdir(directory) if name.startswith("step_") and name[5:].isdigit()]
     return max(steps) if steps else None
+
+
+def convert_torch_checkpoint(pth_path: str, out_dir: str, cfg) -> str:
+    """One-time tool: a reference ``.pth`` → a checkpoint directory of the
+    weight-norm-folded weights (`save_checkpoint` of the imported
+    `Synthesizer`); returns the written path."""
+    from openvoice_tpu_torch.ckpt.torch_import import load_torch_checkpoint
+
+    model, report = load_torch_checkpoint(pth_path, cfg)
+    path = save_checkpoint(out_dir, model)
+    if report.get("unexpected"):
+        print(f"[convert] {len(report['unexpected'])} unexpected keys ignored")
+    return path

@@ -8,19 +8,23 @@ JAX: ``openvoice_tpu/nn/duration.py``).
   reference does ("remove a useless vflow"), then a flip and the elementwise
   affine.
 
+* `apply_sdp_forward`: the training path (models.py:144-171):
+  the posterior flows over (u, ν), then every flow forward, to nll + log q.
+
 The noise is the caller's ([B, T, 2] in the JAX layout), so a seed gives
-the same draws in both packages.  The training path (``apply_sdp_forward``)
-waits for the training slice; the posterior modules it needs are built here
-so that a reference checkpoint loads by name.
+the same draws in both packages.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from openvoice_tpu_torch.nn.conv import LayerNorm, conv1d
-from openvoice_tpu_torch.nn.flows import ConvFlow, DDSConv, ElementwiseAffine, Flip, flip_flow
+from openvoice_tpu_torch.nn.flows import ConvFlow, DDSConv, ElementwiseAffine, Flip, flip_flow, log_flow
 
 
 class DurationPredictor(nn.Module):
@@ -90,6 +94,35 @@ class StochasticDurationPredictor(nn.Module):
         return z[:, 0:1]
 
 
+def _forward_chain(flows: nn.ModuleList, z: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor):
+    """[EA, (ConvFlow, Flip) ×n] forward → (z, the summed log-determinant [B])."""
+    z, logdet = flows[0](z, x_mask)
+    for cf in flows[1::2]:
+        z, ld = cf(z, x_mask, g=g)
+        logdet = logdet + ld
+        z = flip_flow(z)  # a flip's log-determinant is 0
+    return z, logdet
+
+
+def _nll(sdp: StochasticDurationPredictor, x: torch.Tensor, x_mask: torch.Tensor, w: torch.Tensor,
+         e_q: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
+    """x [B, C, T], x_mask [B, 1, T], w [B, 1, T] durations, e_q [B, 2, T]
+    the posterior's noise → nll + log q [B]."""
+    ctx = sdp.context(x, x_mask, g)
+    h_w = sdp.post_proj(sdp.post_convs(sdp.post_pre(w), x_mask)) * x_mask
+    e_q = e_q * x_mask
+    z_q, logdet_q = _forward_chain(sdp.post_flows, e_q, x_mask, ctx + h_w)
+    z_u, z1 = z_q[:, 0:1], z_q[:, 1:2]
+    u = torch.sigmoid(z_u) * x_mask
+    z0 = (w - u) * x_mask
+    logdet_q = logdet_q + torch.sum((F.logsigmoid(z_u) + F.logsigmoid(-z_u)) * x_mask, dim=(1, 2))
+    logq = torch.sum(-0.5 * (math.log(2 * math.pi) + e_q * e_q) * x_mask, dim=(1, 2)) - logdet_q
+    z0, logdet = log_flow(z0, x_mask)
+    z, ld = _forward_chain(sdp.flows, torch.cat([z0, z1], dim=1), x_mask, ctx)
+    nll = torch.sum(0.5 * (math.log(2 * math.pi) + z * z) * x_mask, dim=(1, 2)) - (logdet + ld)
+    return nll + logq
+
+
 def apply_duration_predictor(dp: DurationPredictor, x: torch.Tensor, x_mask: torch.Tensor,
                              g: torch.Tensor | None = None) -> torch.Tensor:
     """The JAX layout: x [B, T, C], x_mask [B, T, 1], g [B, 1, gin] → [B, T, 1]."""
@@ -105,3 +138,13 @@ def apply_sdp_reverse(sdp: StochasticDurationPredictor, x: torch.Tensor, x_mask:
     g_t = g.transpose(1, 2) if g is not None else None
     logw = sdp.reverse(x.transpose(1, 2), x_mask.transpose(1, 2), noise.transpose(1, 2), g_t, noise_scale)
     return logw.transpose(1, 2)
+
+
+def apply_sdp_forward(sdp: StochasticDurationPredictor, x: torch.Tensor, x_mask: torch.Tensor, w: torch.Tensor,
+                      g: torch.Tensor | None, e_q: torch.Tensor) -> torch.Tensor:
+    """The training NLL in the JAX layout (its ``apply_sdp_forward``): x
+    [B, T, C], x_mask [B, T, 1], w [B, T, 1] ground-truth durations, g
+    [B, 1, gin] or None, e_q [B, T, 2] the posterior's noise (the JAX
+    function draws it from its key) → nll + log q [B]."""
+    g_t = g.transpose(1, 2) if g is not None else None
+    return _nll(sdp, x.transpose(1, 2), x_mask.transpose(1, 2), w.transpose(1, 2), e_q.transpose(1, 2), g_t)

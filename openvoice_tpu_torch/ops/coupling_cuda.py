@@ -123,8 +123,12 @@ def coupling_g_stack(flow, g: torch.Tensor, *, reverse: bool, convs=None) -> tor
     g_t = g.transpose(1, 2)  # [B, gin, 1]
     stacked = []
     for index, _parity in _exec_order(len(layers), reverse):
-        n_layers = len(layers[index].enc.in_layers)
-        stacked.append(convs[index](g_t).reshape(g.shape[0], n_layers, -1))  # [B, L, 2H]
+        enc = layers[index].enc
+        n_layers = len(enc.in_layers)
+        if convs[index] is None:  # a coupling without conditioning (a checkpoint that lacks it) adds nothing
+            stacked.append(g.new_zeros(g.shape[0], n_layers, 2 * enc.hidden))
+        else:
+            stacked.append(convs[index](g_t).reshape(g.shape[0], n_layers, -1))  # [B, L, 2H]
     return torch.stack(stacked, dim=1).contiguous()
 
 

@@ -176,7 +176,8 @@ class TensorParallel:
 
 def data_parallel_convert(model: S.Synthesizer, mesh: Mesh, spec, spec_lengths, g_src, g_tgt, tau, noise,
                           fast: bool = False, replicas: dict | None = None) -> Sharded:
-    """`voice_conversion` with rows split over `mesh`'s data axis and the
+    """`voice_conversion` with rows split over `mesh`'s data axis (tau a
+    float, or one per row as a whole [B, 1, 1] tensor or a `Sharded`) and the
     weights replicated per device (`replicas`: {device: (model, dec_cache)},
     made here when not given; the cache only for fast=True) → audio [B,
     T·upsample, 1] `Sharded` by rows.  Each position converts its rows on
@@ -190,7 +191,7 @@ def data_parallel_convert(model: S.Synthesizer, mesh: Mesh, spec, spec_lengths, 
         f32 = torch.float32
         audio, _ = S.voice_conversion(
             m, _rows(spec, mesh, c, f32), _rows(spec_lengths, mesh, c), _rows(g_src, mesh, c, f32),
-            _rows(g_tgt, mesh, c, f32), tau if not torch.is_tensor(tau) else _rows(tau, mesh, c, f32),
+            _rows(g_tgt, mesh, c, f32), _rows(tau, mesh, c, f32) if isinstance(tau, (torch.Tensor, Sharded)) else tau,
             _rows(noise, mesh, c, f32), fast=fast, dec_cache=cache)
         return audio
 

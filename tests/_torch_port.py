@@ -16,6 +16,9 @@ from tests._regen_golden import _CONVERT_CFG, _TTS_CFG
 # multi-process tests: keep each worker's torch to a couple of cores
 torch.set_num_threads(2)
 
+# the port's audio bar against JAX on the CPU, f32 (tests/test_torch_convert.py)
+AUDIO_TOL = 5e-4
+
 # the golden's tiny converter (tests/_regen_golden.py)
 TINY = dict(_CONVERT_CFG)
 
@@ -115,3 +118,27 @@ def t(a: np.ndarray) -> torch.Tensor:
 def lengths_mask(lengths, t_max: int) -> np.ndarray:
     """[B] lengths → float32 [B, T, 1] frame mask."""
     return (np.arange(t_max)[None, :] < np.asarray(lengths)[:, None]).astype(np.float32)[..., None]
+
+
+def jax_elastic_truth(params: dict, req: dict) -> np.ndarray:
+    """The JAX package's single-device convert of one elastic-tier request
+    (tests/_elastic_child.py's tiny converter), with the distributed
+    service's noise: ``default_rng(seed)`` over the live frames, in the
+    request's own bucket."""
+    import jax.numpy as jnp
+
+    from openvoice_tpu.models import synthesizer as S
+    from openvoice_tpu.runtime.bucketing import round_up_to_bucket
+    from tests._elastic_child import TINY as cfg
+
+    nf = int(req["n_frames"])
+    bucket = round_up_to_bucket(nf)
+    spec = np.zeros((1, bucket, cfg.spec_channels), np.float32)
+    spec[0, :nf] = req["spec"]
+    noise = np.zeros((1, bucket, cfg.inter_channels), np.float32)
+    noise[0, :nf] = np.random.default_rng(int(req["seed"])).standard_normal((nf, cfg.inter_channels))
+    audio, _ = S.voice_conversion_jit(
+        params, cfg, jnp.asarray(spec), jnp.asarray([nf]), jnp.asarray(req["g_src"])[None, None],
+        jnp.asarray(req["g_tgt"])[None, None], jnp.full((1, 1, 1), float(req["tau"]), np.float32),
+        jnp.asarray(noise))
+    return np.asarray(audio)[0, : nf * cfg.upsample_factor, 0]

@@ -236,3 +236,42 @@ def test_a_group_another_caller_started_takes_the_card_of_its_local_rank(monkeyp
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     assert MH.process_device() == torch.device("cuda", 1)
+
+
+@pytest.mark.parametrize("entry", ["DistributedConvertService", "worker_main", "live_worker_main", "tools.main"])
+def test_elastic_tier_and_cli_without_device_raise_when_cuda_is_absent(entry, tmp_path, monkeypatch):
+    """The distributed service, the elastic and live workers and the CLI take
+    the card unless the caller names the CPU."""
+    from openvoice_tpu_torch import tools
+    from openvoice_tpu_torch.runtime.elastic import WorkLog, worker_main
+    from openvoice_tpu_torch.runtime.mesh import make_mesh
+    from openvoice_tpu_torch.serve.distributed import DistributedConvertService
+    from openvoice_tpu_torch.serve.elastic_live import LiveWorkLog, live_worker_main
+
+    cfg = torch_cfg(TINY)
+    model = S.init_synthesizer(cfg, torch.Generator().manual_seed(0))
+    log = LiveWorkLog(str(tmp_path))
+    log.write_params(model)
+    WorkLog(str(tmp_path)).write_requests([])
+    log.signal_stop()  # the live world drains at once
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+
+    def call(cpu: bool):
+        dev = {"device": "cpu"} if cpu else {}
+        if entry == "DistributedConvertService":
+            return DistributedConvertService(model, cfg, make_mesh(1, devices=["cpu"]), **dev)
+        if entry == "worker_main":
+            return worker_main(str(tmp_path), cfg, coordinator=None, num_processes=1, process_id=0, **dev)
+        if entry == "live_worker_main":
+            return live_worker_main(str(tmp_path), cfg, coordinator=None, num_processes=1, process_id=0, **dev)
+        out = str(tmp_path / "se.npy")
+        wav = str(tmp_path / "a.wav")
+        from openvoice_tpu_torch.audio.io import write_wav
+
+        write_wav(wav, np.zeros(4096, np.float32), 22050)
+        return tools.main(["extract-se", wav, "--no-vad", "--out", out, *(["--device", "cpu"] if cpu else [])])
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        call(False)
+    call(True)
