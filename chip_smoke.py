@@ -7,6 +7,7 @@
                                    # tile sizes, warps, K1's and K2's cluster
                                    # size and K3's ring depth
     python3 chip_smoke.py --elastic     # instead: build, then phase 11 alone
+    python3 chip_smoke.py --installed   # instead: build, then phase 12 alone
     python3 chip_smoke.py --tf32-control
                                    # instead: phase 9.4's gradients, plus the
                                    # card's f32 pass again with TF32 on, which
@@ -80,7 +81,7 @@ Phases, in order; any failure exits non-zero before the result line:
    SE-conditioned dataset's first batch (K5, in the prefetch thread)
    against the CPU;
 10. audio formats and the mesh tier (after training, before the result):
-   10a. the codec libraries built from ``native/src``, the codecs this
+   10a. the codec libraries built from ``audio/native_src``, the codecs this
    machine has printed (a missing system library is printed, not failed;
    FLAC and WAV always run); a 10 s clip written in every available format
    through ``load_audio`` → ``extract_se_from_file`` → ``convert(fast=True)``
@@ -116,10 +117,25 @@ Phases, in order; any failure exits non-zero before the result line:
    worker 1 dying after step 6; the relaunch resumes from step_4;
    11e. ``LiveSupervisor`` + ``serve_elastic``, 8 requests over HTTP, a worker
    dying after 2 done, every answer against one process, worlds 2 then 1;
+12. the installed port (after phase 11, before the result): a wheel built
+   from a copy of the tree (``pip wheel --no-deps --no-build-isolation``,
+   offline), installed with ``pip install --no-deps --target`` into a
+   directory outside the repository; one child process (``--installed-child``,
+   ``python -P`` with only that directory on ``PYTHONPATH``, a fresh working
+   directory) builds K1-K5 and ``libovt_audio`` from the installed copy's own
+   sources into its own ``csrc/build``, then runs each demo's ``main``
+   (``openvoice_tpu_torch.demos.*``; V2 from a ``.pth`` with conv_post ×100,
+   V1 on random weights; a 10 s WAV source, a 6 s FLAC reference), then
+   ``tools.main(["extract-se", ...])`` and the installed
+   ``bin/openvoice-tpu-torch``; each demo's launches against
+   ``INSTALLED_LAUNCHES`` (fused_chain: n calls of K5 1, K1 1, K2 3, K3 4,
+   K4 4); v2_conversion's and fused_chain's output WAVs against the same
+   demos run here on the repository's copy (1e-5 and 0.05 of the peak);
 7. one JSON line of every ported kernel (with ``launches_train_phase`` and
-   phase 10's and 11's launch counts), one of the serving tier's numbers,
-   one of training's, one of phase 10's, one of phase 11's, the card's
-   ``nvidia-smi`` line, then the result line ``{"ok": true, "device": {...}}``.
+   phase 10's, 11's and 12's launch counts), one of the serving tier's
+   numbers, one of training's, one of phase 10's, one of phase 11's, one of
+   phase 12's, the card's ``nvidia-smi`` line, then the result line
+   ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX.  Without a CUDA card, or outside a checkout of the
 repository, it fails.
@@ -128,8 +144,10 @@ repository, it fails.
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import functools
+import io
 import json
 import math
 import os
@@ -2406,7 +2424,7 @@ def aligned_snr(a: np.ndarray, ref: np.ndarray, max_lag: int = 4096) -> tuple[in
 
 
 def codecs() -> dict:
-    """Build the codec libraries from native/src and report which codecs this
+    """Build the codec libraries from audio/native_src and report which codecs this
     machine has (a missing system library is reported, not failed)."""
     from openvoice_tpu_torch.audio import _native_build, ffdec, flac, mp3, ogg, opus
 
@@ -3440,6 +3458,227 @@ def elastic_tier_phase(tmp: str, smi: str) -> dict:
     return out
 
 
+# -- phase 12: the installed port -----------------------------------------------------
+
+INSTALLED_SEED = SEED + 120
+INSTALLED_F32_TOL = 1e-5  # of the peak: the same f32 demo from the installed copy and the repository's, one card
+# each demo's launches from the installed copy, by the counters (what the earlier phases count for the same calls:
+# an extract_se batch or an f32 convert K5 1; a TTS decode group K2 1 (reverse), K3 2, K4 2)
+INSTALLED_LAUNCHES = {
+    "v2_conversion": {"stft_magnitude": 3},  # get_se of the source and of the reference, then convert (f32)
+    "v1_tts": {"stft_magnitude": 3, "coupling_block": 1, "mrf_stage": 2, "tail_stage": 2},  # one sentence, one
+    # serving-mode decode group; get_se of the TTS audio and of the reference, then convert (f32)
+    "external_tts": {"stft_magnitude": 3},  # get_se of the reference, then one source: extract_se, convert (f32)
+    "watermark_robustness": {},  # no model
+    "extract-se": {"stft_magnitude": 1},
+}
+# fused_chain: each chain call (a frame group of tts_convert_batched, a token group of the single dispatch, a
+# sentence of the stream, an overflow re-run) is one decode + STFT + serving convert (8c's "fused group")
+FUSED_CALL_LAUNCHES = {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 3, "mrf_stage": 4, "tail_stage": 4}
+
+
+def installed_argv(data: str) -> dict[str, list[str]]:
+    """Each demo's arguments in phase 12 (no --device: the card is the
+    default); outputs land under the working directory."""
+    pth, config = os.path.join(data, "v2.pth"), os.path.join(data, "v2.json")
+    src, ref = os.path.join(data, "source.wav"), os.path.join(data, "reference.flac")
+    return {
+        "v2_conversion": ["--ckpt", pth, "--config", config, "--source", src, "--reference", ref,
+                          "--output", "outputs/v2.wav"],
+        "v1_tts": ["--reference", ref, "--speed", "0.3", "--output", "outputs/v1.wav"],  # ~4 s for get_se
+        "external_tts": ["--sources", src, "--reference", ref, "--outdir", "outputs/external"],
+        "fused_chain": ["--converter-ckpt", pth, "--converter-config", config, "--output-dir", "outputs/fused"],
+        "watermark_robustness": ["--audio", ref],
+    }
+
+
+def run_main(label: str, main_fn, argv: list[str]) -> dict:
+    """``main_fn(argv)`` (a demo's or the CLI's) with the launch counters
+    zeroed just before: its wall (the card synchronised at both ends) and
+    launches."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    check(main_fn(argv) == 0, f"{label} failed")
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0, "launches": launch_counts()}
+
+
+def run_demo(name: str, argv: list[str], cwd: str) -> dict:
+    """`run_main` of one demo in a fresh directory ``cwd/name``, where its
+    outputs and its SE cache (``processed/``) land."""
+    import importlib
+
+    main_fn = importlib.import_module(f"openvoice_tpu_torch.demos.{name}").main
+    here = os.getcwd()
+    os.makedirs(os.path.join(cwd, name))
+    os.chdir(os.path.join(cwd, name))
+    try:
+        return run_main(f"demo {name}", main_fn, argv)
+    finally:
+        os.chdir(here)
+
+
+def check_launches(label: str, got: dict, want: dict) -> None:
+    expected = {k: want.get(k, 0) for k in KERNEL_NAMES}
+    check(got == expected, f"{label} launched {got}, expected {expected}")
+
+
+def fused_calls(label: str, got: dict) -> int:
+    """The number n of chain calls whose launches `got` is, n·FUSED_CALL_LAUNCHES."""
+    n = got["stft_magnitude"]
+    check(n >= 4 and got == {k: n * v for k, v in FUSED_CALL_LAUNCHES.items()},
+          f"{label}: {got} is not n ≥ 4 chain calls of {FUSED_CALL_LAUNCHES}")
+    return n
+
+
+def installed_child(site: str, data: str) -> int:
+    """Phase 12's child: the port from `site` alone, in a fresh working
+    directory; builds the kernels and the codec library there, runs each
+    demo and extract-se, and prints one ``INSTALLED {...}`` line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    check(all(os.path.abspath(p or os.curdir) != root for p in sys.path), "the repository is on sys.path")
+    import openvoice_tpu_torch
+    from openvoice_tpu_torch import tools
+    from openvoice_tpu_torch.audio import _native_build
+    from openvoice_tpu_torch.ops import _nvcc
+
+    package = os.path.join(site, "openvoice_tpu_torch")
+    check(os.path.dirname(openvoice_tpu_torch.__file__) == package,
+          f"openvoice_tpu_torch came from {openvoice_tpu_torch.__file__}, not {package}")
+    build_dir = os.path.join(package, "csrc", "build")
+    check(not os.path.exists(build_dir), f"{build_dir} exists before the first use")
+    names = _nvcc.kernel_names()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(names) + 1) as pool:
+        codec = pool.submit(_native_build.build, "ovt_audio")
+        list(pool.map(_nvcc.build, names))
+        codec.result()
+    build_s = time.perf_counter() - t0
+    libraries = sorted(os.listdir(build_dir))
+    for path in [_nvcc.library_path(name) for name in names] + [_native_build.library_path("ovt_audio")]:
+        check(path.exists() and str(path.parent) == build_dir, f"{path} was not built into {build_dir}")
+    print(f"built {names} and libovt_audio from {package}'s own sources in {build_s:.2f} s: {libraries}")
+
+    demos = {}
+    for name, argv in installed_argv(data).items():
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            demos[name] = run_demo(name, argv, os.getcwd())
+        print(said.getvalue().rstrip())
+        print(f"{name}: {demos[name]['wall_s']:.2f} s, launches {demos[name]['launches']}", flush=True)
+    for row in ("untouched", "PCM16 round-trip"):  # the watermark demo's table, on the FLAC clip
+        check(f"{row:42s} OK  '@MyShell'" in said.getvalue().splitlines(), f"the watermark demo's {row!r} row failed")
+    se_path = os.path.abspath("se_cli.npy")
+    ref = os.path.join(data, "reference.flac")
+    cli = ["extract-se", ref, "--config", os.path.join(data, "v2.json"), "--ckpt", os.path.join(data, "v2.pth")]
+    demos["extract-se"] = run_main("extract-se", tools.main, [*cli, "--out", se_path])
+    script = os.path.join(site, "bin", "openvoice-tpu-torch")
+    t0 = time.perf_counter()
+    out = subprocess.run([script, *cli, "--out", "se_script.npy"], capture_output=True, text=True,
+                         timeout=CHILD_TIMEOUT_S)
+    check(out.returncode == 0, f"{script} exited {out.returncode}:\n{out.stdout}{out.stderr}")
+    script_s = time.perf_counter() - t0
+    se_diff = float(np.abs(np.load("se_script.npy") - np.load(se_path)).max())
+    print(f"{script} extract-se: {script_s:.2f} s, its SE within {se_diff:.2e} of tools.main's")
+    check(se_diff <= SE_TOL, "the installed command's SE disagrees with tools.main's")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("openvoice_tpu", "jax"))
+    check(not loaded, f"the installed port loaded {loaded}")
+    print("INSTALLED " + json.dumps({"build_s": build_s, "libraries": libraries, "demos": demos,
+                                     "script_s": script_s, "script_se_diff": se_diff}), flush=True)
+    return 0
+
+
+def pip(*args: str, cwd: str | None = None) -> float:
+    """``python -m pip <args>`` offline; returns its seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pip", *args, "--no-index", "--disable-pip-version-check",
+                          "--no-cache-dir", "-q"], cwd=cwd, capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"pip {args[0]} exited {out.returncode}:\n{out.stdout}{out.stderr}")
+    return time.perf_counter() - t0
+
+
+def installed_phase(tmp: str, smi: str) -> dict:
+    """12: the port built as a wheel from a copy of the tree, installed with
+    pip into a directory outside the repository, and driven there by a child
+    process that sees only that directory: every demo and extract-se at full
+    width; the launches against INSTALLED_LAUNCHES; v2_conversion's and
+    fused_chain's outputs against the same demos on the repository's copy."""
+    import shutil
+
+    from openvoice_tpu_torch.audio.flac import write_flac
+    from openvoice_tpu_torch.audio.io import load_audio, write_wav
+
+    phase("12. the installed port: a wheel of the tree, pip install --target outside the repository, a child "
+          "process with only that directory on its path builds K1-K5 and libovt_audio there and runs the five "
+          "demos and extract-se at full width (V2 ckpt with conv_post ×100; V1 random)")
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    tree, site, data = (os.path.join(tmp, f"phase12_{d}") for d in ("tree", "site", "data"))
+    os.makedirs(tree)
+    for name in ("pyproject.toml", "README.md", "LICENSE"):
+        shutil.copy(os.path.join(root, name), tree)
+    for package in ("openvoice_tpu", "openvoice_tpu_torch"):
+        shutil.copytree(os.path.join(root, package), os.path.join(tree, package),
+                        ignore=shutil.ignore_patterns("build", "__pycache__"))
+    wheel_s = pip("wheel", ".", "--no-deps", "--no-build-isolation", "-w", "dist", cwd=tree)
+    (wheel,) = [os.path.join(tree, "dist", f) for f in os.listdir(os.path.join(tree, "dist"))]
+    install_s = pip("install", "--no-deps", "--target", site, wheel)
+    csrc = os.listdir(os.path.join(site, "openvoice_tpu_torch", "csrc"))
+    print(f"wheel {os.path.basename(wheel)} ({os.path.getsize(wheel) / 1e6:.2f} MB) in {wheel_s:.2f} s, installed "
+          f"in {install_s:.2f} s; csrc: {sorted(csrc)}")
+    check(os.path.exists(os.path.join(site, "bin", "openvoice-tpu-torch")), "pip installed no openvoice-tpu-torch")
+
+    os.makedirs(data)
+    model = elastic_model()
+    write_reference_pth(model, os.path.join(data, "v2.pth"))
+    config_json(model.cfg, os.path.join(data, "v2.json"))
+    write_wav(os.path.join(data, "source.wav"), voice(10.0, 140.0, seed=INSTALLED_SEED), SR)
+    write_flac(os.path.join(data, "reference.flac"), voice(6.0, 220.0, seed=INSTALLED_SEED + 1), SR)
+
+    child_cwd, repo_cwd = os.path.join(tmp, "phase12_child"), os.path.join(tmp, "phase12_repo")
+    os.makedirs(child_cwd)
+    env = {**os.environ, "PYTHONPATH": site, "PIP_DISABLE_PIP_VERSION_CHECK": "1"}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-P", os.path.abspath(__file__), "--installed-child", site, data],
+                          cwd=child_cwd, env=env, capture_output=True, text=True, timeout=CHILD_TIMEOUT_S)
+    child_s = time.perf_counter() - t0
+    print("\n".join("  | " + line for line in proc.stdout.splitlines() if not line.startswith("INSTALLED ")))
+    check(proc.returncode == 0, f"the installed child exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    child = json.loads(next(line for line in proc.stdout.splitlines() if line.startswith("INSTALLED "))[10:])
+    print(f"child process: {child_s:.1f} s, the libraries built in {child['build_s']:.2f} s  [{smi}]")
+
+    for name, want in INSTALLED_LAUNCHES.items():
+        check_launches(f"installed {name}", child["demos"][name]["launches"], want)
+    n = fused_calls("installed fused_chain", child["demos"]["fused_chain"]["launches"])
+
+    # the same two demos on the repository's copy, in this process, same card and weights
+    argv = installed_argv(data)
+    repo = {name: run_demo(name, argv[name], repo_cwd) for name in ("v2_conversion", "fused_chain")}
+    check_launches("repository v2_conversion", repo["v2_conversion"]["launches"], INSTALLED_LAUNCHES["v2_conversion"])
+    check(repo["fused_chain"]["launches"] == child["demos"]["fused_chain"]["launches"],
+          f"fused_chain launched {repo['fused_chain']['launches']} from the repository, "
+          f"{child['demos']['fused_chain']['launches']} installed")
+
+    def wav(cwd: str, path: str) -> np.ndarray:
+        return load_audio(os.path.join(cwd, path), sr=None)[0]
+
+    agreement = {}
+    for path, rel in (("v2_conversion/outputs/v2.wav", INSTALLED_F32_TOL),
+                      ("fused_chain/outputs/fused/demo_chain_single.wav", FAST_CPU_TOL),
+                      ("fused_chain/outputs/fused/demo_chain_stream.wav", FAST_CPU_TOL)):
+        agreement[path] = same_path(f"installed against the repository, {path}", wav(child_cwd, path),
+                                    wav(repo_cwd, path), rel=rel)
+    wall = time.perf_counter() - t_phase
+    walls = {name: round(d["wall_s"], 3) for name, d in child["demos"].items()}
+    print(f"phase 12: {wall:.1f} s (wheel {wheel_s:.2f} s, install {install_s:.2f} s, child {child_s:.1f} s, build "
+          f"{child['build_s']:.2f} s); demo walls installed {walls}, repository "
+          f"{ {k: round(v['wall_s'], 3) for k, v in repo.items()} }; fused_chain {n} chain calls  [{smi}]")
+    return {"wall_s": wall, "wheel_s": wheel_s, "install_s": install_s, "child_s": child_s, **child,
+            "repo_walls": {k: v["wall_s"] for k, v in repo.items()}, "fused_calls": n, "agreement": agreement}
+
+
 def main() -> int:
     import torch
 
@@ -3454,6 +3693,8 @@ def main() -> int:
         return child_main(addr, world, rank, backend)
     if sys.argv[1:2] == ["--elastic-child"]:  # one process of phase 11b-11e, started by the smoke run itself
         return elastic_child(sys.argv[2], sys.argv[3:])
+    if sys.argv[1:2] == ["--installed-child"]:  # phase 12's child, started by the smoke run itself
+        return installed_child(sys.argv[2], sys.argv[3])
     smi, kind = toolchain()
     if sys.argv[1:] == ["--tf32-control"]:  # the train step runs no kernel of the port: nothing to build
         with tempfile.TemporaryDirectory() as tmp:
@@ -3477,6 +3718,11 @@ def main() -> int:
     if sys.argv[1:] == ["--elastic"]:
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps({"elastic_tier": elastic_tier_phase(tmp, smi)}))
+        print(smi)
+        return 0
+    if sys.argv[1:] == ["--installed"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            print(json.dumps({"installed": installed_phase(tmp, smi)}))
         print(smi)
         return 0
     check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
@@ -3505,6 +3751,7 @@ def main() -> int:
         training = training_phase(tmp, smi, kind)
         mesh_tier = mesh_tier_phase(tc, ses, tmp, smi)
         elastic = elastic_tier_phase(tmp, smi)
+        installed = installed_phase(tmp, smi)
     for k in kernels:
         name = k["name"]
         k["launches"] = launches[name]
@@ -3520,6 +3767,7 @@ def main() -> int:
         k["launches_cli_extract_se"] = elastic["cli"]["launches_extract_se"][name]  # 11a, K5 only
         k["launches_dist_round"] = [rnd["launches"][name] for r in elastic["distributed"]["ranks"]
                                     for rnd in r["rounds"]]  # 11b: each rank's rounds, rank 0 first
+        k["launches_installed"] = {demo: d["launches"][name] for demo, d in installed["demos"].items()}  # 12
         check(k["launches"] > 0, f"the serving path never launched {name}")
     print(json.dumps({"serving_tier": {"rates": serving["rates"], "worst": serving["worst"],
                                        "batchmates": serving["batchmates"], "streaming_memory": memory}}))
@@ -3531,6 +3779,7 @@ def main() -> int:
 
     print(json.dumps({"elastic_tier": {"card": smi, "wall_s": elastic["wall_s"],
                                        **{k: v for k, v in elastic.items() if k != "wall_s"}}}))
+    print(json.dumps({"installed": {"card": smi, **installed}}))
 
     phase("7. result")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,12 @@
 """Build and load the in-repo audio codec libraries for the port.
 
-The C++ sources under ``native/src`` (WAV, mp3 through a dlopen'd
-mpg123/lame, Ogg/Vorbis through a dlopen'd libvorbis*, a from-scratch FLAC,
-the resampler, the VAD and the threaded prefetch loader) are compiled with
-the host ``c++`` into ``openvoice_tpu_torch/csrc/build/`` (git-ignored), with
-the source list and flags of ``native/CMakeLists.txt``:
+The C++ sources under ``openvoice_tpu_torch/audio/native_src`` (WAV, mp3
+through a dlopen'd mpg123/lame, Ogg/Vorbis through a dlopen'd libvorbis*, a
+from-scratch FLAC, the resampler, the VAD and the threaded prefetch loader;
+the port's byte-equal copy of the repository's ``native/src``, so that an
+installed package builds from its own files) are compiled with the host
+``c++`` into ``openvoice_tpu_torch/csrc/build/`` (git-ignored), with the
+source list and flags of ``native/CMakeLists.txt``:
 
 * ``libovt_audio`` from wav, resample, vad, mp3, vorbis, flac and loader,
   ``-O3 -march=native -fno-math-errno -std=c++17 -fPIC``, pthread, ``-ldl``;
@@ -31,8 +33,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent.parent.parent
-SRC = ROOT / "native" / "src"
+SRC = Path(__file__).resolve().parent / "native_src"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "csrc" / "build"
 CXX_FLAGS = ("-O3", "-march=native", "-fno-math-errno", "-std=c++17", "-fPIC", "-shared")
 FFMPEG_LIBS = ("avformat", "avcodec", "avutil", "swresample")

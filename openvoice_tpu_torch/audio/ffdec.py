@@ -1,6 +1,6 @@
 """Decode of any format the system ffmpeg reads (m4a, aac, mp4, wma, webm,
 mka, …) and AAC-in-m4a encode, through ``libovt_ffdec``
-(``native/src/ffdec.cc``), the port of ``openvoice_tpu/audio/ffdec.py``.
+(``audio/native_src/ffdec.cc``), the port of ``openvoice_tpu/audio/ffdec.py``.
 
 The library is built only where ffmpeg's headers and libraries are found
 (`_native_build.ffmpeg_found`); elsewhere `available()` is False and

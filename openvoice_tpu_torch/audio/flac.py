@@ -1,4 +1,4 @@
-"""FLAC decode/encode through the in-repo codec (``native/src/flac.cc``, a
+"""FLAC decode/encode through the in-repo codec (``audio/native_src/flac.cc``, a
 from-scratch implementation of the FLAC bitstream with no system library),
 the port of ``openvoice_tpu/audio/flac.py``: where the native library builds,
 FLAC works."""

@@ -1,4 +1,4 @@
-"""MP3 decode/encode through the native codec (``native/src/mp3.cc``: mpg123
+"""MP3 decode/encode through the native codec (``audio/native_src/mp3.cc``: mpg123
 decode, lame encode, both dlopen'd), the port of
 ``openvoice_tpu/audio/mp3.py``.
 

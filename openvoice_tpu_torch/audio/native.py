@@ -2,7 +2,7 @@
 ``openvoice_tpu/audio/native.py``): WAV read/write, the polyphase resampler,
 the energy VAD and the threaded prefetch loader.
 
-The library is the port's own build of ``native/src`` (`_native_build`),
+The library is the port's own build of ``audio/native_src`` (`_native_build`),
 made at first use; the Python implementations in ``audio/io.py`` and
 ``pipeline/se_extractor.py`` stay the reference semantics.  The decode
 helpers here are shared by the codec bindings (``mp3``, ``ogg``, ``flac``,

@@ -1,4 +1,4 @@
-"""Ogg/Vorbis decode/encode through the native codec (``native/src/vorbis.cc``
+"""Ogg/Vorbis decode/encode through the native codec (``audio/native_src/vorbis.cc``
 over the dlopen'd system libvorbisfile / libogg + libvorbis + libvorbisenc),
 the port of ``openvoice_tpu/audio/ogg.py``."""
 

@@ -1,9 +1,18 @@
-"""Watermark bit packing (the port's copy of ``openvoice_tpu/utils.py``;
-reference utils.py:46-75 semantics)."""
+"""Misc host-side utilities: the port's copy of ``openvoice_tpu/utils.py``
+(reference: openvoice/utils.py).
+
+`get_hparams_from_file`/`HParams` live in config.py; sentence splitting in
+text/split.py.  Here: watermark bit packing (utils.py:46-75 semantics).
+"""
 
 from __future__ import annotations
 
 import numpy as np
+
+from openvoice_tpu_torch.config import HParams, load_hparams  # noqa: F401  (re-export)
+from openvoice_tpu_torch.text.split import split_sentence  # noqa: F401  (re-export)
+
+get_hparams_from_file = load_hparams
 
 
 def string_to_bits(string: str, pad_len: int = 8) -> np.ndarray:

@@ -111,6 +111,48 @@ def torch_model(fields: dict, params: dict):
     return synthesizer_from_jax(params, torch_cfg(fields)).eval()
 
 
+# the data section of a reference-format config.json (the rest is the model's)
+REFERENCE_DATA_KEYS = ("filter_length", "hop_length", "win_length", "n_speakers")
+
+
+def write_reference_checkpoint(root, fields: dict, seed: int, random_post: bool = False,
+                               **config_extra) -> tuple[str, str]:
+    """`fields` as the reference ships a checkpoint: ``root/config.json`` (data
+    and model sections, plus `config_extra` at the top level, e.g. a TTS's
+    symbols and speakers) and ``root/ckpt.pth`` of seeded port weights (with
+    random_post, each coupling's zero-initialised ``post`` conv drawn too), the
+    decoder's conv_post scaled ×100, so that the audio stands well above the
+    int16 step, the upsamples weight-normed as the reference stores them, and
+    a numpy learning rate beside them.  Returns (config path, ckpt path)."""
+    import json
+
+    from openvoice_tpu_torch.models.synthesizer import init_synthesizer
+
+    model = {k: (list(v) if isinstance(v, tuple) else v) for k, v in fields.items()
+             if k not in REFERENCE_DATA_KEYS}
+    model["resblock_dilation_sizes"] = [list(d) for d in fields["resblock_dilation_sizes"]]
+    data = {"sampling_rate": 22050, **{k: fields[k] for k in REFERENCE_DATA_KEYS}}
+    config = {"_version_": "v2" if fields["zero_g"] else "v1", "data": data, "model": model}
+    for key, value in config_extra.items():
+        if key == "data":
+            data.update(value)
+        else:
+            config[key] = value
+    (root / "config.json").write_text(json.dumps(config))
+    gen = torch.Generator().manual_seed(seed)
+    sd = init_synthesizer(torch_cfg(fields), gen).state_dict()
+    if random_post:
+        for key in [k for k in sd if ".post." in k and k.startswith("flow.")]:
+            sd[key] = (torch.rand(sd[key].shape, generator=gen) - 0.5) * 0.2
+    sd["dec.conv_post.weight"] = sd["dec.conv_post.weight"] * 100.0
+    for key in [k for k in sd if k.startswith("dec.ups.") and k.endswith(".weight")]:
+        w = sd.pop(key)
+        sd[key[:-len("weight")] + "weight_g"] = torch.sqrt(torch.sum(w * w, dim=(1, 2), keepdim=True))
+        sd[key[:-len("weight")] + "weight_v"] = w
+    torch.save({"model": sd, "iteration": 3, "learning_rate": np.float64(2e-4)}, root / "ckpt.pth")
+    return str(root / "config.json"), str(root / "ckpt.pth")
+
+
 def t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 

@@ -4,6 +4,7 @@ raise on what their kernels do not take instead of falling back, and a
 kernel's library is rebuilt when a header it shares changes."""
 
 import ast
+import os
 import pathlib
 import shutil
 import subprocess
@@ -275,3 +276,105 @@ def test_elastic_tier_and_cli_without_device_raise_when_cuda_is_absent(entry, tm
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call(False)
     call(True)
+
+
+# -- the installable port ------------------------------------------------------
+
+PACKAGE = ROOT / "openvoice_tpu_torch"
+CODEC_SOURCES = sorted(p.name for p in (ROOT / "native" / "src").iterdir())
+
+
+def _package_copy(dest: pathlib.Path) -> pathlib.Path:
+    """``openvoice_tpu_torch/`` copied to `dest`, without what builds and
+    imports leave in it."""
+    shutil.copytree(PACKAGE, dest / "openvoice_tpu_torch", ignore=shutil.ignore_patterns("build", "__pycache__"))
+    return dest
+
+
+@pytest.fixture(scope="module")
+def wheel(tmp_path_factory):
+    """The names in a wheel built from a copy of the tree (pip, no network),
+    and its entry_points.txt."""
+    pytest.importorskip("setuptools")
+    import zipfile
+
+    src = tmp_path_factory.mktemp("tree")
+    for name in ("pyproject.toml", "README.md", "LICENSE"):
+        shutil.copy(ROOT / name, src / name)
+    shutil.copytree(ROOT / "openvoice_tpu", src / "openvoice_tpu", ignore=shutil.ignore_patterns("__pycache__"))
+    _package_copy(src)
+    dist = src / "dist"
+    subprocess.run([sys.executable, "-m", "pip", "wheel", ".", "--no-deps", "--no-build-isolation", "--no-index",
+                    "--disable-pip-version-check", "--no-cache-dir",
+                    "-q", "-w", str(dist)], cwd=src, check=True, capture_output=True, text=True, timeout=300)
+    (path,) = dist.glob("*.whl")
+    with zipfile.ZipFile(path) as z:
+        names = set(z.namelist())
+        entry_points = z.read(next(n for n in names if n.endswith(".dist-info/entry_points.txt"))).decode()
+    return names, entry_points
+
+
+def test_the_wheel_holds_the_sources_the_port_builds_and_its_demos(wheel):
+    names, entry_points = wheel
+    data = [p for p in PACKAGE.rglob("*") if p.is_file() and p.suffix not in (".py", ".pyc")
+            and not {"build", "__pycache__"} & set(p.relative_to(PACKAGE).parts)]
+    assert {p.suffix for p in data} == {".cu", ".cuh", ".cc", ".h"}
+    demos = sorted((PACKAGE / "demos").glob("*.py"))
+    assert len(demos) == 6
+    for path in data + demos:
+        assert str(path.relative_to(ROOT)) in names, path
+    assert not [n for n in names if "/csrc/build/" in n]
+    assert "openvoice-tpu-torch = openvoice_tpu_torch.tools:main" in entry_points.splitlines()
+
+
+def test_every_source_the_port_builds_lies_in_its_package():
+    from openvoice_tpu_torch.audio import _native_build
+
+    for path in (_nvcc.CSRC, _nvcc.BUILD_DIR, _native_build.SRC, _native_build.BUILD_DIR):
+        assert PACKAGE in path.parents, path
+
+
+@pytest.mark.parametrize("name", CODEC_SOURCES)
+def test_codec_sources_are_a_byte_equal_copy(name):
+    """The port builds its codecs from its own copy of ``native/src``."""
+    from openvoice_tpu_torch.audio import _native_build
+
+    assert sorted(p.name for p in _native_build.SRC.iterdir()) == CODEC_SOURCES
+    assert (_native_build.SRC / name).read_bytes() == (ROOT / "native" / "src" / name).read_bytes()
+
+
+def test_a_copy_of_the_package_alone_runs_the_cli(tmp_path):
+    """The package copied alone (PYTHONPATH that directory only, the working
+    directory elsewhere): the CLI's help, then extract-se of a FLAC clip,
+    which builds the codec library from the copy's own sources into the
+    copy's ``csrc/build``."""
+    from openvoice_tpu_torch.audio.io import write_wav
+    from tests._torch_port import TINY_API, write_reference_checkpoint
+
+    site = _package_copy(tmp_path / "site")
+    work = tmp_path / "work"
+    work.mkdir()
+    config, ckpt = write_reference_checkpoint(work, TINY_API, seed=4)
+    clip = np.random.default_rng(0).standard_normal(11025).astype(np.float32) * 0.1
+    wav, flac = work / "clip.wav", work / "clip.flac"
+    write_wav(str(wav), clip, 22050)
+    env = {**os.environ, "PYTHONPATH": str(site)}
+
+    def port(*args: str) -> str:
+        return subprocess.run([sys.executable, *args], cwd=work, env=env, check=True, capture_output=True,
+                              text=True, timeout=300).stdout
+
+    assert "extract-se" in port("-m", "openvoice_tpu_torch.tools", "--help")
+    found = port("-c", "import sys, openvoice_tpu_torch.tools as t; print(t.__file__); "
+                 "print([m for m in sys.modules if m.split('.')[0] in ('openvoice_tpu', 'jax')])")
+    assert found.splitlines() == [str(site / "openvoice_tpu_torch" / "tools.py"), "[]"]
+    port("-c", "from openvoice_tpu_torch.audio.io import load_audio; from openvoice_tpu_torch.audio.flac import "
+               f"write_flac; write_flac({str(flac)!r}, load_audio({str(wav)!r})[0], 22050)")
+    assert [p.name.split("-")[0] for p in (site / "openvoice_tpu_torch" / "csrc" / "build").glob("*.so")] \
+        == ["libovt_audio"]
+    out = port("-m", "openvoice_tpu_torch.tools", "extract-se", str(flac), "--config", config, "--ckpt", ckpt,
+               "--device", "cpu", "--no-vad", "--out", str(work / "se.npy"))
+    assert "SE (1, 64, 1)" in out
+    tc = ToneColorConverter(config_path=config, device="cpu")
+    tc.load_ckpt(ckpt)
+    np.testing.assert_array_equal(np.load(work / "se.npy"), tc.extract_se_from_file(str(wav), vad=False))

@@ -18,11 +18,10 @@ from openvoice_tpu_torch import tools
 from openvoice_tpu_torch.api import ToneColorConverter
 from openvoice_tpu_torch.audio.io import load_audio, write_wav
 from openvoice_tpu_torch.ckpt import native_io as CIO
-from openvoice_tpu_torch.models.synthesizer import Synthesizer, init_synthesizer
-from tests._torch_port import TINY_API, torch_cfg
+from openvoice_tpu_torch.models.synthesizer import Synthesizer
+from tests._torch_port import TINY_API, write_reference_checkpoint
 
 WIRE_TOL = 3e-4  # the JAX suite's bar across the batcher's int16 wire (tests/test_serve.py)
-DATA_KEYS = ("filter_length", "hop_length", "win_length", "n_speakers")
 
 
 @pytest.fixture(scope="module")
@@ -31,18 +30,7 @@ def files(tmp_path_factory):
     decoder's conv_post scaled ×100, so that the audio stands well above the
     int16 wire's step), and a 0.5 s wav."""
     root = tmp_path_factory.mktemp("tools")
-    model = {k: (list(v) if isinstance(v, tuple) else v) for k, v in TINY_API.items() if k not in DATA_KEYS}
-    model["resblock_dilation_sizes"] = [list(d) for d in TINY_API["resblock_dilation_sizes"]]
-    config = {"_version_": "v2", "data": {"sampling_rate": 22050, **{k: TINY_API[k] for k in DATA_KEYS}},
-              "model": model}
-    (root / "config.json").write_text(json.dumps(config))
-    sd = init_synthesizer(torch_cfg(TINY_API), torch.Generator().manual_seed(4)).state_dict()
-    sd["dec.conv_post.weight"] = sd["dec.conv_post.weight"] * 100.0
-    for key in [k for k in sd if k.startswith("dec.ups.") and k.endswith(".weight")]:
-        w = sd.pop(key)  # weight-normed as the reference stores it
-        sd[key[:-len("weight")] + "weight_g"] = torch.sqrt(torch.sum(w * w, dim=(1, 2), keepdim=True))
-        sd[key[:-len("weight")] + "weight_v"] = w
-    torch.save({"model": sd, "iteration": 3, "learning_rate": np.float64(2e-4)}, root / "ckpt.pth")
+    write_reference_checkpoint(root, TINY_API, seed=4)
     wav = str(root / "src.wav")
     write_wav(wav, (np.random.default_rng(0).standard_normal(11025) * 0.1).astype(np.float32), 22050)
     return root, wav
