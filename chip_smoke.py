@@ -24,13 +24,25 @@ Phases, in order; any failure exits non-zero before the result line:
    time, the plain version's, the bound, and one PyTorch library call's (K5)
    or the stock bf16 layers' (K1-K4); K5 also at n_fft 256, 512, 768, 1000,
    2048 and 4096 (its FFT and its DFT route), K1 and K4 also at length 0,
-   where their tiles exit early;
+   where their tiles exit early.  Every time is CUDA events around calls
+   queued behind a 1 ms device spin (`time_ms`), so that the host's enqueue
+   of a call never lands inside its window;
 4. main path, f32: a full-width V2 converter with seeded random weights runs
    extract_se on two synthetic wav files, then convert on a 10 s synthetic
    waveform (tau 0.3, watermark on); the launch counters, zeroed just
-   before, show which kernels the path ran;
+   before, show which kernels the path ran.  Then the CUDA graphs
+   (``runtime/graphs.py``): the second extract_se replays the first one's
+   graph, the repeat of the convert replays the graph its first call
+   captured (no new capture, the same launches), bit-equal to the eager
+   ``S.voice_conversion`` route and to convert with the graphs off, and a
+   clip of the same bucket with another tau, g, length and noise gives the
+   eager result; the warm wall eager against graph (median of 5 a block,
+   eager, graph, graph, eager), each one's device busy share, the graph
+   convert's wall split by host part, capture seconds, graphs held and the
+   graph pool's bytes;
 5. main path, serving mode: convert(fast=True) of the same clip, counters
-   zeroed just before; then serving against f32 on the card;
+   zeroed just before, the same graph checks and numbers; then serving
+   against f32 on the card;
 6. card against CPU: the same converter's speaker embeddings and its
    convert of a ~2 s clip in both modes, on cuda and on cpu;
 6b. V1 path: a full-width V1 base-speaker TTS (seeded random weights) runs
@@ -42,7 +54,11 @@ Phases, in order; any failure exits non-zero before the result line:
    sentence by sentence, and card against CPU on a short sentence; then
    ``get_se`` (and its cache) on the TTS audio and a synthetic target with a
    full-width V1 converter, and ``convert`` in both modes (K5 1, K1 1, K2 2,
-   K3 2, K4 2 in serving mode);
+   K3 2, K4 2 in serving mode).  ``tts`` and ``tts_batched`` in both modes
+   replay an encode graph a token-bucket group and a decode graph a
+   frame-bucket group from their second call on: no new capture, the same
+   launches, bit-equal to the graphs off, also with another speaker, seed
+   and speed; warm walls eager against graph and their busy shares;
 8. the serving tier, at full width (it runs before the result):
    (both converters' conv_post scaled ×100 first, so that their audio stands
    well above one step of the batcher's int16 wire)
@@ -51,10 +67,13 @@ Phases, in order; any failure exits non-zero before the result line:
    0.3) at max_batch 8; the launch counters show K5 1 (PCM groups), K1 1,
    K2 2, K3 2, K4 2 per group; padded rows of length 0 come out exactly 0;
    each result against ``convert(fast=True)`` of its clip; one clip alone
-   against the same clip in a group of 8; audio-s/s at max_batch 8 and 1,
-   p50/p95 latency and the device's busy share; each kernel of one B = 8
-   group (two rows of length 0) against its plain version and timed against
-   its first row alone;
+   against the same clip in a group of 8; a group of 8 replayed, and one of
+   other PCM clips, taus, embeddings and seeds, bit-equal to the group
+   eager; audio-s/s at max_batch 8 (graph and eager) and 1, p50/p95
+   latency, the dispatch thread's busy share, the device's busy share, the
+   graphs captured and the pool's bytes; each kernel of one B = 8 group (two
+   rows of length 0) against its plain version and timed against its first
+   row alone;
    8b. ``serve()`` on 127.0.0.1 port 0 (V1 TTS, V1 converter): /convert,
    /tts and /clone (fused, single) against the direct calls, then one
    ``VoiceApp.predict`` against get_se → tts_batched → convert;
@@ -64,8 +83,10 @@ Phases, in order; any failure exits non-zero before the result line:
    ``tts_convert_stream`` joined, and the chain's STFT (K5 on the gathered
    reflect-padded signal) against its plain version;
    8d. ``convert_streaming`` of a 60 s clip against one-shot ``convert`` in
-   both modes, and the peak device memory of streaming at 60 s and 240 s and
-   of one-shot at 60 s;
+   both modes, its repeat (every window a replay) bit-equal to the windows
+   eager, a 45 s clip with another tau, g and noise likewise, and the peak
+   device memory of streaming at 60 s and 240 s and of one-shot at 60 s, as
+   replays and eager, beside the graph pool's bytes;
 9. training, at full width (after the serving tier, before the result): a
    synthetic set of 2 speakers × 2 files × 8 s; ``train()`` of the V2
    converter with the GAN recipe (B 8, 128-frame segments) for 4 steps with
@@ -133,7 +154,8 @@ Phases, in order; any failure exits non-zero before the result line:
    demos run here on the repository's copy (1e-5 and 0.05 of the peak);
 7. one JSON line of every ported kernel (with ``launches_train_phase`` and
    phase 10's, 11's and 12's launch counts), one of the serving tier's
-   numbers, one of training's, one of phase 10's, one of phase 11's, one of
+   numbers, one of the CUDA graphs' (phases 4-5, 6b, 8a), one of training's,
+   one of phase 10's, one of phase 11's, one of
    phase 12's, the card's ``nvidia-smi`` line, then the result line
    ``{"ok": true, "device": {...}}``.
 
@@ -206,6 +228,14 @@ def run(cmd: list[str]) -> str:
 # -- measurement helpers -----------------------------------------------------
 
 _L2_FLUSH = []  # one buffer larger than the card's 50 MB L2, made at first use
+SPIN_S = 1e-3  # the device spin queued ahead of each timed call's start event
+
+
+@functools.lru_cache(maxsize=None)
+def spin_cycles() -> int:
+    """SM clock cycles of `SPIN_S` at the card's highest SM clock."""
+    mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"]).splitlines()[0])
+    return int(SPIN_S * mhz * 1e6)
 
 
 def time_ms(fn, runs: int = TIMED_RUNS, cold: bool = True) -> float:
@@ -214,7 +244,11 @@ def time_ms(fn, runs: int = TIMED_RUNS, cold: bool = True) -> float:
     before each timed call, as a convert leaves it for its next stage (the
     decoder alone streams more than the L2 holds): weights and inputs then
     come from device memory.  Without, a call finds what the call before it
-    left in the L2."""
+    left in the L2.  A spin of `SPIN_S` on the device follows the flush and
+    precedes the start event: the host enqueues `fn`'s work (a wrapper's
+    checks, its casts, the ctypes call) while the card spins, so the events
+    hold the card's time alone, even for a kernel shorter than that host
+    work."""
     import torch
 
     if cold and not _L2_FLUSH:
@@ -225,6 +259,7 @@ def time_ms(fn, runs: int = TIMED_RUNS, cold: bool = True) -> float:
     for _ in range(runs):
         if cold:
             _L2_FLUSH[0].zero_()
+        torch.cuda._sleep(spin_cycles())
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
@@ -993,33 +1028,215 @@ def check_audio(tc, out: np.ndarray, n_frames: int) -> None:
     check(found == MESSAGE, f"watermark read back {found!r}, wrote {MESSAGE!r}")
 
 
-def warm_numbers(tc, src: np.ndarray, ses: dict, fast: bool) -> None:
-    """Warm timings of one mode: whole convert (host pad, noise, device graph,
-    readback, watermark) by host clock; the device part by CUDA events per
-    stage; the profiler's launch count and busy share."""
+def warm_numbers(tc, src: np.ndarray, ses: dict, fast: bool, smi: str) -> dict:
+    """Warm timings of one mode: whole convert (host pad, noise, device work,
+    readback, watermark) by host clock, eager and as a graph replay (median
+    of 5 each, in the order eager, graph, graph, eager); the device part by
+    CUDA events per stage; the profiler's launch count and busy share of
+    each; the graph convert's wall split into its host parts."""
     import torch
 
     def convert():
         return tc.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message=MESSAGE, fast=fast)
 
     torch.cuda.reset_peak_memory_stats()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        convert()
-        walls.append(time.perf_counter() - t0)
-    convert_s = statistics.median(walls)
+    blocks = ab_walls(convert, tc)
+    walls = {v: statistics.median(ms for w, ms in blocks if w == v) for v in ("eager", "graph")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9  # read before the stage timing's L2 flush buffer exists
     stages = stage_times(tc, src, ses["se_src"], ses["se_tgt"], fast)
     _L2_FLUSH.clear()
-    print(f"warm convert of {len(src) / SR:.1f} s: {convert_s * 1e3:.2f} ms (median of 5) = "
-          f"{len(src) / SR / convert_s:.1f} audio-s/s; peak device memory {peak_gb:.2f} GB")
+    print(f"warm convert of {len(src) / SR:.1f} s, median of 5 a block, blocks in order "
+          + ", ".join(f"{v} {ms:.2f} ms" for v, ms in blocks)
+          + f"; graph {len(src) / SR / walls['graph'] * 1e3:.1f} audio-s/s; peak device memory {peak_gb:.2f} GB"
+          + f"  [{smi}]")
     print("device time by stage (ms, CUDA events, median of 5, each from a cold L2): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    device_profile(convert, convert_s * 1e3)
+    with eager(tc):
+        busy_eager = device_profile(convert, walls["eager"], "warm convert, eager")
+    busy_graph = device_profile(convert, walls["graph"], "warm convert, graph replay")
+    split = host_split(tc, src, ses, fast)
+    print("the graph convert's wall by part (ms, host clock, median of 5): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f"  [{smi}]")
+    return {"walls_ms": walls, "blocks_ms": blocks, "busy": {"eager": busy_eager, "graph": busy_graph},
+            "stages_ms": stages, "host_split_ms": split, "peak_gb": peak_gb}
 
 
-def main_path(tc, tmp: str) -> tuple[dict, dict, np.ndarray]:
+# -- CUDA graphs (runtime/graphs.py) -----------------------------------------
+
+@contextlib.contextmanager
+def eager(*owners):
+    """Within: every call of these converters, TTS models or batchers runs
+    eagerly (their graphs stay, unused)."""
+    saved = [o.graphs.enabled for o in owners]
+    for o in owners:
+        o.graphs.enabled = False
+    try:
+        yield
+    finally:
+        for o, was in zip(owners, saved):
+            o.graphs.enabled = was
+
+
+def graph_state(graphs) -> dict:
+    """A GraphCache's numbers: graphs held, captures, replays, capture
+    seconds, and the bytes of its device's pool (all owners' graphs)."""
+    from openvoice_tpu_torch.runtime.graphs import pool_bytes
+
+    return {"graphs": len(graphs), "captures": graphs.captures, "replays": graphs.replays,
+            "capture_s": graphs.capture_seconds, "pool_bytes": pool_bytes(graphs.device)}
+
+
+def ab_walls(fn, *owners, runs: int = 5) -> list[tuple[str, float]]:
+    """Host-clock walls of `fn` in ms, median of `runs` a block, in the
+    blocks eager, graph, graph, eager (eager: `owners`' graphs off)."""
+    blocks = []
+    for variant in ("eager", "graph", "graph", "eager"):
+        times = []
+        with eager(*owners) if variant == "eager" else contextlib.nullcontext():
+            for _ in range(runs):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+        blocks.append((variant, statistics.median(times)))
+    return blocks
+
+
+def same_bits(label: str, got, ref) -> None:
+    """A graph replay's result against the eager route's on the same inputs:
+    bit-equal."""
+    got, ref = np.asarray(got), np.asarray(ref)
+    check(got.shape == ref.shape, f"{label}: shape {got.shape} against {ref.shape}")
+    diff = float(np.abs(got.astype(np.float64) - ref.astype(np.float64)).max()) if got.size else 0.0
+    print(f"{label}: {'bit-equal' if diff == 0 else f'max diff {diff:.3e}'} ({got.shape})")
+    check(diff == 0, f"{label}: the replay is not bit-equal to the eager route")
+
+
+def expect_replay(label: str, graphs, before: dict, replays: int | None = None) -> dict:
+    """The call since `before` captured nothing new and replayed (`replays`
+    times where given)."""
+    after = graph_state(graphs)
+    n = after["replays"] - before["replays"]
+    print(f"{label}: {n} replay(s), {after['captures'] - before['captures']} new capture(s); "
+          f"{after['graphs']} graphs held, pool {after['pool_bytes'] / 1e6:.1f} MB")
+    check(after["captures"] == before["captures"], f"{label}: the repeat captured a new graph")
+    check(n > 0 if replays is None else n == replays, f"{label}: {n} replays")
+    return after
+
+
+def eager_convert(tc, audio: np.ndarray, se_src, se_tgt, tau: float, seed: int, fast: bool) -> np.ndarray:
+    """The eager route of `convert` on the same inputs, without the graph
+    cache: the STFT kernel, then `S.voice_conversion` with a float tau."""
+    import torch
+
+    from openvoice_tpu_torch.api import _spec_from_audio
+    from openvoice_tpu_torch.models import synthesizer as TS
+    from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
+    from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+
+    cfg, dev = tc.cfg, tc.device
+    padded, n = _spec_from_audio(audio, cfg)
+    bucket = round_up_to_bucket(n)
+    buf = np.zeros((1, (bucket - 1) * cfg.hop_length + cfg.filter_length), np.float32)
+    buf[0, : len(padded)] = padded
+    noise = np.random.default_rng(seed).standard_normal((1, bucket, cfg.inter_channels)).astype(np.float32)
+    with torch.inference_mode():
+        spec = stft_magnitude(torch.from_numpy(buf).to(dev), cfg.filter_length, cfg.hop_length, cfg.win_length)
+        out, _ = TS.voice_conversion(tc.model, spec, torch.tensor([n], device=dev), tc._as_g(se_src),
+                                     tc._as_g(se_tgt), float(tau), torch.from_numpy(noise).to(dev), fast=fast,
+                                     dec_cache=tc._require_dec_cache() if fast else None)
+        return out[0, : n * cfg.upsample_factor, 0].cpu().numpy()
+
+
+def host_split(tc, src: np.ndarray, ses: dict, fast: bool, runs: int = 5) -> dict:
+    """The graph convert's steps as `convert` takes them, each by host clock
+    (median of `runs`): the host pad, the noise draw, staging + replay +
+    the output's clone (enqueued), the readback (waits for the device), the
+    watermark."""
+    import torch
+
+    from openvoice_tpu_torch import api
+    from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+    from openvoice_tpu_torch.runtime.graphs import GraphKey
+
+    cfg = tc.cfg
+    body = functools.partial(api.convert_body, tc.model, cfg, fast, tc._require_dec_cache() if fast else None)
+    parts: dict[str, list[float]] = {}
+    with torch.inference_mode():
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            marks = [time.perf_counter()]
+            padded, n = api._spec_from_audio(src, cfg)
+            bucket = round_up_to_bucket(n)
+            buf = np.zeros((1, (bucket - 1) * cfg.hop_length + cfg.filter_length), np.float32)
+            buf[0, : len(padded)] = padded
+            marks.append(time.perf_counter())
+            noise = np.random.default_rng(SEED).standard_normal((1, bucket, cfg.inter_channels)).astype(np.float32)
+            marks.append(time.perf_counter())
+            inputs = {"audio": buf, "lengths": np.asarray([n], np.int64), "g_src": api._g_host(ses["se_src"]),
+                      "g_tgt": api._g_host(ses["se_tgt"]), "tau": np.full((1, 1, 1), 0.3, np.float32),
+                      "noise": noise}
+            out = tc.graphs.run(GraphKey("convert", bucket=bucket, batch=1, fast=fast), body, inputs)
+            marks.append(time.perf_counter())
+            audio = out[0, : n * cfg.upsample_factor, 0].cpu().numpy()
+            marks.append(time.perf_counter())
+            tc.add_watermark(audio, MESSAGE)
+            marks.append(time.perf_counter())
+            for name, a, b in zip(("pad", "noise", "stage + replay (enqueue)", "readback (device wait)",
+                                   "watermark"), marks, marks[1:]):
+                parts.setdefault(name, []).append((b - a) * 1e3)
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def convert_graph_checks(tc, src: np.ndarray, ses: dict, fast: bool, smi: str) -> dict:
+    """Phases 4-5, the graph of one mode: the repeat of the clip's convert
+    replays the graph its first convert captured, with the same launches; the
+    replay is bit-equal to the eager `S.voice_conversion` route and to
+    `convert` with the graphs off; another clip of the bucket with another
+    tau, g, length and noise replays and gives the eager result."""
+    import torch
+
+    from openvoice_tpu_torch.runtime.graphs import GraphKey
+
+    name = "serving" if fast else "f32"
+    key = GraphKey("convert", bucket=BUCKET, batch=1, fast=fast, device=str(tc.device))
+    check(key in tc.graphs.keys(), f"the first {name} convert captured no graph {key}")
+    expected = ({"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2}
+                if fast else {"stft_magnitude": 1, "wn_stack": 0, "coupling_block": 0, "mrf_stage": 0,
+                              "tail_stage": 0})
+    kw = dict(tau=0.3, seed=SEED, message="", fast=fast)
+    before = graph_state(tc.graphs)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    replayed = tc.convert(src, ses["se_src"], ses["se_tgt"], **kw)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_replay(f"{name} convert, repeat", tc.graphs, before, 1)
+    print(f"{name} convert replay: kernel launches {launches}")
+    check(launches == expected, f"a {name} convert replay must count {expected}, not {launches}")
+    same_bits(f"{name} replay against the eager S.voice_conversion route",
+              replayed, eager_convert(tc, src, ses["se_src"], ses["se_tgt"], 0.3, SEED, fast))
+    with eager(tc):
+        same_bits(f"{name} replay against convert with the graphs off",
+                  replayed, tc.convert(src, ses["se_src"], ses["se_tgt"], **kw))
+    # another clip of the same bucket (775 frames), another tau, the two
+    # embeddings swapped, another seed: the graph must not have frozen a value
+    other = voice(9.0, 190.0, seed=31)
+    kw2 = dict(tau=0.65, seed=SEED + 9, message="", fast=fast)
+    before = graph_state(tc.graphs)
+    got = tc.convert(other, ses["se_tgt"], ses["se_src"], **kw2)
+    expect_replay(f"{name} convert of another clip of the bucket", tc.graphs, before, 1)
+    with eager(tc):
+        want = tc.convert(other, ses["se_tgt"], ses["se_src"], **kw2)
+    same_bits(f"{name} replay with other tau, g, length and noise against eager", got, want)
+    check(float(np.abs(got[: len(replayed)] - replayed[: len(got)]).max()) > 0, "the other clip converted alike")
+    state = graph_state(tc.graphs)
+    per_key = {str(k[:6]): round(g.capture_s, 4) for k, g in tc.graphs._graphs.items()}
+    print(f"{name}: converter graphs {state['graphs']} (capture s each {per_key}), {state['capture_s']:.3f} s "
+          f"of capture in all, device pool {state['pool_bytes'] / 1e6:.1f} MB  [{smi}]")
+    return {**state, "launches_replay": launches}
+
+
+def main_path(tc, tmp: str, smi: str) -> tuple:
     import torch
 
     from openvoice_tpu_torch.api import _spec_from_audio
@@ -1039,7 +1256,9 @@ def main_path(tc, tmp: str) -> tuple[dict, dict, np.ndarray]:
     zero_launch_counts()
     t0 = time.perf_counter()
     se_src = tc.extract_se(refs[:1])
-    se_tgt = tc.extract_se(refs[1:])
+    before = graph_state(tc.graphs)
+    se_tgt = tc.extract_se(refs[1:])  # the same bucket (768) and batch: it replays the first one's graph
+    replays_se = graph_state(tc.graphs)["replays"] - before["replays"]
     out = tc.convert(src, se_src, se_tgt, tau=0.3, seed=SEED, message=MESSAGE)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
@@ -1049,16 +1268,26 @@ def main_path(tc, tmp: str) -> tuple[dict, dict, np.ndarray]:
     # runs stock layers behind it
     check(launches == {"stft_magnitude": 3, "wn_stack": 0, "coupling_block": 0, "mrf_stage": 0,
                        "tail_stage": 0}, "the f32 path did not run the STFT kernel 3 times and no other")
+    # extract_se: the second file (another clip, another length) replayed the
+    # first file's graph; a repeat replays again, bit-equal to eager
+    check(replays_se == 1, f"the second extract_se replayed {replays_se} graphs, not 1")
+    with eager(tc):
+        same_bits("extract_se replay (another clip and length than the capture) against eager",
+                  se_tgt, tc.extract_se(refs[1:]))
+    before = graph_state(tc.graphs)
+    again = tc.extract_se(refs[:1])
+    expect_replay("extract_se, repeat", tc.graphs, before, 1)
+    same_bits("extract_se replay against its first (eager, capturing) call", again, se_src)
 
     check(se_src.shape == se_tgt.shape == (1, cfg.gin_channels, 1), f"SE shape {se_src.shape}")
     check(bool(np.isfinite(se_src).all() and np.isfinite(se_tgt).all()), "SE not finite")
     check_audio(tc, out, n_frames)
     ses = {"se_src": se_src, "se_tgt": se_tgt, "refs": refs}
-    warm_numbers(tc, src, ses, fast=False)
-    return launches, ses, src
+    graphs = convert_graph_checks(tc, src, ses, False, smi)
+    return launches, ses, src, {**graphs, **warm_numbers(tc, src, ses, False, smi)}
 
 
-def main_path_fast(tc, src: np.ndarray, ses: dict) -> dict:
+def main_path_fast(tc, src: np.ndarray, ses: dict, smi: str) -> tuple[dict, dict]:
     import torch
 
     phase("5. main path, serving mode: convert(fast=True), V2 full width, bf16 through K1-K4")
@@ -1073,7 +1302,7 @@ def main_path_fast(tc, src: np.ndarray, ses: dict) -> dict:
     check(launches == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2,
                        "tail_stage": 2}, "one serving convert must launch K5 1, K1 1, K2 2, K3 2, K4 2")
     check_audio(tc, out, FRAMES)
-    warm_numbers(tc, src, ses, fast=True)
+    graphs = {**convert_graph_checks(tc, src, ses, True, smi), **warm_numbers(tc, src, ses, True, smi)}
 
     # serving against parity on the card, watermark off
     fast = tc.convert(src, ses["se_src"], ses["se_tgt"], tau=0.3, seed=SEED, message="", fast=True)
@@ -1083,7 +1312,7 @@ def main_path_fast(tc, src: np.ndarray, ses: dict) -> dict:
           f"f32 peak {peak:.5f} (bar {FAST_VS_F32_TOL}); rms of the difference "
           f"{float(np.sqrt(np.mean((fast - f32) ** 2))):.3e}, of the f32 audio {float(np.sqrt(np.mean(f32 ** 2))):.3e}")
     check(diff <= FAST_VS_F32_TOL * peak, "the serving mode strays from the f32 mode")
-    return launches
+    return launches, graphs
 
 
 def stage_times(tc, audio: np.ndarray, se_src, se_tgt, fast: bool) -> dict:
@@ -1366,6 +1595,67 @@ def tts_stage_times(model, enc, fb: int, noise, fast: bool, cache) -> dict:
     return {"flow": flow_ms, "dec": dec_ms}
 
 
+def tts_graph_checks(tts, speaker: int, per_decode: dict, audio_s: float, smi: str) -> dict:
+    """Phase 6b's graphs: `tts` and `tts_batched` in both modes.  After a
+    first call (which captured), the repeat captures nothing and replays one
+    encode and one decode graph a token / frame bucket group (a sentence for
+    `tts`), with the launches of the eager call; the replay is bit-equal to
+    the call with the graphs off, and so is a call with another speaker (g),
+    seed (noise) and speed (length_scale).  Then the warm walls, eager
+    against graph (median of 5 a block: eager, graph, graph, eager), and the
+    device's busy share of each."""
+    import torch
+
+    from openvoice_tpu_torch.api import _encode_rows, _sentence_noise_rngs, frame_groups
+    from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+
+    out = {}
+    for fast in (False, True):
+        for name in ("tts", "tts_batched"):
+            label = f"{name} {'fast' if fast else 'f32'}"
+            fn = getattr(tts, name)
+            first = fn(V1_TEXT, None, speaker, fast=fast, seed=SEED)  # captures what the calls above did not
+            before = graph_state(tts.graphs)
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            got = fn(V1_TEXT, None, speaker, fast=fast, seed=SEED)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            tokens, _ = tts._sentence_tokens(V1_TEXT, speaker, "English")
+            with torch.inference_mode():
+                rows = _encode_rows(tts.model, tokens, speaker, 1.0, _sentence_noise_rngs(SEED, len(tokens)),
+                                    tts.device)
+            decodes = len(tokens) if name == "tts" else len(frame_groups(rows))
+            encodes = len(tokens) if name == "tts" else len({round_up_to_bucket(len(t)) for t in tokens})
+            expect_replay(f"{label}, repeat", tts.graphs, before, encodes + decodes)
+            want = {k: v * decodes if fast else 0 for k, v in per_decode.items()}
+            print(f"{label} replay: {encodes} encode and {decodes} decode graphs, kernel launches {launches}")
+            check(launches == want, f"{label}: a replay must count {want}, not {launches}")
+            same_bits(f"{label} replay against its first call", got, first)
+            with eager(tts):
+                same_bits(f"{label} replay against the graphs off", got, fn(V1_TEXT, None, speaker, fast=fast,
+                                                                               seed=SEED))
+            other = dict(fast=fast, seed=SEED + 3, speed=1.1)
+            got = fn(V1_TEXT, None, speaker + 2, **other)
+            with eager(tts):
+                want_audio = fn(V1_TEXT, None, speaker + 2, **other)
+            same_bits(f"{label} with another speaker, seed and speed against the graphs off", got, want_audio)
+            blocks = ab_walls(lambda: fn(V1_TEXT, None, speaker, fast=fast, seed=SEED), tts)
+            walls = {v: statistics.median(ms for w, ms in blocks if w == v) for v in ("eager", "graph")}
+            with eager(tts):
+                busy_eager = device_profile(lambda: fn(V1_TEXT, None, speaker, fast=fast, seed=SEED),
+                                            walls["eager"], f"{label}, eager")
+            busy_graph = device_profile(lambda: fn(V1_TEXT, None, speaker, fast=fast, seed=SEED),
+                                        walls["graph"], f"{label}, graph replay")
+            print(f"{label} warm walls ({audio_s:.2f} s of audio; ms, median of 5 a block, host clock): "
+                  + ", ".join(f"{v} {ms:.2f}" for v, ms in blocks) + f"  [{smi}]")
+            out[label] = {"walls_ms": walls, "blocks_ms": blocks, "busy": {"eager": busy_eager, "graph": busy_graph}}
+    state = graph_state(tts.graphs)
+    print(f"TTS graphs held {state['graphs']}, {state['capture_s']:.3f} s of capture, device pool "
+          f"{state['pool_bytes'] / 1e6:.1f} MB  [{smi}]")
+    return {**out, "graphs": state}
+
+
 def v1_tts(smi: str) -> dict:
     """The base-speaker TTS half of the V1 phase; returns its numbers and the
     f32 audio (the V1 converter's source)."""
@@ -1427,19 +1717,7 @@ def v1_tts(smi: str) -> dict:
           f"max |batched fast - fast| {d_bat:.3e} = {d_bat / peak:.4f} (bars {FAST_VS_F32_TOL})")
     check(d_fast <= FAST_VS_F32_TOL * peak, "the serving TTS strays from the f32 TTS")
     check(d_bat <= FAST_VS_F32_TOL * peak, "tts_batched(fast) disagrees with tts(fast)")
-    walls = {}
-    for label, fn in (("tts f32", lambda: tts.tts(V1_TEXT, None, speaker, **kw)),
-                      ("tts fast", lambda: tts.tts(V1_TEXT, None, speaker, fast=True, **kw)),
-                      ("tts_batched fast", lambda: tts.tts_batched(V1_TEXT, None, speaker, fast=True, **kw))):
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            times.append(time.perf_counter() - t0)
-        walls[label] = statistics.median(times) * 1e3
-    print(f"warm walls (ms, median of 3, host clock, {len(a32) / SR:.2f} s of audio) [{smi}]: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in walls.items()))
-    device_profile(lambda: tts.tts_batched(V1_TEXT, None, speaker, fast=True, **kw), walls["tts_batched fast"])
+    walls = tts_graph_checks(tts, speaker, per_decode, len(a32) / SR, smi)
 
     # the B >= 2 group: its kernels against their plain versions, and times
     fb, idxs = next((fb, v) for fb, v in groups.items() if len(v) >= 2)
@@ -1622,46 +1900,69 @@ def serve_stream_fields(tc, ses: dict) -> tuple[list[dict], list[np.ndarray]]:
     return fields, clips
 
 
-def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False, mesh=None) -> dict:
+def serving_batcher(tc, max_batch: int, mesh=None):
+    """A started serving-mode batcher on `tc`'s model (over `mesh` where
+    given)."""
+    from openvoice_tpu_torch.serve import batcher as B
+
+    batcher = B.ConvertBatcher(tc.model, tc.cfg, max_batch=max_batch, max_wait_ms=5.0, fast=True,
+                               device=None if mesh else tc.device, mesh=mesh)
+    batcher.start()
+    return batcher
+
+
+def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False, mesh=None, batcher=None) -> dict:
     """Submit `fields` together to a serving-mode batcher on `tc`'s model
-    (over `mesh` where given); wait for every result.  Returns the results,
-    the wall time from the first submit to the last result, the run's own
-    metrics snapshot, and the groups it dispatched (mode, bucket, rows, padded
-    batch); with `capture`, each call's int16 wire tensor too (one a group,
-    one a shard of a group over a mesh)."""
+    (`batcher`, which stays running and keeps its graphs, or a new one over
+    `mesh` where given, stopped after the run); wait for every result.
+    Returns the results, the wall time from the first submit to the last
+    result, the run's own metrics snapshot, and the groups it dispatched
+    (mode, bucket, rows, padded batch); with `capture`, each call's int16
+    wire too (on one device the group's host copy, over a mesh one a shard
+    of a group)."""
     import torch
 
     from openvoice_tpu_torch.runtime.profiler import Metrics
     from openvoice_tpu_torch.serve import batcher as B
 
-    batcher = B.ConvertBatcher(tc.model, tc.cfg, max_batch=max_batch, max_wait_ms=5.0, fast=True,
-                               device=None if mesh else tc.device, mesh=mesh)
+    own = batcher is None
+    batcher = batcher or serving_batcher(tc, max_batch, mesh)
     groups, wires, metrics = [], [], Metrics()
-    real_dispatch, real_wire, real_metrics = batcher._dispatch, B._wire_int16, B.METRICS
+    real_dispatch, real_wire, real_metrics, real_put = B.ConvertBatcher._dispatch, B._wire_int16, B.METRICS, \
+        batcher._readq.put
 
     def dispatch(bucket, group, padded_batch):
         groups.append(("pcm" if group[0].audio is not None else "spec", bucket, len(group), padded_batch))
-        return real_dispatch(bucket, group, padded_batch)
+        return real_dispatch(batcher, bucket, group, padded_batch)
 
     def wire(audio):
         out = real_wire(audio)
         wires.append(out)
         return out
 
+    def put(item, *args, **kwargs):
+        if item is not None:
+            wires.append(item[0])  # a group's host copy, complete once its events are
+        return real_put(item, *args, **kwargs)
+
     batcher._dispatch = dispatch
     B.METRICS = metrics
-    if capture:
+    if capture and mesh is not None:
         B._wire_int16 = wire
+    elif capture:
+        batcher._readq.put = put
     try:
-        batcher.start()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         futures = [batcher.submit(B.ConvertRequest(**f)) for f in fields]
         outs = [f.result(timeout=600) for f in futures]
         wall = time.perf_counter() - t0
     finally:
-        batcher.stop()
+        if own:
+            batcher.stop()
         B._wire_int16, B.METRICS = real_wire, real_metrics
+        batcher.__dict__.pop("_dispatch")
+        batcher._readq.__dict__.pop("put", None)
     return {"outs": outs, "wall_s": wall, "metrics": metrics.snapshot(), "groups": groups, "wires": wires}
 
 
@@ -1672,27 +1973,28 @@ def serve_bar(ref: np.ndarray) -> float:
     return FAST_VS_F32_TOL * float(np.abs(ref).max()) + WIRE_LSB
 
 
-def batcher_phase(tc, ses: dict, smi: str) -> dict:
-    """8a: the batcher's stream at max_batch 8 and 1, in serving mode."""
+def batcher_stream_checks(tc, ses: dict, fields: list[dict], clips: list, b8, b1, smi: str) -> dict:
+    """8a's stream on two running batchers (max_batch 8 and 1), which keep
+    their graphs from run to run: launches per group, padded rows, each
+    result against `convert(fast=True)`, batchmates, a group's replay against
+    the same group eager, and the stream's walls eager and as replays."""
     import torch
 
-    from openvoice_tpu_torch.serve import batcher as B
-
-    phase(f"8a. serving tier: ConvertBatcher, V2 full width, serving mode, {N_SERVE} requests of 2-12 s "
-          f"(half PCM at tau 0, half spec at tau 0.3), max_batch {SERVE_BATCH}")
-    cfg = tc.cfg
-    fields, clips = serve_stream_fields(tc, ses)
     audio_s = sum(len(c) for c in clips) / SR
-    run_stream(tc, fields[:4], SERVE_BATCH)  # warm-up: the serving cache, cuDNN's first calls
+    run_stream(tc, fields[:4], SERVE_BATCH, batcher=b8)  # warm-up: the serving cache, cuDNN's first calls
     torch.cuda.synchronize()
+    before_run = graph_state(b8.graphs)
     zero_launch_counts()
-    run = run_stream(tc, fields, SERVE_BATCH, capture=True)
+    run = run_stream(tc, fields, SERVE_BATCH, capture=True, batcher=b8)
     torch.cuda.synchronize()
     launches = launch_counts()
+    after = graph_state(b8.graphs)
     groups = run["groups"]
     n_groups, n_pcm = len(groups), sum(g[0] == "pcm" for g in groups)
     print(f"groups dispatched (mode, bucket, rows, padded batch): {groups}")
-    print(f"kernel launches over {n_groups} groups ({n_pcm} PCM): {launches}")
+    print(f"kernel launches over {n_groups} groups ({n_pcm} PCM): {launches}; graphs captured in the stream "
+          f"{after['captures'] - before_run['captures']} (eager first calls), replayed "
+          f"{after['replays'] - before_run['replays']}")
     check(n_pcm > 0 and all(n > 0 for n in launches.values()), "the batcher's stream left a kernel unlaunched")
     # launches per dispatched group as counted in this run (K5: per PCM group)
     per_group = {k: v / (n_pcm if k == "stft_magnitude" else n_groups) for k, v in launches.items()}
@@ -1705,6 +2007,7 @@ def batcher_phase(tc, ses: dict, smi: str) -> dict:
     # always holds two
     padded_rows = sum(p - n for _, _, n, p in groups)
     check(max(p for _, _, _, p in groups) == SERVE_BATCH, "no group of 8 formed")
+    check(len(run["wires"]) == n_groups, f"{len(run['wires'])} host copies for {n_groups} groups")
     for (_, _, n, p), wire in zip(groups, run["wires"]):
         check(wire.shape[0] == p and bool((wire[n:] == 0).all()), "a padded row of length 0 is not exactly 0")
     print(f"group sizes {sorted(n for _, _, n, _ in groups)}; {padded_rows} padded rows of length 0 "
@@ -1723,8 +2026,9 @@ def batcher_phase(tc, ses: dict, smi: str) -> dict:
           f"peak + one int16 step)")
 
     # one clip alone, then in a full group of 8 of its length
-    alone = run_stream(tc, fields[1:2], SERVE_BATCH)
-    eight = run_stream(tc, [dict(fields[1], seed=SEED + 50 + k) if k else fields[1] for k in range(8)], SERVE_BATCH)
+    alone = run_stream(tc, fields[1:2], SERVE_BATCH, batcher=b8)
+    eight_fields = [dict(fields[1], seed=SEED + 50 + k) if k else fields[1] for k in range(8)]
+    eight = run_stream(tc, eight_fields, SERVE_BATCH, batcher=b8)
     check([g[2] for g in eight["groups"]] == [8] and [g[2] for g in alone["groups"]] == [1],
           f"groups {alone['groups']} / {eight['groups']}: not 1 and 8")
     d_mates = float(np.abs(alone["outs"][0] - eight["outs"][0]).max())
@@ -1733,24 +2037,81 @@ def batcher_phase(tc, ses: dict, smi: str) -> dict:
           f"{d_mates / peak:.4f} of the peak {peak:.5f} ({d_mates / WIRE_LSB:.1f} int16 steps)")
     check(d_mates <= serve_bar(alone["outs"][0]), "a result depends on its batchmates beyond the serving bar")
 
-    # the checked run, then max_batch 1, 1, 8 (A, B, B, A)
-    rates = {SERVE_BATCH: [], 1: []}
-    for mb, r in ((SERVE_BATCH, run), (1, None), (1, None), (SERVE_BATCH, None)):
-        r = r or run_stream(tc, fields, mb)
+    # the group of 8 again replays its graph, bit-equal to the group eager;
+    # another 8 of the shape (PCM clips of its bucket, other seeds, taus and
+    # embeddings) replays the PCM group's graph and gives the eager result
+    for label, fs in (("spec group of 8, repeat", eight_fields),
+                      ("PCM group of 8 with other tau, g, lengths and noise",  # 3.16-3.30 s: bucket 320
+                       [dict(audio=serve_clip(3.3 - 0.02 * k, 130.0 + 5 * k, seed=300 + k), g_src=fields[0]["g_tgt"],
+                             g_tgt=fields[0]["g_src"], tau=0.2 + 0.05 * k, seed=SEED + 70 + k) for k in range(8)])):
+        run_stream(tc, fs, SERVE_BATCH, batcher=b8)  # captures the shape where it is new
+        before = graph_state(b8.graphs)
+        got = run_stream(tc, fs, SERVE_BATCH, batcher=b8)
+        check([g[2] for g in got["groups"]] == [8], f"{label}: groups {got['groups']}")
+        expect_replay(label, b8.graphs, before, 1)
+        with eager(b8):
+            want = run_stream(tc, fs, SERVE_BATCH, batcher=b8)
+        same_bits(f"{label}: replay against the group eager", np.concatenate(got["outs"]),
+                  np.concatenate(want["outs"]))
+
+    # walls, every graph of the stream captured before: max_batch 8 as
+    # replays and eager, and max_batch 1 as replays, in the order 8, 8 eager,
+    # 1, 1, 8 eager, 8 (the checked run above paid its captures)
+    run_stream(tc, fields, 1, batcher=b1)  # captures max_batch 1's shapes
+    rates: dict = {SERVE_BATCH: [], 1: [], "eager": []}
+    for label, mb in ((SERVE_BATCH, b8), ("eager", b8), (1, b1), (1, b1), ("eager", b8), (SERVE_BATCH, b8)):
+        with eager(mb) if label == "eager" else contextlib.nullcontext():
+            before = graph_state(mb.graphs)
+            r = run_stream(tc, fields, mb.max_batch, batcher=mb)
+            state = graph_state(mb.graphs)
         lat = r["metrics"]["latency"]["request_latency"]
         # busy_seconds: the dispatch thread's time inside its calls (host
         # packing, uploads and launches; the device runs behind it)
         dispatch_s = r["metrics"]["counters"]["busy_seconds"]
-        rates[mb].append({"audio_s_per_s": audio_s / r["wall_s"], "wall_s": r["wall_s"], "groups": len(r["groups"]),
-                          "p50_ms": lat["p50_ms"], "p95_ms": lat["p95_ms"], "dispatch_s": dispatch_s})
-        print(f"max_batch {mb}: "
+        rates[label].append({"audio_s_per_s": audio_s / r["wall_s"], "wall_s": r["wall_s"],
+                             "groups": len(r["groups"]), "p50_ms": lat["p50_ms"], "p95_ms": lat["p95_ms"],
+                             "dispatch_s": dispatch_s, "dispatch_share": dispatch_s / r["wall_s"],
+                             "captures": state["captures"] - before["captures"]})
+        print(f"max_batch {mb.max_batch}{' eager' if label == 'eager' else ''}: "
               f"{N_SERVE} requests, {audio_s:.1f} s of audio in {r['wall_s']:.3f} s = "
               f"{audio_s / r['wall_s']:.1f} audio-s/s; {len(r['groups'])} groups, the dispatch thread inside "
-              f"them {dispatch_s:.3f} s; request latency p50 {lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms "
-              f"(METRICS)  [{smi}]")
-    wall_ms = statistics.median(x["wall_s"] for x in rates[SERVE_BATCH]) * 1e3
-    device_profile(lambda: run_stream(tc, fields, SERVE_BATCH), wall_ms,
-                   f"{N_SERVE}-request stream at max_batch {SERVE_BATCH}")
+              f"them {dispatch_s:.3f} s ({100 * dispatch_s / r['wall_s']:.1f}% of the wall); request latency "
+              f"p50 {lat['p50_ms']:.1f} ms, p95 {lat['p95_ms']:.1f} ms (METRICS); "
+              f"{state['captures'] - before['captures']} graphs captured  [{smi}]")
+    busy = {}
+    for label in (SERVE_BATCH, "eager"):
+        wall_ms = statistics.median(x["wall_s"] for x in rates[label]) * 1e3
+        with eager(b8) if label == "eager" else contextlib.nullcontext():
+            busy[str(label)] = device_profile(lambda: run_stream(tc, fields, SERVE_BATCH, batcher=b8), wall_ms,
+                                              f"{N_SERVE}-request stream at max_batch {SERVE_BATCH}"
+                                              f"{', eager' if label == 'eager' else ', graph replays'}")
+    state = {"b8": graph_state(b8.graphs), "b1": graph_state(b1.graphs)}
+    print(f"batcher graphs after the streams: max_batch 8 {state['b8']['graphs']}, max_batch 1 "
+          f"{state['b1']['graphs']}; capture s {state['b8']['capture_s']:.3f} / {state['b1']['capture_s']:.3f}; "
+          f"device pool {state['b8']['pool_bytes'] / 1e6:.1f} MB  [{smi}]")
+    first = {"wall_s": run["wall_s"], "captures": after["captures"] - before_run["captures"]}
+    print(f"the checked stream (its first {first['captures']} shapes captured on the way): {run['wall_s']:.3f} s")
+    return {"per_group": per_group, "rates": {str(k): v for k, v in rates.items()}, "first_stream": first,
+            "groups": groups,
+            "worst": worst, "batchmates": d_mates / peak, "busy": busy, "graphs": state}
+
+
+def batcher_phase(tc, ses: dict, smi: str) -> dict:
+    """8a: the batcher's stream at max_batch 8 and 1, in serving mode."""
+    import torch
+
+    from openvoice_tpu_torch.serve import batcher as B
+
+    phase(f"8a. serving tier: ConvertBatcher, V2 full width, serving mode, {N_SERVE} requests of 2-12 s "
+          f"(half PCM at tau 0, half spec at tau 0.3), max_batch {SERVE_BATCH}")
+    cfg = tc.cfg
+    fields, clips = serve_stream_fields(tc, ses)
+    b8, b1 = serving_batcher(tc, SERVE_BATCH), serving_batcher(tc, 1)
+    try:
+        numbers = batcher_stream_checks(tc, ses, fields, clips, b8, b1, smi)
+    finally:
+        b8.stop()
+        b1.stop()
 
     # the kernels of one B = 8 group (two rows of length 0) against their
     # plain versions, and timed against its first row alone
@@ -1773,8 +2134,7 @@ def batcher_phase(tc, ses: dict, smi: str) -> dict:
         print(f"group of {n_rows} at bucket {GROUP_BUCKET}, lengths {GROUP_FRAMES}: {len(calls)} kernel launches "
               f"captured {[name for name, _ in calls]}")
         group_times = group_kernel_checks(calls, smi)
-    return {"per_group": per_group, "rates": rates, "group_times": group_times, "groups": groups,
-            "worst": worst, "batchmates": d_mates / peak}
+    return {**numbers, "group_times": group_times}
 
 
 def same_path(label: str, out: np.ndarray, ref: np.ndarray, rel: float = 1e-3, lsb: float = 0.0) -> float:
@@ -1965,8 +2325,11 @@ def streaming_phase(tc, ses: dict, smi: str) -> dict:
 
     phase("8d. serving tier: convert_streaming (896-frame chunks, halo 109) of a 60 s clip against one-shot "
           "convert, V2 full width")
+    from openvoice_tpu_torch.runtime.graphs import pool_bytes
+
     src, tgt = ses["se_src"], ses["se_tgt"]
     clip60 = voice(60.0, 140.0, seed=23)
+    clip45 = voice(45.0, 170.0, seed=37)
     kw = dict(tau=0.3, seed=SEED, message="")
     for fast in (False, True):
         streamed = tc.convert_streaming(clip60, src, tgt, fast=fast, **kw)
@@ -1977,24 +2340,57 @@ def streaming_phase(tc, ses: dict, smi: str) -> dict:
         # f32 also at the JAX suite's golden bar
         check(fast or bool(np.all(np.abs(streamed - one) <= 2e-5 + 1e-4 * np.abs(one))),
               "f32 streaming misses atol 2e-5 / rtol 1e-4 against one-shot")
+        # every window of a repeat replays the window graph, bit-equal to the
+        # windows run eagerly; so does a 45 s clip with another tau, seed and
+        # the embeddings swapped
+        chunks = -(-(len(streamed) // tc.cfg.upsample_factor) // 896)
+        before = graph_state(tc.graphs)
+        again = tc.convert_streaming(clip60, src, tgt, fast=fast, **kw)
+        expect_replay(f"{name} streaming, repeat ({chunks} windows)", tc.graphs, before, chunks)
+        same_bits(f"{name} streaming replay against its first call", again, streamed)
+        with eager(tc):
+            same_bits(f"{name} streaming replay against the windows eager", again,
+                      tc.convert_streaming(clip60, src, tgt, fast=fast, **kw))
+        kw2 = dict(tau=0.55, seed=SEED + 11, message="", fast=fast)
+        before = graph_state(tc.graphs)
+        got = tc.convert_streaming(clip45, tgt, src, **kw2)
+        expect_replay(f"{name} streaming of a 45 s clip", tc.graphs, before)
+        with eager(tc):
+            same_bits(f"{name} streaming with other tau, g, length and noise against eager", got,
+                      tc.convert_streaming(clip45, tgt, src, **kw2))
     _L2_FLUSH.clear()
     memory = {}
+    clip240 = voice(240.0, 140.0, seed=29)
     for label, fn in (("streaming 60 s", lambda: tc.convert_streaming(clip60, src, tgt, **kw)),
-                      ("streaming 240 s", lambda: tc.convert_streaming(voice(240.0, 140.0, seed=29), src, tgt, **kw)),
+                      ("streaming 240 s", lambda: tc.convert_streaming(clip240, src, tgt, **kw)),
                       ("one-shot 60 s", lambda: tc.convert(clip60, src, tgt, fast=True, **kw))):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        resident = torch.cuda.memory_allocated()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated()
-        memory[label] = {"peak_gb": peak / 1e9, "above_resident_gb": (peak - resident) / 1e9, "wall_s": wall}
-        print(f"{label} (serving mode): peak device memory {peak / 1e9:.3f} GB, {(peak - resident) / 1e9:.3f} GB "
-              f"above the {resident / 1e9:.3f} GB resident before it; {wall:.3f} s  [{smi}]")
-    check(memory["streaming 240 s"]["above_resident_gb"] <= 1.25 * memory["streaming 60 s"]["above_resident_gb"],
+        for variant in ("graph", "eager"):
+            with eager(tc) if variant == "eager" else contextlib.nullcontext():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                resident = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+            memory[f"{label}, {variant}"] = {"peak_gb": peak / 1e9, "above_resident_gb": (peak - resident) / 1e9,
+                                             "wall_s": wall}
+            print(f"{label} (serving mode, {variant}): peak device memory allocated {peak / 1e9:.3f} GB, "
+                  f"{(peak - resident) / 1e9:.3f} GB above the {resident / 1e9:.3f} GB resident before it; "
+                  f"{wall:.3f} s  [{smi}]")
+    memory["graph pool_gb"] = pool_bytes(tc.device) / 1e9
+    memory["reserved_gb"] = torch.cuda.memory_reserved() / 1e9
+    print(f"the device's graph pool {memory['graph pool_gb']:.3f} GB (a replay's temporaries live there, "
+          f"not in the allocated peak), reserved in all {memory['reserved_gb']:.3f} GB  [{smi}]")
+    check(memory["streaming 240 s, eager"]["above_resident_gb"]
+          <= 1.25 * memory["streaming 60 s, eager"]["above_resident_gb"],
           "streaming's device memory grows with the clip's length")
+    # a replay allocates next to nothing outside the pool: 1 MB of slack
+    # keeps a ratio of two near-zero numbers from deciding
+    check(memory["streaming 240 s, graph"]["above_resident_gb"]
+          <= 1.25 * memory["streaming 60 s, graph"]["above_resident_gb"] + 1e-3,
+          "streaming's device memory grows with the clip's length (graph replays)")
     return memory
 
 
@@ -3733,8 +4129,8 @@ def main() -> int:
     _L2_FLUSH.clear()  # the converts' peak memory is theirs alone
     tc = converter()
     with tempfile.TemporaryDirectory() as tmp:
-        _, ses, src = main_path(tc, tmp)
-        launches = main_path_fast(tc, src, ses)
+        _, ses, src, graphs_f32 = main_path(tc, tmp, smi)
+        launches, graphs_fast = main_path_fast(tc, src, ses, smi)
         card_vs_cpu(tc, ses)
         t0 = time.perf_counter()
         v1 = v1_tts(smi)
@@ -3770,7 +4166,10 @@ def main() -> int:
         k["launches_installed"] = {demo: d["launches"][name] for demo, d in installed["demos"].items()}  # 12
         check(k["launches"] > 0, f"the serving path never launched {name}")
     print(json.dumps({"serving_tier": {"rates": serving["rates"], "worst": serving["worst"],
-                                       "batchmates": serving["batchmates"], "streaming_memory": memory}}))
+                                       "batchmates": serving["batchmates"], "busy": serving["busy"],
+                                       "streaming_memory": memory}}))
+    print(json.dumps({"graphs": {"card": smi, "convert_f32": graphs_f32, "convert_fast": graphs_fast,
+                                 "tts": v1["walls_ms"], "batcher": serving["graphs"]}}))
     print(json.dumps({"training": {k: v for k, v in training.items() if k != "launches"}}))
     print(json.dumps({"mesh_tier": {"card": smi, "decode_ms": mesh_tier["formats"]["decode_ms"],
                                     "codecs": mesh_tier["formats"]["codecs"],

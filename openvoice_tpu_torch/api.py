@@ -14,12 +14,23 @@ the fused chains `tts_convert_batched`, `tts_convert_single_dispatch` and
 `tts_convert_stream` take text to cloned audio with the base audio kept on
 the device.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without that, they raise.
+
+On the card each device path runs as one CUDA graph per shape, as the JAX
+package runs it as one ``jax.jit`` program per bucket
+(``runtime/graphs.py``): `convert` (its ``_jit_convert``), the speaker
+embedding of `extract_se` / `extract_se_from_file` (``_jit_tone_color``),
+the chunks of `convert_streaming` (its ``_run_chunk``), and the text encode
+and the decode of `BaseSpeakerTTS.tts` / `tts_batched` (``tts_encode_jit``,
+``tts_decode_jit``).  The first call of a shape runs eagerly and captures
+the graph; later calls replay it.  Each instance keeps its graphs in
+``self.graphs``; ``self.graphs.enabled = False`` runs every call eagerly.
 """
 
 from __future__ import annotations
 
 import os
 import re
+from functools import partial
 
 import numpy as np
 import torch
@@ -36,7 +47,14 @@ from openvoice_tpu_torch.pipeline import watermark as wm
 from openvoice_tpu_torch.pipeline.se_extractor import split_audio_vad
 from openvoice_tpu_torch.pipeline.whisper_seg import make_segmenter, split_audio_whisper
 from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
+from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
 from openvoice_tpu_torch.runtime.streaming import voice_conversion_streaming
+
+# the reference's sampling knobs of tts() (api.py:73-98), as the JAX package
+# passes them to tts_encode_jit / tts_decode_jit
+NOISE_SCALE = 0.667
+NOISE_SCALE_W = 0.6
+SDP_RATIO = 0.2
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -89,6 +107,7 @@ class OpenVoiceBaseClass:
             torch.backends.cudnn.allow_tf32 = False
         self.model: S.Synthesizer | None = None
         self._dec_cache: dict | None = None
+        self.graphs = GraphCache(self.device)  # the CUDA graphs of this instance's calls
 
     # -- weights ------------------------------------------------------------
 
@@ -119,6 +138,7 @@ class OpenVoiceBaseClass:
         """Use `model`'s weights (moved to this instance's device)."""
         self.model = model.to(self.device).eval()
         self._dec_cache = None  # packed from the old weights
+        self.graphs.clear()     # they read the old tensors
 
     def _require_model(self) -> S.Synthesizer:
         if self.model is None:
@@ -130,6 +150,7 @@ class OpenVoiceBaseClass:
         once, at the first fast call, and again after new weights."""
         if self._dec_cache is None:
             self._dec_cache = S.make_dec_cache(self._require_model())
+            self.graphs.clear()  # a serving graph reads the packed weights it was captured with
         return self._dec_cache
 
 
@@ -189,9 +210,8 @@ class ToneColorConverter(OpenVoiceBaseClass):
         for i, (padded, n_frames) in enumerate(prepared):
             batch[i, : len(padded)] = padded
             lengths[i] = n_frames
-        spec = stft_magnitude(torch.from_numpy(batch).to(self.device),
-                              cfg.filter_length, cfg.hop_length, cfg.win_length)
-        ses = S.extract_tone_color(model, spec, torch.from_numpy(lengths).to(self.device))
+        ses = self.graphs.run(GraphKey("tone_color", bucket=bucket, batch=len(prepared)),
+                              partial(tone_color_body, model, cfg), {"audio": batch, "lengths": lengths})
         return ses.mean(dim=0).cpu().numpy()
 
     # -- conversion ---------------------------------------------------------
@@ -219,15 +239,10 @@ class ToneColorConverter(OpenVoiceBaseClass):
         # host noise, drawn exactly as the JAX package draws it
         noise = np.random.default_rng(seed).standard_normal(
             (1, bucket, cfg.inter_channels)).astype(np.float32)
-
-        dev = self.device
-        spec = stft_magnitude(torch.from_numpy(buf).to(dev),
-                              cfg.filter_length, cfg.hop_length, cfg.win_length)
-        out, _ = S.voice_conversion(
-            model, spec, torch.tensor([n_frames], device=dev),
-            self._as_g(src_se), self._as_g(tgt_se), float(tau), torch.from_numpy(noise).to(dev),
-            fast=fast, dec_cache=self._require_dec_cache() if fast else None,
-        )
+        inputs = {"audio": buf, "lengths": np.asarray([n_frames], np.int64), "g_src": _g_host(src_se),
+                  "g_tgt": _g_host(tgt_se), "tau": np.full((1, 1, 1), tau, np.float32), "noise": noise}
+        body = partial(convert_body, model, cfg, fast, self._require_dec_cache() if fast else None)
+        out = self.graphs.run(GraphKey("convert", bucket=bucket, batch=1, fast=fast), body, inputs)
         audio_out = out[0, : n_frames * cfg.upsample_factor, 0].cpu().numpy()
         if self.enable_watermark and message:
             audio_out = self.add_watermark(audio_out, message)
@@ -256,9 +271,9 @@ class ToneColorConverter(OpenVoiceBaseClass):
         # the first n_frames rows of what `convert` draws for the same seed
         noise = np.random.default_rng(seed).standard_normal((1, n_frames, cfg.inter_channels)).astype(np.float32)
         out = voice_conversion_streaming(
-            model, spec[:, :n_frames], np.asarray([n_frames]), self._as_g(src_se), self._as_g(tgt_se),
+            model, spec[:, :n_frames], np.asarray([n_frames]), _g_host(src_se), _g_host(tgt_se),
             float(tau), noise, chunk_frames=chunk_frames, fast=fast,
-            dec_cache=self._require_dec_cache() if fast else None,
+            dec_cache=self._require_dec_cache() if fast else None, graphs=self.graphs,
         )
         audio_out = out[0, : n_frames * cfg.upsample_factor, 0]
         if self.enable_watermark and message:
@@ -269,12 +284,8 @@ class ToneColorConverter(OpenVoiceBaseClass):
         return None
 
     def _as_g(self, se) -> torch.Tensor:
-        se = np.asarray(se, np.float32)
-        if se.ndim == 3:  # [1, gin, 1] reference layout
-            se = se[0, :, 0]
-        elif se.ndim == 2:
-            se = se.reshape(-1)
-        return torch.from_numpy(np.ascontiguousarray(se)).to(self.device)[None, None, :]  # [1, 1, gin]
+        """An SE as [1, 1, gin] on this instance's device."""
+        return torch.from_numpy(_g_host(se)).to(self.device)
 
     # -- watermark ----------------------------------------------------------
 
@@ -347,7 +358,7 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
         from numpy generators spawned from `seed` as in the JAX package, so
         the same seed gives the same audio there, and `tts_batched` gives the
         same audio here."""
-        model, cfg, dev = self._require_model(), self.cfg, self.device
+        model, cfg = self._require_model(), self.cfg
         token_seqs, speaker_id = self._sentence_tokens(text, speaker, language)
         noise_rngs = _sentence_noise_rngs(seed, len(token_seqs))
         dec_cache = self._require_dec_cache() if fast else None
@@ -357,13 +368,11 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
             padded = np.zeros((1, t_bucket), np.int32)
             padded[0, : len(tokens)] = tokens
             noise_w = rng_w.standard_normal((1, t_bucket, 2)).astype(np.float32)
-            enc = S.tts_encode(model, torch.from_numpy(padded).to(dev), torch.tensor([len(tokens)], device=dev),
-                               torch.tensor([speaker_id], device=dev), torch.from_numpy(noise_w).to(dev),
-                               noise_scale_w=0.6, length_scale=1.0 / speed, sdp_ratio=0.2)
+            enc = _tts_encode(self.graphs, model, padded, np.asarray([len(tokens)], np.int64),
+                              np.asarray([speaker_id], np.int64), noise_w, speed)
             fb = round_up_to_bucket(max(int(enc.w_ceil.sum()), 1))
             noise = rng_y.standard_normal((1, fb, cfg.inter_channels)).astype(np.float32)
-            audio, y_mask = S.tts_decode(model, enc, fb, torch.from_numpy(noise).to(dev), noise_scale=0.667,
-                                         fast=fast, dec_cache=dec_cache)
+            audio, y_mask = _tts_decode(self.graphs, model, enc, fb, noise, fast, dec_cache)
             y_len = int(y_mask[0, :, 0].sum())
             pieces.append(audio[0, : y_len * cfg.upsample_factor, 0].cpu().numpy())
         return self._finish(pieces, output_path, speed)
@@ -381,7 +390,7 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
         if n == 0:
             return self._finish([], output_path, speed)
         noise_rngs = _sentence_noise_rngs(seed, n)
-        enc_rows = _encode_rows(model, token_seqs, speaker_id, speed, noise_rngs, dev)
+        enc_rows = _encode_rows(model, token_seqs, speaker_id, speed, noise_rngs, dev, self.graphs)
         g_row = model.emb_g.weight[speaker_id][None, :]  # [1, gin]
         pieces: list[np.ndarray | None] = [None] * n
         dec_cache = self._require_dec_cache() if fast else None
@@ -389,8 +398,7 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
             enc = _stack_enc_rows(enc_rows, idxs, g_row)
             noise = np.stack([noise_rngs[i][1].standard_normal((fb, cfg.inter_channels)).astype(np.float32)
                               for i in idxs])
-            audio, y_mask = S.tts_decode(model, enc, fb, torch.from_numpy(noise).to(dev), noise_scale=0.667,
-                                         fast=fast, dec_cache=dec_cache)
+            audio, y_mask = _tts_decode(self.graphs, model, enc, fb, noise, fast, dec_cache)
             audio = audio[..., 0].cpu().numpy()
             y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
             for r, i in enumerate(idxs):
@@ -631,20 +639,20 @@ def _pack_token_batch(token_seqs, idxs, tb, noise_rngs):
 
 
 def _encode_rows(model: S.Synthesizer, token_seqs, speaker_id: int, speed: float, noise_rngs,
-                 device: torch.device) -> list[dict]:
+                 device: torch.device, graphs: GraphCache | None = None) -> list[dict]:
     """The batched encode: sentences grouped by token bucket, one
-    `S.tts_encode` a group; per-sentence rows (m_p, logs_p, x_mask, w_ceil
+    `S.tts_encode` a group (a replay of `graphs`' graph of the group's shape
+    where given, else eager); per-sentence rows (m_p, logs_p, x_mask, w_ceil
     on the device) in input order."""
+    graphs = GraphCache(device, enabled=False) if graphs is None else graphs
     enc_rows: list[dict | None] = [None] * len(token_seqs)
     groups: dict[int, list[int]] = {}
     for i, seq in enumerate(token_seqs):
         groups.setdefault(round_up_to_bucket(len(seq)), []).append(i)
     for tb, idxs in groups.items():
         toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
-        enc = S.tts_encode(model, torch.from_numpy(toks).to(device), torch.from_numpy(lens).to(device),
-                           torch.full((len(idxs),), speaker_id, device=device),
-                           torch.from_numpy(noise_w).to(device),
-                           noise_scale_w=0.6, length_scale=1.0 / speed, sdp_ratio=0.2)
+        enc = _tts_encode(graphs, model, toks, lens.astype(np.int64), np.full(len(idxs), speaker_id, np.int64),
+                          noise_w, speed)
         for r, i in enumerate(idxs):
             enc_rows[i] = {"m_p": enc.m_p[r], "logs_p": enc.logs_p[r], "x_mask": enc.x_mask[r],
                            "w_ceil": enc.w_ceil[r]}
@@ -663,6 +671,72 @@ def _stack_enc_rows(enc_rows: list[dict], idxs: list[int], g_row: torch.Tensor) 
 
     return S.TTSEncodeOut(m_p=stacked("m_p"), logs_p=stacked("logs_p"), x_mask=stacked("x_mask"),
                           w_ceil=stacked("w_ceil"), g=g_row[None].expand(len(idxs), 1, -1).contiguous())
+
+
+def _g_host(se) -> np.ndarray:
+    """An SE ([1, gin, 1] reference layout, [gin] or [1, gin]) as a float32
+    [1, 1, gin] host array."""
+    se = np.asarray(se, np.float32)
+    if se.ndim == 3:  # [1, gin, 1] reference layout
+        se = se[0, :, 0]
+    return np.ascontiguousarray(se.reshape(1, 1, -1))
+
+
+# -- the bodies of the CUDA graphs (runtime/graphs.py): tensors in, tensors out --
+
+def convert_body(model: S.Synthesizer, cfg: SynthesizerConfig, fast: bool, dec_cache: dict | None,
+                 audio: torch.Tensor, lengths: torch.Tensor, g_src: torch.Tensor, g_tgt: torch.Tensor,
+                 tau: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """`convert`'s device path, the JAX package's ``_jit_convert``: the STFT
+    kernel on reflect-padded audio [B, L], then `S.voice_conversion` (tau
+    [B, 1, 1]) → audio [B, T·upsample, 1]."""
+    spec = stft_magnitude(audio, cfg.filter_length, cfg.hop_length, cfg.win_length)
+    out, _ = S.voice_conversion(model, spec, lengths, g_src, g_tgt, tau, noise, fast=fast, dec_cache=dec_cache)
+    return out
+
+
+def tone_color_body(model: S.Synthesizer, cfg: SynthesizerConfig, audio: torch.Tensor,
+                    lengths: torch.Tensor) -> torch.Tensor:
+    """The speaker embedding of a padded batch (the STFT kernel, then the
+    JAX package's ``_jit_tone_color``) → [B, gin]."""
+    spec = stft_magnitude(audio, cfg.filter_length, cfg.hop_length, cfg.win_length)
+    return S.extract_tone_color(model, spec, lengths)
+
+
+def tts_encode_body(model: S.Synthesizer, tokens: torch.Tensor, lengths: torch.Tensor, sid: torch.Tensor,
+                    noise_w: torch.Tensor, noise_scale_w: torch.Tensor, length_scale: torch.Tensor,
+                    sdp_ratio: torch.Tensor) -> tuple:
+    """`S.tts_encode` with its sampling knobs as tensors (``tts_encode_jit``)
+    → the fields of `S.TTSEncodeOut`."""
+    return tuple(S.tts_encode(model, tokens, lengths, sid, noise_w, noise_scale_w=noise_scale_w,
+                              length_scale=length_scale, sdp_ratio=sdp_ratio))
+
+
+def tts_decode_body(model: S.Synthesizer, max_frames: int, fast: bool, dec_cache: dict | None,
+                    m_p: torch.Tensor, logs_p: torch.Tensor, x_mask: torch.Tensor, w_ceil: torch.Tensor,
+                    g: torch.Tensor, noise: torch.Tensor, noise_scale: torch.Tensor) -> tuple:
+    """`S.tts_decode` of an encode's fields (``tts_decode_jit``) → (audio,
+    y_mask)."""
+    enc = S.TTSEncodeOut(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w_ceil=w_ceil, g=g)
+    return S.tts_decode(model, enc, max_frames, noise, noise_scale=noise_scale, fast=fast, dec_cache=dec_cache)
+
+
+def _tts_encode(graphs: GraphCache, model: S.Synthesizer, tokens: np.ndarray, lengths: np.ndarray,
+                sids: np.ndarray, noise_w: np.ndarray, speed: float) -> S.TTSEncodeOut:
+    """One token-bucket batch's encode through `graphs`."""
+    inputs = {"tokens": tokens, "lengths": lengths, "sid": sids, "noise_w": noise_w,
+              "noise_scale_w": np.float32(NOISE_SCALE_W), "length_scale": np.float32(1.0 / speed),
+              "sdp_ratio": np.float32(SDP_RATIO)}
+    key = GraphKey("tts_encode", bucket=tokens.shape[1], batch=tokens.shape[0])
+    return S.TTSEncodeOut(*graphs.run(key, partial(tts_encode_body, model), inputs))
+
+
+def _tts_decode(graphs: GraphCache, model: S.Synthesizer, enc: S.TTSEncodeOut, max_frames: int,
+                noise: np.ndarray, fast: bool, dec_cache: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """One frame-bucket group's decode through `graphs` → (audio, y_mask)."""
+    inputs = {**enc._asdict(), "noise": noise, "noise_scale": np.float32(NOISE_SCALE)}
+    key = GraphKey("tts_decode", bucket=enc.m_p.shape[1], batch=enc.m_p.shape[0], fast=fast, max_frames=max_frames)
+    return graphs.run(key, partial(tts_decode_body, model, max_frames, fast, dec_cache), inputs)
 
 
 def _sentence_noise_rngs(seed: int, n: int) -> list[tuple[np.random.Generator, np.random.Generator]]:

@@ -12,7 +12,8 @@ right lanes; the reverse direction negates post.  A CUDA tensor goes to the
 kernel, a CPU tensor to `coupling_block_plain`; nothing falls back.
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
-launched and nowhere else.
+launched and nowhere else (`ops.count_launch`: a
+launch recorded into a CUDA graph counts at each replay).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import ctypes
 
 import torch
 
-from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
+from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 from openvoice_tpu_torch.ops.wn_cuda import stack_wn_params, wn_layers_plain
 
 launches = 0
@@ -167,7 +168,6 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
     `pack_coupling_block` (one direction) in x's dtype; g_all [B, S, L, 2H]
     from `coupling_g_stack` of the same direction → [B, T, C].  Frames past a
     row's length come out exactly 0."""
-    global launches
     if x.dim() != 3:
         raise ValueError(f"coupling_block takes [B, T, C], got {tuple(x.shape)}")
     batch, t, c = x.shape
@@ -222,8 +222,7 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
     )
     if err != 0:
         raise RuntimeError(f"coupling kernel launch failed with CUDA error {err}")
-    with LAUNCH_LOCK:
-        launches += 1
+    count_launch(__name__)
     last_launch.update(ranks=_RANKS, rows=rows, tile=tile, ctas=-(-t // tile) * _RANKS * batch,
                        max_clusters=clusters)
     return out

@@ -8,7 +8,8 @@ CUDA tensor goes to the kernel, a CPU tensor to `mrf_stage_plain`; nothing
 falls back.
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
-launched and nowhere else.
+launched and nowhere else (`ops.count_launch`: a
+launch recorded into a CUDA graph counts at each replay).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
+from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 
 launches = 0
 
@@ -225,7 +226,6 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
     """x [B, T, C]; lengths [B] true sample counts at this stage's rate;
     packed from `pack_stage_weights` in x's dtype → the mean of the branches
     [B, T, C].  Samples past a row's length come out exactly 0."""
-    global launches
     if x.dim() != 3:
         raise ValueError(f"mrf_stage takes [B, T, C], got {tuple(x.shape)}")
     batch, t, c = x.shape
@@ -260,6 +260,5 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
     )
     if err != 0:
         raise RuntimeError(f"mrf kernel launch failed with CUDA error {err}")
-    with LAUNCH_LOCK:
-        launches += 1
+    count_launch(__name__)
     return out

@@ -13,7 +13,8 @@ tensor goes to the plain version
 a failed build or launch raises, on either route.
 
 ``launches`` counts the launches of both kernels; it is raised where a
-kernel is launched and nowhere else.
+kernel is launched and nowhere else (`ops.count_launch`: a
+launch recorded into a CUDA graph counts at each replay).
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from openvoice_tpu_torch.audio.stft import stft_magnitude_plain, stft_window
-from openvoice_tpu_torch.ops import LAUNCH_LOCK, _nvcc
+from openvoice_tpu_torch.ops import count_launch, _nvcc
 
 launches = 0
 
@@ -105,7 +106,6 @@ def _device_tables(n_fft: int, win: int, device: torch.device) -> tuple:
 def stft_magnitude(padded_audio: torch.Tensor, n_fft: int, hop: int, win: int) -> torch.Tensor:
     """[B, L] reflect-padded float32 audio → [B, (L - n_fft)//hop + 1,
     n_fft//2 + 1] float32 magnitudes sqrt(re² + im² + 1e-6)."""
-    global launches
     if padded_audio.dim() != 2:
         raise ValueError(f"stft_magnitude takes [B, L] audio, got shape {tuple(padded_audio.shape)}")
     if padded_audio.dtype != torch.float32:
@@ -144,6 +144,5 @@ def stft_magnitude(padded_audio: torch.Tensor, n_fft: int, hop: int, win: int) -
                                batch, length, frames, n_fft, hop, device.index or 0, stream)
     if err != 0:
         raise RuntimeError(f"stft {route(n_fft)} kernel launch failed with CUDA error {err}")
-    with LAUNCH_LOCK:
-        launches += 1
+    count_launch(__name__)
     return out

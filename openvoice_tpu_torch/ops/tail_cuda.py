@@ -9,7 +9,8 @@ the window rows `tail_chunks` gives, and a tile wholly past the true length
 to `tail_stage_plain`; nothing falls back.
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
-launched and nowhere else.
+launched and nowhere else (`ops.count_launch`: a
+launch recorded into a CUDA graph counts at each replay).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
+from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 from openvoice_tpu_torch.ops.mrf_cuda import (
     LRELU_SLOPE, check_stage, check_stage_cuda, conv_chunks, lrelu_plain, mrf_branches_plain,
     pack_stage_weights, stage_halo,
@@ -180,7 +181,6 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
     [B, T_in·stride, C_out].  Activations past a row's length come out exactly
     0; the audio does from conv_post's reach past it (no mask follows conv_post,
     as in the Pallas kernel)."""
-    global launches
     if x.dim() != 3:
         raise ValueError(f"tail_stage takes [B, T, C], got {tuple(x.shape)}")
     batch, t_in, cin = x.shape
@@ -233,7 +233,6 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
     if err != 0:
         raise RuntimeError(f"tail kernel launch failed with error {err} (CUDA's, or -1: a launch the kernel "
                            f"cannot take, {_THREADS} threads)")
-    with LAUNCH_LOCK:
-        launches += 1
+    count_launch(__name__)
     last_launch.update(rows=rows, tile=tile, halo=halo, threads=_THREADS, tiles=-(-t_out // tile), smem=smem)
     return out

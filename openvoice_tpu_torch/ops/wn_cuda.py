@@ -14,7 +14,8 @@ build, a launch no cluster of which fits on the card, or a failed launch
 raise.
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
-launched and nowhere else.
+launched and nowhere else (`ops.count_launch`: a
+launch recorded into a CUDA graph counts at each replay).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import ctypes
 
 import torch
 
-from openvoice_tpu_torch.ops import LAUNCH_LOCK, _frag, _nvcc
+from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 
 launches = 0
 
@@ -136,7 +137,6 @@ def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.
     `stack_wn_params` in x's dtype; g_all [B, L, 2H] conditioning (zeros when
     unconditioned) → the masked skip sum [B, T, H].  Frames past a row's
     length come out exactly 0."""
-    global launches
     if x.dim() != 3:
         raise ValueError(f"wn_stack takes [B, T, H], got {tuple(x.shape)}")
     batch, t, h = x.shape
@@ -187,8 +187,7 @@ def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.
     )
     if err != 0:
         raise RuntimeError(f"wn kernel launch failed with CUDA error {err}")
-    with LAUNCH_LOCK:
-        launches += 1
+    count_launch(__name__)
     last_launch.update(ranks=_RANKS, rows=rows, tile=tile, tiles=-(-t // tile),
                        ctas=-(-t // tile) * _RANKS * batch, threads=_THREADS, max_clusters=clusters)
     return out

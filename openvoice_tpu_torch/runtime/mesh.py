@@ -337,12 +337,23 @@ def row_range(n_rows: int, mesh: Mesh, coord: tuple[int, int]) -> slice:
     return slice(coord[0] * per, (coord[0] + 1) * per)
 
 
+def pinned(x: torch.Tensor) -> torch.Tensor:
+    """A pinned copy of a CPU tensor, copied by numpy.  ``Tensor.pin_memory``
+    copies on torch's intra-op thread pool, and on the card's host that copy
+    stalled for milliseconds while numpy's BLAS threads (the watermark's
+    products) still spun on every core; numpy's copy is one thread's
+    memcpy."""
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.numpy()[...] = x.numpy()
+    return out
+
+
 def upload(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     """A host tensor on `device`; to the card through pinned memory and an
     asynchronous copy, which does not wait for the kernels queued before
     it."""
     if device.type == "cuda" and x.device.type == "cpu":
-        return x.pin_memory().to(device, non_blocking=True)
+        return pinned(x).to(device, non_blocking=True)
     return x.to(device)
 
 

@@ -15,22 +15,35 @@ prefix mask: the serving kernels rebuild their masks as ``pos < sum(mask)``
 and cannot represent an invalid left margin.  A clamped window emits from
 ``offset = ci·chunk − start``.  Every window has one shape,
 [B, halo + chunk + halo], so the device memory of a call does not grow with
-the utterance.
+the utterance; on the card with a `GraphCache` every window after the first
+replays one CUDA graph (the JAX package compiles ``_run_chunk`` once).
 """
 
 from __future__ import annotations
+
+from functools import partial
 
 import numpy as np
 import torch
 
 from openvoice_tpu_torch.models.synthesizer import Synthesizer, voice_conversion_masked
+from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
 from openvoice_tpu_torch.runtime.sequence_parallel import required_halo
+
+
+def chunk_body(model: Synthesizer, fast: bool, dec_cache: dict | None, spec: torch.Tensor,
+               mask: torch.Tensor, g_src: torch.Tensor, g_tgt: torch.Tensor, tau: torch.Tensor,
+               noise: torch.Tensor) -> torch.Tensor:
+    """One window's conversion (the JAX package's ``_run_chunk``): spec
+    [B, W, n_freq], its prefix mask [B, W, 1], tau [B, 1, 1] → audio
+    [B, W·upsample, 1]."""
+    return voice_conversion_masked(model, spec, mask, g_src, g_tgt, tau, noise, fast=fast, dec_cache=dec_cache)
 
 
 @torch.inference_mode()
 def voice_conversion_streaming(model: Synthesizer, spec, spec_lengths, g_src, g_tgt, tau: float, noise, *,
                                chunk_frames: int = 896, halo: int | None = None, fast: bool = False,
-                               dec_cache: dict | None = None) -> np.ndarray:
+                               dec_cache: dict | None = None, graphs: GraphCache | None = None) -> np.ndarray:
     """Convert an arbitrarily long spectrogram in fixed-size chunks on the
     model's device.
 
@@ -38,7 +51,11 @@ def voice_conversion_streaming(model: Synthesizer, spec, spec_lengths, g_src, g_
     the same standard-normal noise the one-shot path would use), g_src /
     g_tgt [B, 1, gin] → numpy audio [B, T·upsample, 1], equal to
     `voice_conversion` up to float round-off (in serving mode, up to bf16
-    rounding: the kernels' tiles fall at other offsets in a window)."""
+    rounding: the kernels' tiles fall at other offsets in a window).
+
+    `graphs` (the caller's, on the model's device): each window runs
+    through it, as a replay of one graph per (batch, window, fast) on the
+    card; without, each window runs eagerly."""
     cfg = model.cfg
     dev = next(model.parameters()).device
     spec = np.asarray(spec, np.float32)
@@ -49,8 +66,12 @@ def voice_conversion_streaming(model: Synthesizer, spec, spec_lengths, g_src, g_
         halo = required_halo(cfg)
     up = cfg.upsample_factor
     ext = chunk_frames + 2 * halo
+    graphs = GraphCache(dev, enabled=False) if graphs is None else graphs
+    key = GraphKey("stream_chunk", bucket=ext, batch=b, fast=fast, chunk_frames=chunk_frames)
+    body = partial(chunk_body, model, fast, dec_cache)
     g_src = torch.as_tensor(g_src, dtype=torch.float32, device=dev)
     g_tgt = torch.as_tensor(g_tgt, dtype=torch.float32, device=dev)
+    taus = np.full((b, 1, 1), tau, np.float32)
 
     pieces = []
     for ci in range(-(-t // chunk_frames)):
@@ -62,8 +83,11 @@ def voice_conversion_streaming(model: Synthesizer, spec, spec_lengths, g_src, g_
         window[:, : hi - start] = spec[:, start:hi]
         nwin[:, : hi - start] = noise[:, start:hi]
         mask = (start + np.arange(ext))[None, :] < lengths[:, None]  # always a prefix mask
-        audio = voice_conversion_masked(
-            model, torch.from_numpy(window).to(dev), torch.from_numpy(mask.astype(np.float32))[..., None].to(dev),
-            g_src, g_tgt, tau, torch.from_numpy(nwin).to(dev), fast=fast, dec_cache=dec_cache)
-        pieces.append(audio[:, offset * up:(offset + chunk_frames) * up, 0].cpu().numpy())
+        inputs = {"spec": window, "mask": mask.astype(np.float32)[..., None], "g_src": g_src, "g_tgt": g_tgt,
+                  "tau": taus, "noise": nwin}
+
+        def emitted(audio, offset=offset):  # a view of the window's output, copied out at once
+            return audio[:, offset * up:(offset + chunk_frames) * up, 0].to("cpu", copy=True).numpy()
+
+        pieces.append(graphs.run(key, body, inputs, consume=emitted))
     return np.concatenate(pieces, axis=1)[:, : t * up, None]

@@ -29,6 +29,13 @@ float on the host.  The dispatch thread only enqueues device work: inputs go
 up through pinned memory asynchronously, and a reader thread waits for each
 group's copy back to host memory, so that one group's packing and readback
 overlap another group's compute.
+
+On one card each group runs as a replay of one CUDA graph per (mode,
+bucket, padded batch, fast) from its second call of that shape on
+(``runtime/graphs.py``; the JAX package's ``_jit_convert_pcm16`` and
+``voice_conversion_jit``): the int16 decode, the STFT, the conversion and
+the int16 wire encode.  A batcher over a mesh of several data positions runs
+its shards eagerly.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import traceback
 from concurrent.futures import Future
 from contextlib import nullcontext
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 import torch
@@ -49,6 +57,7 @@ from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
 from openvoice_tpu_torch.runtime.bucketing import allowed_batch_sizes, plan_groups
+from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
 from openvoice_tpu_torch.runtime.mesh import Mesh, upload
 from openvoice_tpu_torch.runtime.parallel import replicate
 from openvoice_tpu_torch.runtime.profiler import METRICS, trace
@@ -83,22 +92,55 @@ def _wire_int16(audio: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(audio[..., 0], -1.0, 1.0) * 32767.0).to(torch.int16)
 
 
+def row_noise(seeds: list[int], frames: int, channels: int, device: torch.device) -> torch.Tensor:
+    """The PCM mode's noise [B, frames, channels]: row i from
+    ``torch.Generator(device)`` seeded with seeds[i]."""
+    return torch.stack([
+        torch.randn(frames, channels, generator=torch.Generator(device).manual_seed(s), device=device)
+        for s in seeds
+    ])
+
+
 def _convert_pcm16(model: S.Synthesizer, cfg: SynthesizerConfig, pcm: torch.Tensor, spec_lengths: torch.Tensor,
                    g_src: torch.Tensor, g_tgt: torch.Tensor, taus: torch.Tensor, seeds: list[int],
                    fast: bool = False, dec_cache: dict | None = None) -> torch.Tensor:
     """The PCM serving path as one batched call: int16 samples [B, L]
     (reflect-padded on the host) → STFT → per-row device noise → convert →
     int16 PCM [B, T·upsample]."""
-    audio_in = pcm.float() * (1.0 / 32767.0)
-    spec = stft_magnitude(audio_in, cfg.filter_length, cfg.hop_length, cfg.win_length)
-    dev = pcm.device
-    noise = torch.stack([
-        torch.randn(spec.shape[1], cfg.inter_channels, generator=torch.Generator(dev).manual_seed(s), device=dev)
-        for s in seeds
-    ])
-    audio, _ = S.voice_conversion(model, spec, spec_lengths, g_src, g_tgt, taus, noise, fast=fast,
-                                  dec_cache=dec_cache)
+    frames = (pcm.shape[1] - cfg.filter_length) // cfg.hop_length + 1
+    noise = row_noise(seeds, frames, cfg.inter_channels, pcm.device)
+    return group_body(model, cfg, fast, dec_cache, spec_lengths, g_src, g_tgt, taus, noise, pcm=pcm)
+
+
+def group_body(model: S.Synthesizer, cfg: SynthesizerConfig, fast: bool, dec_cache: dict | None,
+               lengths: torch.Tensor, g_src: torch.Tensor, g_tgt: torch.Tensor, taus: torch.Tensor,
+               noise: torch.Tensor, pcm: torch.Tensor | None = None, spec: torch.Tensor | None = None) -> torch.Tensor:
+    """One group's call, the body of its CUDA graph: from int16 samples
+    [B, L] through the STFT (PCM mode, the JAX package's
+    ``_jit_convert_pcm16``) or from a spectrogram [B, T, n_freq] (spec mode,
+    its ``voice_conversion_jit``), the conversion with the rows' noise and
+    taus [B, 1, 1], then the int16 wire → [B, T·upsample]."""
+    if pcm is not None:
+        spec = stft_magnitude(pcm.float() * (1.0 / 32767.0), cfg.filter_length, cfg.hop_length, cfg.win_length)
+    audio, _ = S.voice_conversion(model, spec, lengths, g_src, g_tgt, taus, noise, fast=fast, dec_cache=dec_cache)
     return _wire_int16(audio)
+
+
+def _wire_to_host(wire: torch.Tensor) -> tuple:
+    """A group's int16 wire → (host tensor, events that complete its copy).
+    On the card: an asynchronous copy into pinned memory, which the reader
+    thread waits for while this thread goes on to the next group.  Where the
+    wire is a graph's output, `GraphCache.run` calls this under the device's
+    lock right after the replay, so the copy is queued in stream order before
+    any other replay of the device's graph pool, which may reuse the wire's
+    memory."""
+    if wire.device.type != "cuda":
+        return wire.clone(), []
+    host = torch.empty(wire.shape, dtype=torch.int16, pin_memory=True)
+    host.copy_(wire, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, [done]
 
 
 class ConvertBatcher:
@@ -135,6 +177,7 @@ class ConvertBatcher:
                   for dev, m in replicate(self.model, devices).items()}
         self.dec_cache = copies[self.device][1]
         self._shards = [(dev, *copies[dev]) for dev in devices]  # one a data position
+        self.graphs = GraphCache(self.device)  # one device's groups; a mesh's shards run eagerly
         self.cfg = cfg
         self.fast = fast
         self.max_batch = max_batch
@@ -306,6 +349,18 @@ class ConvertBatcher:
                     spec[i, : r.n_frames] = r.spec
                     noise[i] = np.random.default_rng(r.seed).standard_normal(
                         (bucket, cfg.inter_channels)).astype(np.float32)
+            if n_shards == 1:
+                if group[0].audio is not None:
+                    inputs = {"pcm": pcm, "noise": row_noise(seeds, bucket, cfg.inter_channels, self.device)}
+                else:
+                    inputs = {"spec": spec, "noise": noise}
+                with trace("convert_batch"):
+                    host, events = self._run_group(bucket, {"lengths": lengths, "g_src": g_src, "g_tgt": g_tgt,
+                                                            "taus": taus, **inputs})
+                METRICS.add("busy_seconds", time.perf_counter() - t0)
+                METRICS.add("batches")
+                self._readq.put((host, events, group))
+                return
             per = n // n_shards
             host, events = None, []
             for k, (dev, model, cache) in enumerate(self._shards):
@@ -343,6 +398,16 @@ class ConvertBatcher:
                 if not r.future.done():
                     r.future.set_exception(RuntimeError(f"batch failed: {exc}\n{tb}"))
             METRICS.add("batch_failures")
+
+    def _run_group(self, bucket: int, inputs: dict) -> tuple:
+        """One device's group (`group_body`'s inputs by name) through
+        `self.graphs` → (its int16 wire in host memory, the events the
+        reader waits on)."""
+        _, model, cache = self._shards[0]
+        mode = "pcm" if "pcm" in inputs else "spec"
+        key = GraphKey(f"batch_{mode}", bucket=bucket, batch=len(inputs["lengths"]), fast=self.fast)
+        return self.graphs.run(key, partial(group_body, model, self.cfg, self.fast, cache), inputs,
+                               consume=_wire_to_host)
 
     def _read_loop(self) -> None:
         cfg = self.cfg

@@ -4,6 +4,7 @@ raise on what their kernels do not take instead of falling back, and a
 kernel's library is rebuilt when a header it shares changes."""
 
 import ast
+import contextlib
 import os
 import pathlib
 import shutil
@@ -167,6 +168,61 @@ def test_kernel_wrappers_raise_instead_of_falling_back(make):
         fn(strided, lengths, packed, *extra)
     with pytest.raises(ValueError):
         fn(good[0], lengths, packed, *extra)                      # not [B, T, C]
+
+
+def test_graph_capture_raises_instead_of_falling_back(monkeypatch):
+    """runtime/graphs.py: a capture or a replay that fails raises out of
+    `GraphCache.run` and is never swallowed.  Nothing is kept, the next call
+    of the key tries the capture again and raises again, no eager result
+    comes back in its place, and the module holds no exception handler."""
+    from openvoice_tpu_torch.runtime import graphs as G
+
+    tree = ast.parse((ROOT / "openvoice_tpu_torch" / "runtime" / "graphs.py").read_text())
+    assert not any(isinstance(node, ast.ExceptHandler) for node in ast.walk(tree))
+
+    class Stream:  # stand-ins for the card's streams and events: this machine has none
+        def wait_event(self, event):
+            pass
+
+        def wait_stream(self, stream):
+            pass
+
+    class Event:
+        def record(self, stream=None):
+            pass
+
+    def failing_capture(*args, **kwargs):
+        raise RuntimeError("capture failed: operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(G.GraphCache, "active", lambda self: True)
+    monkeypatch.setattr(G, "_streams", lambda device: (Stream(), Stream()))
+    monkeypatch.setattr(G, "_pool", lambda device: None)
+    monkeypatch.setattr(G, "_LAST", {})
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: object())
+    monkeypatch.setattr(torch.cuda, "graph", failing_capture)
+    cache, warmups = G.GraphCache("cpu"), []
+
+    def body(x):
+        warmups.append(1)
+        return x * 2
+
+    key = G.GraphKey("convert", bucket=64, batch=1, fast=False)
+    for n in (1, 2):
+        with pytest.raises(RuntimeError, match="capture failed"):
+            cache.run(key, body, {"x": np.ones(3, np.float32)})
+        assert len(cache) == cache.captures == 0 and len(warmups) == n
+
+    class FailingGraph:
+        def replay(self):
+            raise RuntimeError("replay failed")
+
+    static = {"x": torch.zeros(3)}
+    cache._graphs[key._replace(device="cpu")] = G.CapturedGraph(FailingGraph(), static, static["x"], {}, 0.0)
+    with pytest.raises(RuntimeError, match="replay failed"):
+        cache.run(key, body, {"x": np.ones(3, np.float32)})
+    assert len(warmups) == 2 and cache.replays == 0
 
 
 def test_stft_wrapper_raises_instead_of_falling_back():
