@@ -81,7 +81,12 @@ Phases, in order; any failure exits non-zero before the result line:
    the staged truth in both modes (launches K5 1, K1 1, K2 3, K3 4, K4 4 per
    group), ``tts_convert_single_dispatch`` twice and its overflow fallback,
    ``tts_convert_stream`` joined, and the chain's STFT (K5 on the gathered
-   reflect-padded signal) against its plain version;
+   reflect-padded signal) against its plain version; then every chain in
+   both modes repeated as CUDA graph replays (no new capture, the eager
+   launches), bit-equal to the chain eager, ``tts_convert_batched`` also
+   with another seed, tau and speed; warm walls eager against graph, the
+   busy share of ``tts_convert_batched`` both ways, captures, capture
+   seconds and the pool;
    8d. ``convert_streaming`` of a 60 s clip against one-shot ``convert`` in
    both modes, its repeat (every window a replay) bit-equal to the windows
    eager, a 45 s clip with another tau, g and noise likewise, and the peak
@@ -92,9 +97,16 @@ Phases, in order; any failure exits non-zero before the result line:
    converter with the GAN recipe (B 8, 128-frame segments) for 4 steps with
    a checkpoint every 2, then again to 6 (it resumes: on_step sees 5 and 6);
    every loss finite, G and D moved, the train step launched no kernel, the
-   step-4 checkpoint loads bit for bit; a warm step's wall, profiler busy
-   share, FLOPs and f32 bound, peak memory; 20 mel/KL steps overfitting one
-   batch; one B = 1 GAN step on the card against the CPU (losses, every
+   step-4 checkpoint loads bit for bit; a warm step's wall as a replay of
+   the graph ``train()`` captured and eager, the profiler's busy share of
+   each, FLOPs and f32 bound, peak memory; 20 mel/KL steps overfitting one
+   batch (replays after the first); three steps of each train step from one
+   state (B 8) as graph replays against eager: in f64 every loss and
+   parameter leaf within 1e-10 of its peak; in f32 the median leaf's
+   distance from f64 within 3× eager's, and one more step from one state
+   within 3× the spread of two eager steps (a loss's at least 3× f32's
+   epsilon); one B = 1 GAN
+   step on the card against the CPU (losses, every
    gradient leaf in f64, D's and G's gradients in f32 against the CPU's own
    f32 rounding, a whole step's metrics); the trained converter
    through ``extract_se`` and ``convert`` in both modes (K5 1, K1 1, K2 2,
@@ -113,7 +125,10 @@ Phases, in order; any failure exits non-zero before the result line:
    tensor-parallel f32 convert (1×2) against the single-device convert at
    the JAX suite's bar, a serving-mode ``ConvertBatcher`` over a 2×1 mesh on
    8 requests against the single-device batcher (K5 1 a PCM group's shard,
-   K1 1, K2 2, K3 2, K4 2 a shard; padded rows exactly 0), a heartbeat;
+   K1 1, K2 2, K3 2, K4 2 a shard; padded rows exactly 0), its group of 8
+   repeated as each shard's graph replay, bit-equal to the shards eager;
+   ``data_parallel_convert`` of 4 rows over the 2 positions repeated as
+   replays (the eager launches), bit-equal to eager; a heartbeat;
    10c. two processes of this script (``--mesh-child``) on the card over
    gloo: the global batch and the collectives, a data-parallel serving-mode
    convert round (K1 1, K2 2, K3 2, K4 2 a rank) against one process, and a
@@ -131,7 +146,9 @@ Phases, in order; any failure exits non-zero before the result line:
    11b. two ranks of ``DistributedConvertService(fast=True)``, two rounds,
    rank 1 passing [] in the first: K1 1, K2 2, K3 2, K4 2 a rank a round by
    the counters, padded rows exactly 0, each request against its
-   one-process ``convert(fast=True)``;
+   one-process ``convert(fast=True)``; then each round again, each rank's
+   rows a replay of its replica's graph (the same launches), bit-equal to
+   the round with the graphs off;
    11c. a ``Supervisor`` of 2 f32 workers, worker 1 SIGKILLed after the first
    result; the shrunk world of 1 finishes; each result against one process;
    11d. a ``TrainSupervisor`` of 2 (mel/KL, 8 steps, a checkpoint every 4),
@@ -154,7 +171,8 @@ Phases, in order; any failure exits non-zero before the result line:
    demos run here on the repository's copy (1e-5 and 0.05 of the peak);
 7. one JSON line of every ported kernel (with ``launches_train_phase`` and
    phase 10's, 11's and 12's launch counts), one of the serving tier's
-   numbers, one of the CUDA graphs' (phases 4-5, 6b, 8a), one of training's,
+   numbers, one of the CUDA graphs' (phases 4-5, 6b, 8a, 8c, 9, 10b), one of
+   training's,
    one of phase 10's, one of phase 11's, one of
    phase 12's, the card's ``nvidia-smi`` line, then the result line
    ``{"ok": true, "device": {...}}``.
@@ -1917,9 +1935,8 @@ def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False, me
     `mesh` where given, stopped after the run); wait for every result.
     Returns the results, the wall time from the first submit to the last
     result, the run's own metrics snapshot, and the groups it dispatched
-    (mode, bucket, rows, padded batch); with `capture`, each call's int16
-    wire too (on one device the group's host copy, over a mesh one a shard
-    of a group)."""
+    (mode, bucket, rows, padded batch); with `capture`, each group's int16
+    wire too (its host copy, every data position's rows)."""
     import torch
 
     from openvoice_tpu_torch.runtime.profiler import Metrics
@@ -1928,28 +1945,20 @@ def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False, me
     own = batcher is None
     batcher = batcher or serving_batcher(tc, max_batch, mesh)
     groups, wires, metrics = [], [], Metrics()
-    real_dispatch, real_wire, real_metrics, real_put = B.ConvertBatcher._dispatch, B._wire_int16, B.METRICS, \
-        batcher._readq.put
+    real_dispatch, real_metrics, real_put = B.ConvertBatcher._dispatch, B.METRICS, batcher._readq.put
 
     def dispatch(bucket, group, padded_batch):
         groups.append(("pcm" if group[0].audio is not None else "spec", bucket, len(group), padded_batch))
         return real_dispatch(batcher, bucket, group, padded_batch)
 
-    def wire(audio):
-        out = real_wire(audio)
-        wires.append(out)
-        return out
-
     def put(item, *args, **kwargs):
         if item is not None:
-            wires.append(item[0])  # a group's host copy, complete once its events are
+            wires.append(item[0])  # a group's host copy (every shard's rows), complete once its events are
         return real_put(item, *args, **kwargs)
 
     batcher._dispatch = dispatch
     B.METRICS = metrics
-    if capture and mesh is not None:
-        B._wire_int16 = wire
-    elif capture:
+    if capture:
         batcher._readq.put = put
     try:
         torch.cuda.synchronize()
@@ -1960,7 +1969,7 @@ def run_stream(tc, fields: list[dict], max_batch: int, capture: bool = False, me
     finally:
         if own:
             batcher.stop()
-        B._wire_int16, B.METRICS = real_wire, real_metrics
+        B.METRICS = real_metrics
         batcher.__dict__.pop("_dispatch")
         batcher._readq.__dict__.pop("put", None)
     return {"outs": outs, "wall_s": wall, "metrics": metrics.snapshot(), "groups": groups, "wires": wires}
@@ -2315,7 +2324,75 @@ def fused_phase(tts, conv, ses1: dict, smi: str) -> dict:
     print(f"masked_linear_spectrogram's STFT at B={len(idxs)}, bucket {fb}, lengths {y_frames.tolist()} frames: "
           f"signal {tuple(signal.shape)}, max|K5 - plain| {err:.3e} (bar {STFT_TOL}); K5 {ms:.4f} ms cold  [{smi}]")
     check(err <= STFT_TOL, "K5 disagrees with its plain version on the fused chain's signal")
-    return {"per_group": per_group, "groups": [len(v) for v in groups.values()]}
+    graphs = chain_graph_checks(tts, conv, src, tgt, speaker, smi)
+    return {"per_group": per_group, "groups": [len(v) for v in groups.values()], "graphs": graphs}
+
+
+def chain_graph_checks(tts, conv, src, tgt, speaker: int, smi: str) -> dict:
+    """8c, the graphs: every chain in both modes (its first call captured
+    each shape it needed) repeated, with no new capture and the same
+    launches as its eager call, bit-equal to it; tts_convert_batched again
+    with another seed, tau and speed, bit-equal to eager; warm walls eager
+    against graph, the busy share of tts_convert_batched both ways, and the
+    chains' graphs, capture seconds and the pool."""
+    import torch
+
+    from openvoice_tpu_torch.api import tts_convert_batched, tts_convert_single_dispatch, tts_convert_stream
+
+    graphs = tts.chain_graphs(conv)
+    chains = {
+        "tts_convert_batched": lambda **kw: tts_convert_batched(tts, conv, V1_TEXT, speaker, src, tgt, **kw),
+        "tts_convert_single_dispatch": lambda **kw: tts_convert_single_dispatch(tts, conv, V1_TEXT, speaker, src,
+                                                                                tgt, **kw),
+        "tts_convert_stream": lambda **kw: np.concatenate(list(tts_convert_stream(tts, conv, V1_TEXT, speaker, src,
+                                                                                   tgt, **kw))),
+    }
+    out: dict = {}
+    for fast in (False, True):
+        mode = "serving" if fast else "f32"
+        for name, chain in chains.items():
+            kw = dict(seed=SEED, tau=0.3, message="", fast=fast)
+            chain(**kw)  # captures the shapes this call needs that no earlier call did
+            torch.cuda.synchronize()
+            before = graph_state(graphs)
+            zero_launch_counts()
+            got = chain(**kw)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            expect_replay(f"{name} ({mode}), repeat", graphs, before)
+            with eager(tts, conv):
+                zero_launch_counts()
+                want = chain(**kw)
+                torch.cuda.synchronize()
+                eager_launches = launch_counts()
+            same_bits(f"{name} ({mode}): replay against the chain eager", got, want)
+            print(f"{name} ({mode}): launches as replays {launches}, eager {eager_launches}")
+            check(launches == eager_launches, f"{name} ({mode}): a replay counts other launches than eager")
+            if name == "tts_convert_batched":
+                other = dict(kw, seed=SEED + 3, tau=0.55, speed=1.15)
+                chain(**other)
+                before = graph_state(graphs)
+                got = chain(**other)
+                expect_replay(f"{name} ({mode}) with another seed, tau and speed", graphs, before)
+                with eager(tts, conv):
+                    want = chain(**other)
+                same_bits(f"{name} ({mode}) with another seed, tau and speed: replay against eager", got, want)
+            walls = ab_walls(lambda: chain(**kw), tts, conv, runs=3)
+            by = {v: statistics.median(ms for k, ms in walls if k == v) for v in ("eager", "graph")}
+            entry = {"walls_ms": walls, "launches": launches}
+            if name == "tts_convert_batched":
+                entry["busy"] = {"graph": device_profile(lambda: chain(**kw), by["graph"], f"{name} ({mode}), graph")}
+                with eager(tts, conv):
+                    entry["busy"]["eager"] = device_profile(lambda: chain(**kw), by["eager"],
+                                                            f"{name} ({mode}), eager")
+            print(f"{name} ({mode}): warm walls ms (median of 3 a block: eager, graph, graph, eager) "
+                  f"{[round(ms, 2) for _, ms in walls]}  [{smi}]")
+            out[f"{name}_{mode}"] = entry
+    state = graph_state(graphs)
+    print(f"fused chains' graphs: {state['graphs']} held, {state['captures']} captures in "
+          f"{state['capture_s']:.3f} s, {state['replays']} replays; device pool {state['pool_bytes'] / 1e9:.3f} GB  "
+          f"[{smi}]")
+    return {**out, "state": state}
 
 
 def streaming_phase(tc, ses: dict, smi: str) -> dict:
@@ -2526,7 +2603,8 @@ def train_gan(root: str, tmp: str, smi: str, kind: str) -> dict:
     check(len(still_g) < n_g and len(still_d) < n_d, "G or D did not move")
     del first, template, loaded, fresh
 
-    # the warm step alone, on one fixed batch: walls, profiler, FLOPs
+    # the warm step alone, on one fixed batch, as replays of the graph
+    # train() captured for its shape and eager: walls, profiler, FLOPs
     spec, audio, lengths, g = (torch.from_numpy(a).cuda() for a in first_batch(root, cfg, TRAIN_BATCH))
     gen = torch.Generator().manual_seed(SEED + 5)
 
@@ -2534,33 +2612,44 @@ def train_gan(root: str, tmp: str, smi: str, kind: str) -> dict:
         T.gan_train_step(second, cfg, spec, audio, lengths, g, gen, segment_frames=32)
         torch.cuda.synchronize()
 
+    before = graph_state(second.graphs)
     step()
-    step_walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
+    expect_replay("the warm GAN step of train()'s shape", second.graphs, before, 1)
+    with eager(second):
         step()
-        step_walls.append((time.perf_counter() - t0) * 1e3)
-    step_ms = statistics.median(step_walls)
-    busy = device_profile(step, None, "profiled warm GAN step")
-    with FlopCounterMode(display=False) as counter:
-        step()
+    blocks: dict[str, list[float]] = {"eager": [], "graph": []}
+    for variant in ("eager", "graph", "graph", "eager"):
+        with eager(second) if variant == "eager" else contextlib.nullcontext():
+            for _ in range(5):
+                t0 = time.perf_counter()
+                step()
+                blocks[variant].append((time.perf_counter() - t0) * 1e3)
+    step_ms, eager_ms = statistics.median(blocks["graph"]), statistics.median(blocks["eager"])
+    step_walls = blocks["graph"]
+    busy = device_profile(step, None, "profiled warm GAN step, graph replay")
+    with eager(second):
+        busy_eager = device_profile(step, None, "profiled warm GAN step, eager")
+        with FlopCounterMode(display=False) as counter:
+            step()
     flop = counter.get_total_flops()
     backward = sum(n for op, n in counter.get_flop_counts()["Global"].items() if "backward" in str(op))
     f32_rate = card_peaks(kind)[0]
     bound_ms = flop / f32_rate * 1e3
     loop_warm = [walls[s] * 1e3 for s in sorted(walls)[1:]] + [walls2[s] * 1e3 for s in sorted(walls2)[1:]]
-    print(f"train() step walls (ms, first of each run holds its init): "
+    print(f"train() step walls (ms, first of each run holds its init and its graph's capture): "
           f"{[round(w * 1e3, 1) for w in walls.values()]} then {[round(w * 1e3, 1) for w in walls2.values()]}; "
           f"median of the warm ones {statistics.median(loop_warm):.1f} ms (steps 2 and 4 hold a checkpoint save)")
-    print(f"warm GAN step alone: {step_ms:.1f} ms (median of 5: {[round(w, 1) for w in step_walls]}); "
-          f"{flop / 1e12:.3f} TFLOP (matmuls and convolutions, forward and backward, torch.utils.flop_counter; "
-          f"convolution backward {backward / 1e12:.3f}); "
-          f"f32 bound {bound_ms:.2f} ms at {f32_rate / 1e12:.1f} TFLOP/s = {100 * bound_ms / step_ms:.1f}% of the step  "
-          f"[{smi}]")
+    print(f"warm GAN step alone: graph replay {step_ms:.1f} ms, eager {eager_ms:.1f} ms (median of 10 each, blocks "
+          f"of 5: eager, graph, graph, eager: {[round(w, 1) for w in blocks['graph']]} / "
+          f"{[round(w, 1) for w in blocks['eager']]}); {flop / 1e12:.3f} TFLOP (matmuls and convolutions, forward and "
+          f"backward, torch.utils.flop_counter; convolution backward {backward / 1e12:.3f}); f32 bound "
+          f"{bound_ms:.2f} ms at {f32_rate / 1e12:.1f} TFLOP/s = {100 * bound_ms / step_ms:.1f}% of the replayed "
+          f"step  [{smi}]")
     return {"state": second, "loop_step_ms": {**{s: w * 1e3 for s, w in walls.items()},
                                               **{s: w * 1e3 for s, w in walls2.items()}},
             "loop_warm_median_ms": statistics.median(loop_warm), "step_ms": step_ms, "step_walls_ms": step_walls,
-            "busy_share": busy, "tflop": flop / 1e12, "f32_bound_ms": bound_ms, "peak_gb": peak_gb,
+            "eager_step_ms": eager_ms, "eager_step_walls_ms": blocks["eager"], "busy_share": busy,
+            "busy_share_eager": busy_eager, "tflop": flop / 1e12, "f32_bound_ms": bound_ms, "peak_gb": peak_gb,
             "metrics": all_metrics}
 
 
@@ -2581,9 +2670,128 @@ def train_overfit(root: str, smi: str) -> list[float]:
         walls.append((time.perf_counter() - t0) * 1e3)
     first, last = statistics.mean(mels[:5]), statistics.mean(mels[-5:])
     print(f"mel/KL overfit, {OVERFIT_STEPS} steps at lr 1e-3: mel {[round(v, 4) for v in mels]}; mean of the first 5 "
-          f"{first:.4f}, of the last 5 {last:.4f}; warm step {statistics.median(walls[1:]):.1f} ms  [{smi}]")
+          f"{first:.4f}, of the last 5 {last:.4f}; warm step (a graph replay) {statistics.median(walls[1:]):.1f} ms, "
+          f"the first (eager, then the capture) {walls[0]:.1f} ms; the state's graphs {graph_state(state.graphs)}  "
+          f"[{smi}]")
     check(all(math.isfinite(v) for v in mels) and last < first, "the mel/KL steps did not lower the mel loss")
     return mels
+
+
+def train_graph_checks(root: str, smi: str) -> dict:
+    """9.3b: each train step at full V2 width, B 8, three steps from one
+    state as graph replays (the first call eager, then captured) against
+    the steps with the graphs off.
+
+    In f64 every loss and every parameter leaf within TRAIN_GRAD_F64_TOL of
+    its peak.  In f32 two eager runs need not agree (cuDNN's backward
+    algorithms may sum in any order), and over three steps one f32 sum that
+    rounds across a leaky-ReLU kink sends a run onto one of a few nearby
+    trajectories: how far two runs end apart depends on which each took,
+    and a single pair of runs does not measure the spread.  So in f32
+    (a) each run's three steps against the f64 run: the replays' median
+    leaf no farther than TRAIN_GRAD_F32_RATIO times the eager run's (9.4's
+    bar); (b) one more step from one state, copied from the replayed run
+    into two eager states: the replay's losses and median leaf within
+    TRAIN_GRAD_F32_RATIO times the two eager steps' spread.  A loss of one
+    step moves by one f32 rounding now and then (the generator's losses go
+    through the discriminator's update), and two eager steps may agree
+    exactly: the losses' spread is taken as at least f32's epsilon."""
+    import torch
+
+    from openvoice_tpu_torch import V2_CONVERTER_CONFIG as cfg
+    from openvoice_tpu_torch.api import resolve_device
+    from openvoice_tpu_torch.training import train as T
+
+    base = T.init_gan_train_state(cfg, torch.Generator().manual_seed(SEED + 6), device="cpu")
+    seed_flow_posts(base.gen.model, SEED + 7)
+    host = first_batch(root, cfg, TRAIN_BATCH)
+    dev = resolve_device(None)
+    out: dict = {}
+
+    def fresh(gan: bool, dtype, graphs_on: bool):
+        gen = T.make_train_state(copy.deepcopy(base.gen.model).to(dev, dtype))
+        state = T.GanTrainState(gen=gen, disc=T.make_train_state(copy.deepcopy(base.disc.model).to(dev, dtype))) \
+            if gan else gen
+        state.graphs.enabled = graphs_on
+        return state
+
+    def parts(state) -> tuple:
+        return (state.gen, state.disc) if isinstance(state, T.GanTrainState) else (state,)
+
+    def leaves(state) -> list:
+        return [p.detach().double().cpu() for part in parts(state) for p in part.model.parameters()]
+
+    def steps(state, gan: bool, args: list, n: int, seed: int) -> tuple[list[dict], list]:
+        draws = torch.Generator().manual_seed(seed)
+        losses = []
+        for _ in range(n):
+            _, m = (T.gan_train_step if gan else T.train_step)(state, cfg, *args, draws, segment_frames=32)
+            losses.append({k: float(v) for k, v in m.items()})
+        return losses, leaves(state)
+
+    def loss_distance(a: list, b: list) -> float:
+        return max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for x, y in zip(a, b) for k in y)
+
+    def median_leaf(a: list, b: list) -> float:
+        return statistics.median(leaf_distances(a, b).values())
+
+    for gan in (False, True):
+        name = "gan_train_step" if gan else "train_step"
+        runs = {}
+        for dtype in (torch.float64, torch.float32):
+            args = [torch.from_numpy(a.copy()) for a in host]
+            args = [a.to(dtype) if a.is_floating_point() else a for a in args]
+            graphed = fresh(gan, dtype, True)
+            t0 = time.perf_counter()
+            runs[dtype, "graph"] = steps(graphed, gan, args, 3, SEED + 8)
+            torch.cuda.synchronize()
+            graph_s = time.perf_counter() - t0
+            gs = graph_state(graphed.graphs)
+            check((gs["captures"], gs["replays"]) == (1, 2) and all(p.step == 3 for p in parts(graphed)),
+                  f"{name}: three calls took {[p.step for p in parts(graphed)]} steps, {gs['captures']} captures, "
+                  f"{gs['replays']} replays")
+            runs[dtype, "eager"] = steps(fresh(gan, dtype, False), gan, args, 3, SEED + 8)
+            if dtype == torch.float32:
+                # one more step from one state: the replayed run's, copied into two eager states
+                copies = []
+                for _ in range(2):
+                    st = fresh(gan, dtype, False)
+                    for dst, src in zip(parts(st), parts(graphed)):
+                        dst.model.load_state_dict(src.model.state_dict())
+                        dst.opt.load_state_dict(copy.deepcopy(src.opt.state_dict()))
+                        dst.step = src.step
+                    copies.append(st)
+                one = {k: steps(st, gan, args, 1, SEED + 9) for k, st in (("graph", graphed), ("a", copies[0]),
+                                                                          ("b", copies[1]))}
+                check(graphed.graphs.replays == 3, "the fourth step did not replay")
+            del graphed
+        f64_d = {"loss": loss_distance(runs[torch.float64, "graph"][0], runs[torch.float64, "eager"][0]),
+                 "worst_leaf": grad_worst(runs[torch.float64, "graph"][1], runs[torch.float64, "eager"][1],
+                                          [""] * len(runs[torch.float64, "eager"][1]))[0]}
+        truth = runs[torch.float64, "eager"][1]
+        traj = {k: median_leaf(runs[torch.float32, k][1], truth) for k in ("graph", "eager")}
+        step_d = {"loss": loss_distance(one["graph"][0], one["a"][0]),
+                  "median_leaf": median_leaf(one["graph"][1], one["a"][1])}
+        spread = {"loss": loss_distance(one["b"][0], one["a"][0]), "median_leaf": median_leaf(one["b"][1], one["a"][1])}
+        print(f"{name}, B {TRAIN_BATCH}, three steps from one state, replays against eager: f64 worst loss "
+              f"{f64_d['loss']:.3e}, worst leaf {f64_d['worst_leaf']:.3e} of its peak (bar {TRAIN_GRAD_F64_TOL}); f32 "
+              f"median leaf from f64: replays {traj['graph']:.3e}, eager {traj['eager']:.3e} (bar "
+              f"{TRAIN_GRAD_F32_RATIO}× eager's); capture {gs['capture_s']:.3f} s (f32), three f32 steps as graph "
+              f"{graph_s:.2f} s  [{smi}]")
+        print(f"{name}, one more f32 step from one state: the replay against eager, loss {step_d['loss']:.3e}, "
+              f"median leaf {step_d['median_leaf']:.3e}; two eager steps: loss {spread['loss']:.3e}, median leaf "
+              f"{spread['median_leaf']:.3e} (bars {TRAIN_GRAD_F32_RATIO}× those, the loss's at least "
+              f"{TRAIN_GRAD_F32_RATIO}× f32's epsilon)  [{smi}]")
+        check(f64_d["loss"] <= TRAIN_GRAD_F64_TOL and f64_d["worst_leaf"] <= TRAIN_GRAD_F64_TOL,
+              f"{name}: the replays stray from eager in f64")
+        check(traj["graph"] <= TRAIN_GRAD_F32_RATIO * traj["eager"],
+              f"{name}: the f32 replays stray from f64 farther than eager does")
+        check(step_d["loss"] <= TRAIN_GRAD_F32_RATIO * max(spread["loss"], torch.finfo(torch.float32).eps)
+              and step_d["median_leaf"] <= TRAIN_GRAD_F32_RATIO * spread["median_leaf"],
+              f"{name}: a replayed f32 step strays from eager beyond two eager steps' spread")
+        out[name] = {"f64": f64_d, "f32_from_f64": traj, "f32_step": step_d, "f32_step_spread": spread,
+                     "capture_s": gs["capture_s"]}
+    return out
 
 
 def grad_worst(got: list, ref: list, names: list[str]) -> tuple[float, str]:
@@ -2637,7 +2845,8 @@ def train_card_vs_cpu(root: str, smi: str, seed: int = SEED + 4, tf32_control: b
                            disc=T.make_train_state(copy.deepcopy(cpu.disc.model).cuda()))
     card_dev = next(card.gen.model.parameters()).device
     batch = [torch.from_numpy(a[:1].copy()) for a in first_batch(root, cfg, TRAIN_BATCH)]
-    noise, starts = T.draw_noise_and_starts(cfg, batch[2], batch[0].shape[1], gen, 32)
+    noise, u = T.host_draws(cfg, 1, batch[0].shape[1], gen)
+    starts = T.starts_from_u(u, batch[2], 32)
     d_names = [n for n, _ in cpu.disc.model.named_parameters()]
     g_names = [n for n, _ in cpu.gen.model.named_parameters()]
 
@@ -2705,8 +2914,7 @@ def train_card_vs_cpu(root: str, smi: str, seed: int = SEED + 4, tf32_control: b
     metrics = []
     for state, dev in ((cpu, torch.device("cpu")), (card, card_dev)):
         spec, audio, lengths, g = (a.to(dev) for a in batch)
-        _, m = T.gan_train_step(state, cfg, spec, audio, lengths, g, segment_frames=32, noise=noise.to(dev),
-                                starts=starts.to(dev))
+        _, m = T.gan_train_step(state, cfg, spec, audio, lengths, g, segment_frames=32, noise=noise.to(dev), u=u)
         metrics.append({k: float(v) for k, v in m.items()})
     step_rel = {k: abs(metrics[1][k] - v) / abs(v) for k, v in metrics[0].items()}
     print(f"card against CPU, one gan_train_step: relative {', '.join(f'{k} {v:.2e}' for k, v in step_rel.items())} "
@@ -2782,14 +2990,21 @@ def trained_weights(trained, root: str, tmp: str, smi: str) -> dict:
 
 
 def training_phase(tmp: str, smi: str, kind: str) -> dict:
+    import torch
+
+    from openvoice_tpu_torch.runtime.graphs import pool_bytes
+
     t0 = time.perf_counter()
     root = os.path.join(tmp, "train_set")
     run = train_gan(root, tmp, smi, kind)
     mels = train_overfit(root, smi)
+    graphs = train_graph_checks(root, smi)
     cvc = train_card_vs_cpu(root, smi)
     kernels = trained_weights(run.pop("state").gen.model, root, tmp, smi)
-    print(f"training phase: {time.perf_counter() - t0:.1f} s")
-    return {**run, "overfit_mel": mels, "card_vs_cpu": cvc, **kernels}
+    pool_gb = pool_bytes("cuda:0") / 1e9
+    print(f"training phase: {time.perf_counter() - t0:.1f} s; the graph pool after it {pool_gb:.3f} GB, "
+          f"{torch.cuda.memory_reserved() / 1e9:.3f} GB reserved in all  [{smi}]")
+    return {**run, "overfit_mel": mels, "graphs": graphs, "pool_gb": pool_gb, "card_vs_cpu": cvc, **kernels}
 
 
 # -- phase 10: audio formats and the mesh tier --------------------------------------
@@ -3040,33 +3255,60 @@ def mesh_phase(tc, ses: dict, smi: str) -> dict:
     fields, _ = serve_stream_fields(tc, ses)
     eight = fields[:8]
     bmesh = make_mesh(2, data=2, model=1, devices=[dev, dev])
-    run_stream(tc, eight[:2], SERVE_BATCH, mesh=bmesh)  # warm-up
-    single_run = run_stream(tc, eight, SERVE_BATCH)
-    torch.cuda.synchronize()
-    zero_launch_counts()
-    run = run_stream(tc, eight, SERVE_BATCH, capture=True, mesh=bmesh)
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    groups = run["groups"]
-    n_groups, n_pcm = len(groups), sum(g[0] == "pcm" for g in groups)
-    per_shard = {k: v / (2 * (n_pcm if k == "stft_magnitude" else n_groups)) for k, v in launches.items()}
-    print(f"mesh batcher: groups (mode, bucket, rows, padded batch) {groups}; launches {launches}")
-    check(per_shard == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2},
-          f"each shard of a group must launch K5 1 (PCM), K1 1, K2 2, K3 2, K4 2, not {per_shard}")
-    check(len(run["wires"]) == 2 * n_groups, f"{len(run['wires'])} shard calls for {n_groups} groups")
-    zero_rows = 0
-    for i, (_, _, rows, _) in enumerate(groups):
-        wire = torch.cat([w.cpu() for w in run["wires"][2 * i : 2 * i + 2]])
-        check(wire.shape[0] % 2 == 0 and bool((wire[rows:] == 0).all()), "a padded row of length 0 is not exactly 0")
-        zero_rows += wire.shape[0] - rows
-    worst = 0.0
-    for one, got in zip(single_run["outs"], run["outs"]):
-        d = float(np.abs(got - one).max())
-        check(got.shape == one.shape and d <= serve_bar(one), "the mesh batcher strays from the single batcher")
-        worst = max(worst, d / float(np.abs(one).max()))
-    print(f"mesh batcher against the single-device batcher, 8 requests: max diff over the peak {worst:.4f}; "
-          f"{zero_rows} padded rows of length 0, each exactly 0; launches per shard of a group {per_shard}; "
-          f"walls single {single_run['wall_s'] * 1e3:.1f} ms, mesh {run['wall_s'] * 1e3:.1f} ms  [{smi}]")
+    bm = serving_batcher(tc, SERVE_BATCH, bmesh)  # keeps its graphs from run to run
+    try:
+        run_stream(tc, eight[:2], SERVE_BATCH, batcher=bm)  # warm-up
+        single_run = run_stream(tc, eight, SERVE_BATCH)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        run = run_stream(tc, eight, SERVE_BATCH, capture=True, batcher=bm)
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        groups = run["groups"]
+        n_groups, n_pcm = len(groups), sum(g[0] == "pcm" for g in groups)
+        per_shard = {k: v / (2 * (n_pcm if k == "stft_magnitude" else n_groups)) for k, v in launches.items()}
+        print(f"mesh batcher: groups (mode, bucket, rows, padded batch) {groups}; launches {launches}")
+        check(per_shard == {"stft_magnitude": 1, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2,
+                            "tail_stage": 2},
+              f"each shard of a group must launch K5 1 (PCM), K1 1, K2 2, K3 2, K4 2, not {per_shard}")
+        check(len(run["wires"]) == n_groups, f"{len(run['wires'])} host copies for {n_groups} groups")
+        zero_rows = 0
+        for (_, _, rows, _), wire in zip(groups, run["wires"]):
+            check(wire.shape[0] % 2 == 0 and bool((wire[rows:] == 0).all()),
+                  "a padded row of length 0 is not exactly 0")
+            zero_rows += wire.shape[0] - rows
+        worst = 0.0
+        for one, got in zip(single_run["outs"], run["outs"]):
+            d = float(np.abs(got - one).max())
+            check(got.shape == one.shape and d <= serve_bar(one), "the mesh batcher strays from the single batcher")
+            worst = max(worst, d / float(np.abs(one).max()))
+        print(f"mesh batcher against the single-device batcher, 8 requests: max diff over the peak {worst:.4f}; "
+              f"{zero_rows} padded rows of length 0, each exactly 0; launches per shard of a group {per_shard}; "
+              f"walls single {single_run['wall_s'] * 1e3:.1f} ms, mesh {run['wall_s'] * 1e3:.1f} ms  [{smi}]")
+        # a group of 8 of one clip's length: each data position's shard
+        # replays its device's graph, bit-equal to the shards eager
+        same = [dict(eight[1], seed=SEED + 80 + k, tau=0.2 + 0.05 * k) for k in range(8)]
+        run_stream(tc, same, SERVE_BATCH, batcher=bm)  # captures the shape where it is new
+        before = graph_state(bm.graphs)
+        zero_launch_counts()
+        got = run_stream(tc, same, SERVE_BATCH, batcher=bm)
+        torch.cuda.synchronize()
+        replay_launches = launch_counts()
+        check([g[2] for g in got["groups"]] == [8], f"mesh batcher groups {got['groups']}")
+        expect_replay("mesh batcher, a group of 8 over 2 data positions", bm.graphs, before, 2)
+        with eager(bm):
+            zero_launch_counts()
+            want = run_stream(tc, same, SERVE_BATCH, batcher=bm)
+            torch.cuda.synchronize()
+            eager_launches = launch_counts()
+        same_bits("mesh batcher, a group of 8: the shards' replays against the shards eager",
+                  np.concatenate(got["outs"]), np.concatenate(want["outs"]))
+        check(replay_launches == eager_launches, f"mesh batcher replay launches {replay_launches} against eager "
+                                                 f"{eager_launches}")
+        mesh_graphs = graph_state(bm.graphs)
+    finally:
+        bm.stop()
+    dp = dp_convert_checks(tc, ses, bmesh, smi)
     mon = HeartbeatMonitor(timeout_s=30.0)
     check(mon.beat(), "heartbeat failed")
     mon.inject_failure()
@@ -3075,7 +3317,63 @@ def mesh_phase(tc, ses: dict, smi: str) -> dict:
     return {"sp_max_err": sp_err, "tp_max_err": tp_err, "walls_ms": walls, "busy_share": busy,
             "walls_ms_switch_10us": fine, "per_shard": per_shard,
             "batcher_walls_ms": {"single": single_run["wall_s"] * 1e3, "mesh": run["wall_s"] * 1e3},
-            "batcher_worst": worst}
+            "batcher_worst": worst, "batcher_graphs": mesh_graphs, "dp_convert": dp}
+
+
+def dp_convert_checks(tc, ses: dict, mesh, smi: str) -> dict:
+    """10b, the data-parallel convert (`data_parallel_convert` with replicas
+    kept across calls, serving mode, 4 rows over the 2 data positions of
+    `mesh`): the repeat replays each position's graph, with the eager
+    launches (K1 1, K2 2, K3 2, K4 2 a position), bit-equal to the
+    positions eager; walls eager against graph."""
+    import torch
+
+    from openvoice_tpu_torch.runtime.parallel import data_parallel_convert, make_replicas
+
+    cfg, dev = tc.cfg, tc.device
+    gen = torch.Generator().manual_seed(SEED + 41)
+    frames = [FRAMES, 775, 640, 512]
+    spec = torch.rand(4, BUCKET, cfg.spec_channels, generator=gen)
+    for i, n in enumerate(frames):
+        spec[i, n:] = 0.0
+    lens = torch.tensor(frames)
+    g_src = torch.from_numpy(np.repeat(ses["se_src"].reshape(1, 1, -1), 4, axis=0))
+    g_tgt = torch.from_numpy(np.repeat(ses["se_tgt"].reshape(1, 1, -1), 4, axis=0))
+    taus = torch.tensor([0.3, 0.5, 0.0, 0.7]).reshape(4, 1, 1)
+    noise = torch.randn(4, BUCKET, cfg.inter_channels, generator=gen)
+    args = [a.to(dev) for a in (spec, lens, g_src, g_tgt, taus, noise)]
+    replicas = make_replicas(tc.model, {dev}, fast=True)
+    (rep,) = replicas.values()
+
+    def call():
+        with torch.inference_mode():
+            out = data_parallel_convert(tc.model, mesh, *args, fast=True, replicas=replicas).gather()
+        return out[..., 0].float().cpu().numpy()
+
+    call()  # captures
+    torch.cuda.synchronize()
+    before = graph_state(rep.graphs)
+    zero_launch_counts()
+    got = call()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    expect_replay("data-parallel convert over 2 positions, repeat", rep.graphs, before, 2)
+    rep.graphs.enabled = False
+    try:
+        zero_launch_counts()
+        want = call()
+        torch.cuda.synchronize()
+        eager_launches = launch_counts()
+    finally:
+        rep.graphs.enabled = True
+    same_bits("data-parallel convert: the positions' replays against the positions eager", got, want)
+    per_position = {"stft_magnitude": 0, "wn_stack": 1, "coupling_block": 2, "mrf_stage": 2, "tail_stage": 2}
+    check(launches == eager_launches == {k: 2 * v for k, v in per_position.items()},
+          f"data-parallel convert launches {launches} as replays, {eager_launches} eager")
+    walls = ab_walls(call, rep, runs=3)
+    print(f"data-parallel convert, 4 rows at bucket {BUCKET} over 2 positions on {dev}: launches {launches}; walls ms "
+          f"(median of 3 a block: eager, graph, graph, eager) {[round(ms, 2) for _, ms in walls]}  [{smi}]")
+    return {"launches": launches, "walls_ms": walls, "graphs": graph_state(rep.graphs)}
 
 
 def free_port() -> int:
@@ -3139,7 +3437,7 @@ def child_main(addr: str, world: int, rank: int, backend: str) -> int:
     from openvoice_tpu_torch.models import synthesizer as S
     from openvoice_tpu_torch.runtime import multihost as MH
     from openvoice_tpu_torch.runtime.mesh import GroupComm
-    from openvoice_tpu_torch.runtime.parallel import data_parallel_convert
+    from openvoice_tpu_torch.runtime.parallel import data_parallel_convert, make_replicas
     from openvoice_tpu_torch.training import train as T
     from openvoice_tpu_torch.training.data import make_global_batch
 
@@ -3180,8 +3478,8 @@ def child_main(addr: str, world: int, rank: int, backend: str) -> int:
     g_tgt = torch.randn(n_rows, 1, cfg.gin_channels, generator=gen) * 0.1
     noise = torch.randn(n_rows, BUCKET, cfg.inter_channels, generator=gen)
     rows = slice(4 * rank, 4 * rank + 4)
-    cache = S.make_dec_cache(model)
-    replicas = {dev: (model, cache)}
+    replicas = make_replicas(model, {dev}, fast=True)  # its graph replays from the second round on
+    cache = replicas[dev].dec_cache
     with torch.inference_mode():
         ref = S.voice_conversion(model, *(a.to(dev) for a in (spec, lens, g_src, g_tgt)), 0.3, noise.to(dev),
                                  fast=True, dec_cache=cache)[0]
@@ -3235,6 +3533,7 @@ def child_main(addr: str, world: int, rank: int, backend: str) -> int:
             args = [make_global_batch(a[mine], mesh) for a in args]
             return state, lambda: T.gan_train_step(state, cfg, *args, draws, lr=2e-4, mesh=mesh)[1]
         args = [a.to(dev) for a in args]
+        state.graphs.enabled = False  # the reference: each update recorded as it runs, eager
         return state, lambda: T.gan_train_step(state, cfg, *args, draws, lr=2e-4)[1]
 
     T._apply_grads = record
@@ -3503,7 +3802,8 @@ def round_child(addr: str, rank: int) -> int:
     MH.initialize(addr, 2, rank, device=ELASTIC_DEVICE, backend="gloo", timeout_s=CHILD_TIMEOUT_S)
     mesh = MH.global_mesh(model_parallel=1)
     svc = D.DistributedConvertService(elastic_model(), cfg, mesh, fast=True, device=ELASTIC_DEVICE)
-    model, cache = next(iter(svc.replicas.values()))
+    rep = next(iter(svc.replicas.values()))
+    model, cache = rep.model, rep.dec_cache
     reqs = elastic_requests(ROUND_FRAMES, seed=73)
     captured = []
     real = D.data_parallel_convert
@@ -3535,6 +3835,37 @@ def round_child(addr: str, rank: int) -> int:
         out["rounds"].append({"requests": ids, "rows": int(rows.shape[0]),
                               "bucket": int(captured[-1].shape[1]) // cfg.upsample_factor, "wall_ms": wall_ms,
                               "launches": launches, "max_over_peak": worst, "padded_rows_max": pad_max})
+    # each round again: every position's rows replay the graph the round's
+    # first call captured, with the eager launches, bit-equal to the round
+    # with the replicas' graphs off; both ranks make the same calls
+    out["replays"] = []
+    for ids in ROUND_IDS[rank]:
+        reqs_i = [dist_request(reqs[i]) for i in ids]
+        before = graph_state(rep.graphs)
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        got = svc.convert_round(reqs_i)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts()
+        expect_replay(f"rank {rank}, round {ids} again", rep.graphs, before, 1)
+        check(launches == ROUND_LAUNCHES, f"rank {rank}: a replayed round launched {launches}")
+        for r in svc.replicas.values():
+            r.graphs.enabled = False
+        try:
+            t0 = time.perf_counter()
+            want = svc.convert_round(reqs_i)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            for r in svc.replicas.values():
+                r.graphs.enabled = True
+        for i, a, b in zip(ids, got, want):
+            same_bits(f"rank {rank}, request {i}: the replayed round against the round eager", a, b)
+        out["replays"].append({"requests": ids, "replay_ms": replay_ms, "eager_ms": eager_ms,
+                               "launches": launches})
+    out["graphs"] = graph_state(rep.graphs)
     torch.distributed.barrier()
     torch.distributed.destroy_process_group()
     print("child-result " + json.dumps(out), flush=True)
@@ -3580,6 +3911,10 @@ def distributed_phase(smi: str) -> dict:
             print(f"rank {r['rank']}: requests {rnd['requests']}, {rnd['rows']} rows at bucket {rnd['bucket']}, "
                   f"{rnd['wall_ms']:.1f} ms, max |diff| {rnd['max_over_peak']:.2e} of the peak, padded rows "
                   f"max {rnd['padded_rows_max']}, launches {rnd['launches']}  [{smi}]")
+        for rnd in r["replays"]:
+            print(f"rank {r['rank']}: requests {rnd['requests']} again: as replays {rnd['replay_ms']:.1f} ms, eager "
+                  f"{rnd['eager_ms']:.1f} ms, launches {rnd['launches']} (bit-equal)  [{smi}]")
+        print(f"rank {r['rank']}: its replica's graphs {r['graphs']}")
     wall = time.perf_counter() - t0
     print(f"11b: {wall:.1f} s")
     return {"wall_s": wall, "ranks": ranks}
@@ -4169,7 +4504,9 @@ def main() -> int:
                                        "batchmates": serving["batchmates"], "busy": serving["busy"],
                                        "streaming_memory": memory}}))
     print(json.dumps({"graphs": {"card": smi, "convert_f32": graphs_f32, "convert_fast": graphs_fast,
-                                 "tts": v1["walls_ms"], "batcher": serving["graphs"]}}))
+                                 "tts": v1["walls_ms"], "batcher": serving["graphs"], "chains": fused["graphs"],
+                                 "train": training["graphs"], "dp_convert": mesh_tier["one_process"]["dp_convert"],
+                                 "mesh_batcher": mesh_tier["one_process"]["batcher_graphs"]}}))
     print(json.dumps({"training": {k: v for k, v in training.items() if k != "launches"}}))
     print(json.dumps({"mesh_tier": {"card": smi, "decode_ms": mesh_tier["formats"]["decode_ms"],
                                     "codecs": mesh_tier["formats"]["codecs"],

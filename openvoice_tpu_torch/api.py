@@ -19,18 +19,23 @@ On the card each device path runs as one CUDA graph per shape, as the JAX
 package runs it as one ``jax.jit`` program per bucket
 (``runtime/graphs.py``): `convert` (its ``_jit_convert``), the speaker
 embedding of `extract_se` / `extract_se_from_file` (``_jit_tone_color``),
-the chunks of `convert_streaming` (its ``_run_chunk``), and the text encode
+the chunks of `convert_streaming` (its ``_run_chunk``), the text encode
 and the decode of `BaseSpeakerTTS.tts` / `tts_batched` (``tts_encode_jit``,
-``tts_decode_jit``).  The first call of a shape runs eagerly and captures
-the graph; later calls replay it.  Each instance keeps its graphs in
-``self.graphs``; ``self.graphs.enabled = False`` runs every call eagerly.
+``tts_decode_jit``), and the fused chains' groups
+(``tts_decode_convert_jit``, ``tts_synthesize_convert_jit``).  The first
+call of a shape runs eagerly and captures the graph; later calls replay it.
+Each instance keeps its graphs in ``self.graphs`` (a TTS model also the
+chains' through each converter, `BaseSpeakerTTS.chain_graphs`);
+``self.graphs.enabled = False`` runs every call eagerly.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import weakref
 from functools import partial
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -310,6 +315,21 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
     # the front end implements the cleaners the reference left undefined
     language_marks = {"english": "EN", "chinese": "ZH", "japanese": "JA", "korean": "KO"}
 
+    def __init__(self, config_path: str | None = None, cfg: SynthesizerConfig | None = None, *,
+                 device: str | torch.device | None = None):
+        super().__init__(config_path, cfg, device=device)
+        self._chain_graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # converter → its chains' graphs
+
+    def chain_graphs(self, converter: "ToneColorConverter") -> GraphCache:
+        """The graphs of the fused chains from this model through
+        `converter` (the JAX package's ``tts_decode_convert_jit`` and
+        ``tts_synthesize_convert_jit``).  They read both models: either
+        owner's new weights or rebuilt serving cache drops them, and either
+        owner's ``graphs.enabled = False`` runs the chains eagerly."""
+        if converter not in self._chain_graphs:
+            self._chain_graphs[converter] = GraphCache(self.device, reads=(self.graphs, converter.graphs))
+        return self._chain_graphs[converter]
+
     def _sentence_tokens(self, text: str, speaker, language: str) -> tuple[list[np.ndarray], int]:
         """Sentence split → cleaners → IPA token ids: (one int32 array a
         sentence, speaker id)."""
@@ -408,14 +428,27 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
 
 # -- fused text → cloned audio (the JAX package's api.py:524-870) ----------------
 
-def _chain_parts(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, src_se, tgt_se, fast: bool):
-    """What every fused chain reads from its two models: (tts model, conv
-    model, g_src, g_tgt [1, 1, gin], the two serving caches or None)."""
+class _Chain(NamedTuple):
+    """What every fused chain reads from its two models."""
+
+    model: S.Synthesizer          # the TTS model
+    conv_model: S.Synthesizer
+    g_src: np.ndarray             # [1, 1, gin] host
+    g_tgt: np.ndarray
+    fast: bool
+    tts_cache: dict | None        # the serving caches, fast=True only
+    conv_cache: dict | None
+    tts_graphs: GraphCache        # the TTS model's own: its encode graphs
+    graphs: GraphCache            # the chains' graphs, which read both models
+
+
+def _chain_parts(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, src_se, tgt_se, fast: bool) -> _Chain:
     if tts_model.device != converter.device:
         raise ValueError(f"the TTS runs on {tts_model.device}, the converter on {converter.device}")
-    return (tts_model._require_model(), converter._require_model(), converter._as_g(src_se),
-            converter._as_g(tgt_se), tts_model._require_dec_cache() if fast else None,
-            converter._require_dec_cache() if fast else None)
+    return _Chain(tts_model._require_model(), converter._require_model(), _g_host(src_se), _g_host(tgt_se), fast,
+                  tts_model._require_dec_cache() if fast else None,
+                  converter._require_dec_cache() if fast else None, tts_model.graphs,
+                  tts_model.chain_graphs(converter))
 
 
 def _finish_cloned(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, pieces: list[np.ndarray],
@@ -438,6 +471,12 @@ def _draw_rows(rngs, idxs, frames: int, channels: int) -> np.ndarray:
     return np.stack([rngs[i].standard_normal((frames, channels)).astype(np.float32) for i in idxs])
 
 
+def _on_host(out: tuple) -> tuple:
+    """A chain's outputs copied to host memory (`GraphCache.run`'s consumer,
+    before another replay may overwrite them)."""
+    return tuple(x.cpu() for x in out)
+
+
 @torch.inference_mode()
 def tts_convert_batched(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, text: str, speaker, src_se,
                         tgt_se, language: str = "English", speed: float = 1.0, tau: float = 0.3, seed: int = 0,
@@ -452,18 +491,16 @@ def tts_convert_batched(tts_model: BaseSpeakerTTS, converter: ToneColorConverter
     the reference's 0.05 s ÷ speed gaps and the joined audio is watermarked
     once.  The gaps pass through unconverted; otherwise this equals the
     staged `tts_batched` → `convert`, sentence by sentence."""
-    model, conv_model, g_src, g_tgt, tts_cache, conv_cache = _chain_parts(tts_model, converter, src_se,
-                                                                          tgt_se, fast)
+    chain = _chain_parts(tts_model, converter, src_se, tgt_se, fast)
     token_seqs, speaker_id = tts_model._sentence_tokens(text, speaker, language)
     n = len(token_seqs)
     pieces: list[np.ndarray | None] = [None] * n
     if n:
         noise_rngs = _sentence_noise_rngs(seed, n)
-        conv_rngs = _sentence_conv_rngs(seed, n)
-        enc_rows = _encode_rows(model, token_seqs, speaker_id, speed, noise_rngs, tts_model.device)
-        _decode_convert_groups(model, conv_model, enc_rows, list(range(n)), speaker_id,
-                               [r[1] for r in noise_rngs], conv_rngs, g_src, g_tgt, tau, fast, tts_cache,
-                               conv_cache, pieces)
+        enc_rows = _encode_rows(chain.model, token_seqs, speaker_id, speed, noise_rngs, tts_model.device,
+                                chain.tts_graphs)
+        _decode_convert_groups(chain, enc_rows, list(range(n)), speaker_id, [r[1] for r in noise_rngs],
+                               _sentence_conv_rngs(seed, n), tau, pieces)
     return _finish_cloned(tts_model, converter, pieces, output_path, speed, message)
 
 
@@ -483,9 +520,7 @@ def tts_convert_single_dispatch(tts_model: BaseSpeakerTTS, converter: ToneColorC
     differs from the other chains' for the same seed.
 
     `stats`, when a dict, receives {"sentences", "overflow_sentences"}."""
-    model, conv_model, g_src, g_tgt, tts_cache, conv_cache = _chain_parts(tts_model, converter, src_se,
-                                                                          tgt_se, fast)
-    cfg, ccfg, dev = tts_model.cfg, converter.cfg, tts_model.device
+    chain = _chain_parts(tts_model, converter, src_se, tgt_se, fast)
     token_seqs, speaker_id = tts_model._sentence_tokens(text, speaker, language)
     n = len(token_seqs)
     pieces: list[np.ndarray | None] = [None] * n
@@ -497,27 +532,16 @@ def tts_convert_single_dispatch(tts_model: BaseSpeakerTTS, converter: ToneColorC
         for i, seq in enumerate(token_seqs):
             groups.setdefault(round_up_to_bucket(len(seq)), []).append(i)
         for tb, idxs in groups.items():
-            m = len(idxs)
             fb = round_up_to_bucket(max(int(tb * frames_per_token), 1))
-            toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
-            noise_dec = _draw_rows([r[1] for r in noise_rngs], idxs, fb, cfg.inter_channels)
-            noise_conv = _draw_rows(conv_rngs, idxs, fb, ccfg.inter_channels)
-            audio, y_frames, total = S.tts_synthesize_convert(
-                model, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
-                torch.full((m,), speaker_id, device=dev), torch.from_numpy(noise_w).to(dev), fb,
-                torch.from_numpy(noise_dec).to(dev), conv_model, g_src.repeat(m, 1, 1), g_tgt.repeat(m, 1, 1),
-                float(tau), torch.from_numpy(noise_conv).to(dev), length_scale=1.0 / speed, fast=fast,
-                tts_dec_cache=tts_cache, conv_dec_cache=conv_cache,
-            )
-            audio, y_frames, total = audio[..., 0].cpu().numpy(), y_frames.cpu().numpy(), total.cpu().numpy()
+            audio, y_frames, total = _synthesize_convert(chain, token_seqs, idxs, tb, fb, speaker_id, speed, tau,
+                                                         noise_rngs, conv_rngs)
             for r, i in enumerate(idxs):
                 if total[r] > fb:
                     overflow.append(i)  # capped: re-run exactly below
                 else:
-                    pieces[i] = audio[r, : int(y_frames[r]) * cfg.upsample_factor]
+                    pieces[i] = audio[r, : int(y_frames[r]) * chain.model.cfg.upsample_factor]
         if overflow:
-            _two_stage_pieces(model, conv_model, token_seqs, overflow, seed, speaker_id, speed, g_src, g_tgt,
-                              tau, fast, tts_cache, conv_cache, pieces)
+            _two_stage_pieces(chain, token_seqs, overflow, seed, speaker_id, speed, tau, pieces)
     if stats is not None:
         stats["sentences"] = n
         stats["overflow_sentences"] = len(overflow)
@@ -532,9 +556,8 @@ def tts_convert_stream(tts_model: BaseSpeakerTTS, converter: ToneColorConverter,
     and its trailing gap, watermarked on its own.  The draws are
     `tts_convert_single_dispatch`'s, so with the watermark off the joined
     chunks equal its output; a sentence past the cap falls back as there."""
-    model, conv_model, g_src, g_tgt, tts_cache, conv_cache = _chain_parts(tts_model, converter, src_se,
-                                                                          tgt_se, fast)
-    cfg, ccfg, dev = tts_model.cfg, converter.cfg, tts_model.device
+    chain = _chain_parts(tts_model, converter, src_se, tgt_se, fast)
+    cfg = chain.model.cfg
     token_seqs, speaker_id = tts_model._sentence_tokens(text, speaker, language)
     n = len(token_seqs)
     if n == 0:
@@ -545,60 +568,74 @@ def tts_convert_stream(tts_model: BaseSpeakerTTS, converter: ToneColorConverter,
     for i, seq in enumerate(token_seqs):
         tb = round_up_to_bucket(len(seq))
         fb = round_up_to_bucket(max(int(tb * frames_per_token), 1))
-        toks, lens, noise_w = _pack_token_batch(token_seqs, [i], tb, noise_rngs)
-        noise_dec = _draw_rows([r[1] for r in noise_rngs], [i], fb, cfg.inter_channels)
-        noise_conv = _draw_rows(conv_rngs, [i], fb, ccfg.inter_channels)
-        audio, y_frames, total = S.tts_synthesize_convert(
-            model, torch.from_numpy(toks).to(dev), torch.from_numpy(lens).to(dev),
-            torch.full((1,), speaker_id, device=dev), torch.from_numpy(noise_w).to(dev), fb,
-            torch.from_numpy(noise_dec).to(dev), conv_model, g_src, g_tgt, float(tau),
-            torch.from_numpy(noise_conv).to(dev), length_scale=1.0 / speed, fast=fast,
-            tts_dec_cache=tts_cache, conv_dec_cache=conv_cache,
-        )
+        audio, y_frames, total = _synthesize_convert(chain, token_seqs, [i], tb, fb, speaker_id, speed, tau,
+                                                     noise_rngs, conv_rngs)
         if int(total[0]) > fb:
             # the exact two-stage fallback, with fresh generators: the capped
             # call advanced the originals
-            piece = _two_stage_pieces(model, conv_model, token_seqs, [i], seed, speaker_id, speed, g_src,
-                                      g_tgt, tau, fast, tts_cache, conv_cache, [None] * n)[i]
+            piece = _two_stage_pieces(chain, token_seqs, [i], seed, speaker_id, speed, tau, [None] * n)[i]
         else:
-            piece = audio[0, : int(y_frames[0]) * cfg.upsample_factor, 0].cpu().numpy()
+            piece = audio[0, : int(y_frames[0]) * cfg.upsample_factor]
         chunk = np.concatenate([piece, gap])
         if converter.enable_watermark and message:
             chunk = converter.add_watermark(chunk, message)
         yield chunk
 
 
-def _decode_convert_groups(model: S.Synthesizer, conv_model: S.Synthesizer, enc_rows: list[dict],
-                           sent_ids: list[int], speaker_id: int, dec_rngs, conv_rngs, g_src: torch.Tensor,
-                           g_tgt: torch.Tensor, tau: float, fast: bool, tts_cache, conv_cache,
-                           pieces: list) -> list:
+def _synthesize_convert(chain: _Chain, token_seqs, idxs: list[int], tb: int, fb: int, speaker_id: int,
+                        speed: float, tau: float, noise_rngs, conv_rngs) -> tuple[np.ndarray, ...]:
+    """One token-bucket group (the sentences `idxs`) through
+    `tts_synthesize_convert_body`, as a replay of the chains' graph of its
+    shape → host (audio [m, fb·upsample], decoded frames [m], uncapped
+    duration sums [m])."""
+    m = len(idxs)
+    toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
+    inputs = {"tokens": toks, "lengths": lens, "sid": np.full(m, speaker_id, np.int64), "noise_w": noise_w,
+              "noise_dec": _draw_rows([r[1] for r in noise_rngs], idxs, fb, chain.model.cfg.inter_channels),
+              **_conv_inputs(chain, m, tau), "noise_conv": _draw_rows(conv_rngs, idxs, fb,
+                                                                      chain.conv_model.cfg.inter_channels),
+              "noise_scale": np.float32(NOISE_SCALE), "noise_scale_w": np.float32(NOISE_SCALE_W),
+              "length_scale": np.float32(1.0 / speed), "sdp_ratio": np.float32(SDP_RATIO)}
+    key = GraphKey("tts_synthesize_convert", bucket=tb, batch=m, fast=chain.fast, max_frames=fb)
+    body = partial(tts_synthesize_convert_body, chain.model, chain.conv_model, fb, chain.fast, chain.tts_cache,
+                   chain.conv_cache)
+    audio, y_frames, total = chain.graphs.run(key, body, inputs, consume=_on_host)
+    return audio[..., 0].numpy(), y_frames.numpy(), total.numpy()
+
+
+def _conv_inputs(chain: _Chain, m: int, tau: float) -> dict:
+    """A chain group's conversion inputs: the embeddings and tau, one row
+    each of the group's m."""
+    return {"g_src": np.repeat(chain.g_src, m, axis=0), "g_tgt": np.repeat(chain.g_tgt, m, axis=0),
+            "tau": np.full((m, 1, 1), tau, np.float32)}
+
+
+def _decode_convert_groups(chain: _Chain, enc_rows: list[dict], sent_ids: list[int], speaker_id: int, dec_rngs,
+                           conv_rngs, tau: float, pieces: list) -> list:
     """Decode + convert encoded rows (row k is sentence sent_ids[k]) in
-    frame-bucket groups, one `S.tts_decode_convert` a group, each sentence's
-    noise from its generators (indexed by sentence); fills `pieces` at the
-    sentence ids with audio at its true length and returns it."""
-    cfg, ccfg = model.cfg, conv_model.cfg
-    dev = g_src.device
-    g_row = model.emb_g.weight[speaker_id][None, :]
+    frame-bucket groups, one `tts_decode_convert_body` a group (a replay of
+    the chains' graph of its shape), each sentence's noise from its
+    generators (indexed by sentence); fills `pieces` at the sentence ids
+    with audio at its true length and returns it."""
+    cfg, ccfg = chain.model.cfg, chain.conv_model.cfg
+    g_row = chain.model.emb_g.weight[speaker_id][None, :]
     for fb, ks in frame_groups(enc_rows).items():
         m, ids = len(ks), [sent_ids[k] for k in ks]
         enc = _stack_enc_rows(enc_rows, ks, g_row)
-        noise_dec = _draw_rows(dec_rngs, ids, fb, cfg.inter_channels)
-        noise_conv = _draw_rows(conv_rngs, ids, fb, ccfg.inter_channels)
-        audio, y_mask = S.tts_decode_convert(
-            model, enc, fb, torch.from_numpy(noise_dec).to(dev), conv_model, g_src.repeat(m, 1, 1),
-            g_tgt.repeat(m, 1, 1), float(tau), torch.from_numpy(noise_conv).to(dev), noise_scale=0.667,
-            fast=fast, tts_dec_cache=tts_cache, conv_dec_cache=conv_cache,
-        )
-        audio = audio[..., 0].cpu().numpy()
-        y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
+        inputs = {**enc._asdict(), "noise_dec": _draw_rows(dec_rngs, ids, fb, cfg.inter_channels),
+                  **_conv_inputs(chain, m, tau), "noise_conv": _draw_rows(conv_rngs, ids, fb, ccfg.inter_channels),
+                  "noise_scale": np.float32(NOISE_SCALE)}
+        key = GraphKey("tts_decode_convert", bucket=enc.m_p.shape[1], batch=m, fast=chain.fast, max_frames=fb)
+        body = partial(tts_decode_convert_body, chain.model, chain.conv_model, fb, chain.fast, chain.tts_cache,
+                       chain.conv_cache)
+        audio, y_frames = chain.graphs.run(key, body, inputs, consume=_on_host)
         for r, i in enumerate(ids):
-            pieces[i] = audio[r, : y_lengths[r] * cfg.upsample_factor]
+            pieces[i] = audio[r, : int(y_frames[r]) * cfg.upsample_factor, 0].numpy()
     return pieces
 
 
-def _two_stage_pieces(model: S.Synthesizer, conv_model: S.Synthesizer, token_seqs, sent_ids: list[int],
-                      seed: int, speaker_id: int, speed: float, g_src: torch.Tensor, g_tgt: torch.Tensor,
-                      tau: float, fast: bool, tts_cache, conv_cache, pieces: list) -> list:
+def _two_stage_pieces(chain: _Chain, token_seqs, sent_ids: list[int], seed: int, speaker_id: int, speed: float,
+                      tau: float, pieces: list) -> list:
     """The exact two-stage chain (encode, then decode + convert) for the
     given sentences, with fresh generators from `seed`: the overflow
     fallback of `tts_convert_single_dispatch` and `tts_convert_stream`,
@@ -606,12 +643,10 @@ def _two_stage_pieces(model: S.Synthesizer, conv_model: S.Synthesizer, token_seq
     sentence ids and returns it."""
     n_total = len(token_seqs)
     fresh_noise = _sentence_noise_rngs(seed, n_total)
-    fresh_conv = _sentence_conv_rngs(seed, n_total)
-    enc_rows = _encode_rows(model, [token_seqs[i] for i in sent_ids], speaker_id, speed,
-                            [fresh_noise[i] for i in sent_ids], g_src.device)
-    return _decode_convert_groups(model, conv_model, enc_rows, sent_ids, speaker_id,
-                                  [r[1] for r in fresh_noise], fresh_conv, g_src, g_tgt, tau, fast, tts_cache,
-                                  conv_cache, pieces)
+    enc_rows = _encode_rows(chain.model, [token_seqs[i] for i in sent_ids], speaker_id, speed,
+                            [fresh_noise[i] for i in sent_ids], chain.tts_graphs.device, chain.tts_graphs)
+    return _decode_convert_groups(chain, enc_rows, sent_ids, speaker_id, [r[1] for r in fresh_noise],
+                                  _sentence_conv_rngs(seed, n_total), tau, pieces)
 
 
 def frame_groups(enc_rows: list[dict]) -> dict[int, list[int]]:
@@ -719,6 +754,38 @@ def tts_decode_body(model: S.Synthesizer, max_frames: int, fast: bool, dec_cache
     y_mask)."""
     enc = S.TTSEncodeOut(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w_ceil=w_ceil, g=g)
     return S.tts_decode(model, enc, max_frames, noise, noise_scale=noise_scale, fast=fast, dec_cache=dec_cache)
+
+
+def tts_decode_convert_body(model: S.Synthesizer, conv_model: S.Synthesizer, max_frames: int, fast: bool,
+                            tts_cache: dict | None, conv_cache: dict | None, m_p: torch.Tensor,
+                            logs_p: torch.Tensor, x_mask: torch.Tensor, w_ceil: torch.Tensor, g: torch.Tensor,
+                            noise_dec: torch.Tensor, g_src: torch.Tensor, g_tgt: torch.Tensor, tau: torch.Tensor,
+                            noise_conv: torch.Tensor, noise_scale: torch.Tensor) -> tuple:
+    """`S.tts_decode_convert` of an encode's fields (``tts_decode_convert_jit``:
+    static max_frames and fast, tau [B, 1, 1] and noise_scale traced) →
+    (converted audio [B, max_frames·upsample, 1], decoded frames [B]
+    int32)."""
+    enc = S.TTSEncodeOut(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w_ceil=w_ceil, g=g)
+    audio, y_mask = S.tts_decode_convert(model, enc, max_frames, noise_dec, conv_model, g_src, g_tgt, tau,
+                                         noise_conv, noise_scale=noise_scale, fast=fast, tts_dec_cache=tts_cache,
+                                         conv_dec_cache=conv_cache)
+    return audio, y_mask[..., 0].sum(dim=-1).to(torch.int32)
+
+
+def tts_synthesize_convert_body(model: S.Synthesizer, conv_model: S.Synthesizer, max_frames: int, fast: bool,
+                                tts_cache: dict | None, conv_cache: dict | None, tokens: torch.Tensor,
+                                lengths: torch.Tensor, sid: torch.Tensor, noise_w: torch.Tensor,
+                                noise_dec: torch.Tensor, g_src: torch.Tensor, g_tgt: torch.Tensor,
+                                tau: torch.Tensor, noise_conv: torch.Tensor, noise_scale: torch.Tensor,
+                                noise_scale_w: torch.Tensor, length_scale: torch.Tensor,
+                                sdp_ratio: torch.Tensor) -> tuple:
+    """`S.tts_synthesize_convert` with every sampling knob a tensor
+    (``tts_synthesize_convert_jit``) → (converted audio, decoded frames [B],
+    uncapped duration sums [B])."""
+    return S.tts_synthesize_convert(model, tokens, lengths, sid, noise_w, max_frames, noise_dec, conv_model, g_src,
+                                    g_tgt, tau, noise_conv, noise_scale=noise_scale, noise_scale_w=noise_scale_w,
+                                    length_scale=length_scale, sdp_ratio=sdp_ratio, fast=fast,
+                                    tts_dec_cache=tts_cache, conv_dec_cache=conv_cache)
 
 
 def _tts_encode(graphs: GraphCache, model: S.Synthesizer, tokens: np.ndarray, lengths: np.ndarray,

@@ -121,6 +121,10 @@ def _payload(state: Any) -> Any:
 def _restore(template: Any, payload: Any) -> Any:
     """`payload` loaded into the train state or model `template` in place
     (which is returned); anything else: the payload."""
+    if _is_gan(template) or _is_train(template):
+        graphs = getattr(template, "graphs", None)
+        if graphs is not None:
+            graphs.clear()  # the optimizer's load replaces the moments its train-step graphs read
     if _is_gan(template):
         _restore(template.gen, payload["gen"])
         _restore(template.disc, payload["disc"])

@@ -3,7 +3,8 @@
 recompiles, no dynamic shapes").
 
 A `GraphCache` belongs to one model owner (a converter, a TTS model, a
-batcher) on one device.  ``run(key, body, inputs)`` runs ``body(**inputs)``:
+batcher, a replica of a data-parallel position, a train state) on one
+device.  ``run(key, body, inputs)`` runs ``body(**inputs)``:
 
 * the first call of a `GraphKey` runs the body eagerly once (the warm-up:
   it builds K5's tables, every wrapper's window and cluster caches, cuDNN's
@@ -17,12 +18,25 @@ batcher) on one device.  ``run(key, body, inputs)`` runs ``body(**inputs)``:
   clone — before another replay of the device's pool may run.
 
 A key is what the JAX site marks static, with the shapes: (site, bucket,
-batch, fast, chunk_frames, max_frames, device).  Every traced value is an
-input tensor (tau, lengths, g, noise, the sampling knobs), never a constant
-captured into the graph.  A graph reads the model's parameters and its
+batch, fast, chunk_frames, max_frames, segment_frames, device).  Every
+traced value is an input tensor (tau, lengths, g, noise, the sampling knobs,
+a train step's draws and learning rate), never a constant captured into the
+graph.  A graph reads the model's parameters and its
 packed serving weights where they lie: in-place updates keep it valid, and
 whoever replaces those tensors (`set_model`, `load_ckpt`, `init_random`, a
-rebuilt ``dec_cache``) calls `clear`.
+rebuilt ``dec_cache``, a checkpoint loaded into a train state) calls
+`clear`.  A cache whose graphs read another owner's models too (the fused
+chains read the TTS model and the converter) names those owners' caches as
+``reads``: their `clear` drops its graphs, and it runs eagerly while any of
+them is off.
+
+A body may change state in place: a train step updates the parameters and
+the optimizer's moments and step counts, the counterpart of the JAX train
+steps' donated state.  A capture records the body's device work without
+executing it, but it does run the body's Python, so such a body must leave
+every Python-side value as it found it (the state's step count stays
+outside; gradients handed to ``.grad`` are set back to None); its first
+call, the warm-up, is the caller's step, and the capture takes none.
 
 Launch accounting: the kernel wrappers record their launches into the
 capture's tally (`ops.recording_launches`), and each replay adds that tally
@@ -44,6 +58,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -64,6 +79,7 @@ class GraphKey(NamedTuple):
     fast: bool | None = None
     chunk_frames: int | None = None
     max_frames: int | None = None
+    segment_frames: int | None = None
     device: str | None = None
 
 
@@ -112,6 +128,11 @@ def _streams(device: torch.device) -> tuple:
     return torch.cuda.current_stream(device), _per_device(_STREAMS, device, lambda: torch.cuda.Stream(device))
 
 
+def _capturable(device: torch.device) -> bool:
+    """Whether graphs can be captured on `device`: a CUDA device."""
+    return device.type == "cuda"
+
+
 def _record(graph, body: Callable, static: dict, stream, device: torch.device):
     """Capture ``body(**static)`` into `graph` on `stream`, in the device's
     pool; returns the body's outputs, which the graph writes at each
@@ -150,8 +171,9 @@ def _as_tensor(x) -> torch.Tensor:
 
 def stage(static: dict, inputs: dict) -> None:
     """Copy each input into its static buffer, in stream order: host arrays
-    through pinned memory with ``non_blocking``, device tensors in place.
-    Raises on a name, shape or dtype the buffers do not have."""
+    through pinned memory with ``non_blocking`` (a pinned tensor as it is),
+    device tensors in place.  Raises on a name, shape or dtype the buffers
+    do not have."""
     if static.keys() != inputs.keys():
         raise KeyError(f"inputs {sorted(inputs)} against the graph's {sorted(static)}")
     for name, dst in static.items():
@@ -159,17 +181,25 @@ def stage(static: dict, inputs: dict) -> None:
         if src.shape != dst.shape or src.dtype != dst.dtype:
             raise ValueError(f"input {name}: {src.dtype} {tuple(src.shape)} against the graph's "
                              f"{dst.dtype} {tuple(dst.shape)}")
-        if dst.device.type == "cuda" and src.device.type == "cpu":
+        if dst.device.type == "cuda" and src.device.type == "cpu" and not src.is_pinned():
             src = pinned(src)
         dst.copy_(src, non_blocking=True)
 
 
 class GraphCache:
-    """The graphs of one model owner on one device, by `GraphKey`."""
+    """The graphs of one model owner on one device, by `GraphKey`.
 
-    def __init__(self, device: str | torch.device, enabled: bool = True):
+    `reads`: the caches of other owners whose models these graphs read as
+    well; a `clear` of any of them drops these graphs, and while any of them
+    is inactive these run eagerly."""
+
+    def __init__(self, device: str | torch.device, enabled: bool = True, reads: tuple = ()):
         self.device = torch.device(device)
         self.enabled = enabled
+        self._reads = tuple(reads)
+        self._readers: weakref.WeakSet[GraphCache] = weakref.WeakSet()  # caches that read this owner's models
+        for owner in self._reads:
+            owner._readers.add(self)
         self._graphs: dict[GraphKey, CapturedGraph] = {}
         self.captures = 0
         self.replays = 0
@@ -182,13 +212,17 @@ class GraphCache:
         return list(self._graphs)
 
     def active(self) -> bool:
-        """Whether `run` captures and replays: on a CUDA device, enabled."""
-        return self.enabled and self.device.type == "cuda"
+        """Whether `run` captures and replays: on a CUDA device, enabled,
+        and so is every cache it `reads`."""
+        return self.enabled and _capturable(self.device) and all(owner.active() for owner in self._reads)
 
     def clear(self) -> None:
-        """Drop every graph: the tensors they read are being replaced."""
+        """Drop every graph, and those of the caches that read this owner's
+        models: the tensors they read are being replaced."""
         with _device_lock(self.device):
             self._graphs.clear()
+        for reader in list(self._readers):
+            reader.clear()
 
     def run(self, key: GraphKey, body: Callable, inputs: dict, consume: Callable | None = None):
         """``consume(body(**inputs))``, as a replay of the key's graph where

@@ -349,11 +349,11 @@ def pinned(x: torch.Tensor) -> torch.Tensor:
 
 
 def upload(x: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """A host tensor on `device`; to the card through pinned memory and an
-    asynchronous copy, which does not wait for the kernels queued before
-    it."""
+    """A host tensor on `device`; to the card through pinned memory (a
+    pinned tensor as it is) and an asynchronous copy, which does not wait
+    for the kernels queued before it."""
     if device.type == "cuda" and x.device.type == "cpu":
-        return pinned(x).to(device, non_blocking=True)
+        return (x if x.is_pinned() else pinned(x)).to(device, non_blocking=True)
     return x.to(device)
 
 

@@ -14,9 +14,12 @@ weights by the mesh rules, a batch placed by `batch_sharding` splits over
   then all-reduces (sums) and adds the bias.  Every other layer runs
   replicated.  Rows split over ``data``.
 * **Data parallel** (`data_parallel_convert`): the weights replicated once
-  per device, rows split over ``data``, each position converting its rows on
-  its own device, in either mode (the serving mode launches the kernels on
-  each position).
+  per device (`make_replicas`), rows split over ``data``, each position
+  converting its rows on its own device, in either mode (the serving mode
+  launches the kernels on each position).  With replicas made once, each
+  position's convert replays the CUDA graph of its shape from its replica's
+  `GraphCache`: the JAX package's one ``voice_conversion_jit`` over the
+  data-sharded batch.
 
 Both compute what the single-device graph computes, up to the order of the
 sums in the all-reduce.
@@ -25,6 +28,8 @@ sums in the all-reduce.
 from __future__ import annotations
 
 import copy
+from functools import partial
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +38,7 @@ from torch import nn
 from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.nn.hifigan import apply_generator
+from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
 from openvoice_tpu_torch.runtime.mesh import Mesh, Sharded, comms, row_range, shard_params, spmd
 
 
@@ -46,6 +52,23 @@ def replicate(model: nn.Module, devices) -> dict[torch.device, nn.Module]:
         if dev not in out:
             out[dev] = model if dev == here else copy.deepcopy(model).to(dev)
     return out
+
+
+class Replica(NamedTuple):
+    """The weights of one device: the model, its serving cache (fast=True
+    only) and the graphs of the converts it runs."""
+
+    model: S.Synthesizer
+    dec_cache: dict | None
+    graphs: GraphCache
+
+
+def make_replicas(model: S.Synthesizer, devices, fast: bool) -> dict[torch.device, Replica]:
+    """A `Replica` per distinct device (`replicate`), kept by a service
+    that converts many batches: its graphs replay from the second batch of
+    a shape on."""
+    return {d: Replica(m, S.make_dec_cache(m) if fast else None, GraphCache(d))
+            for d, m in replicate(model, devices).items()}
 
 
 def _rows(x, mesh: Mesh, coord, dtype=None):
@@ -174,26 +197,40 @@ class TensorParallel:
         return Sharded(self.mesh, ("data", None, None), (b, t * self.cfg.upsample_factor, 1), shards)
 
 
+def dp_convert_body(model: S.Synthesizer, fast: bool, dec_cache: dict | None, spec: torch.Tensor,
+                    lengths: torch.Tensor, g_src: torch.Tensor, g_tgt: torch.Tensor, tau: torch.Tensor,
+                    noise: torch.Tensor) -> torch.Tensor:
+    """One position's rows through `S.voice_conversion` (tau [rows, 1, 1]),
+    the body of its CUDA graph → audio [rows, T·upsample, 1]."""
+    audio, _ = S.voice_conversion(model, spec, lengths, g_src, g_tgt, tau, noise, fast=fast, dec_cache=dec_cache)
+    return audio
+
+
 def data_parallel_convert(model: S.Synthesizer, mesh: Mesh, spec, spec_lengths, g_src, g_tgt, tau, noise,
                           fast: bool = False, replicas: dict | None = None) -> Sharded:
     """`voice_conversion` with rows split over `mesh`'s data axis (tau a
     float, or one per row as a whole [B, 1, 1] tensor or a `Sharded`) and the
-    weights replicated per device (`replicas`: {device: (model, dec_cache)},
-    made here when not given; the cache only for fast=True) → audio [B,
-    T·upsample, 1] `Sharded` by rows.  Each position converts its rows on
-    its own device; the model axis, if any, replicates."""
+    weights replicated per device (`replicas`: {device: `Replica`} from
+    `make_replicas`; made here when not given, with their graphs off: a
+    graph of one call would never replay) → audio [B, T·upsample, 1]
+    `Sharded` by rows.  Each position converts its rows on its own device,
+    through its replica's graphs (key: bucket, rows a position, fast); the
+    model axis, if any, replicates."""
     if replicas is None:
-        copies = replicate(model, {mesh.devices[c] for c in mesh.local_coords()})
-        replicas = {d: (m, S.make_dec_cache(m) if fast else None) for d, m in copies.items()}
+        replicas = make_replicas(model, {mesh.devices[c] for c in mesh.local_coords()}, fast)
+        for r in replicas.values():
+            r.graphs.enabled = False
 
     def local(c):
-        m, cache = replicas[mesh.devices[c]]
+        rep = replicas[mesh.devices[c]]
         f32 = torch.float32
-        audio, _ = S.voice_conversion(
-            m, _rows(spec, mesh, c, f32), _rows(spec_lengths, mesh, c), _rows(g_src, mesh, c, f32),
-            _rows(g_tgt, mesh, c, f32), _rows(tau, mesh, c, f32) if isinstance(tau, (torch.Tensor, Sharded)) else tau,
-            _rows(noise, mesh, c, f32), fast=fast, dec_cache=cache)
-        return audio
+        rows = _rows(spec, mesh, c, f32)
+        taus = (_rows(tau, mesh, c, f32) if isinstance(tau, (torch.Tensor, Sharded))
+                else torch.full((rows.shape[0], 1, 1), float(tau)))
+        inputs = {"spec": rows, "lengths": _rows(spec_lengths, mesh, c), "g_src": _rows(g_src, mesh, c, f32),
+                  "g_tgt": _rows(g_tgt, mesh, c, f32), "tau": taus, "noise": _rows(noise, mesh, c, f32)}
+        key = GraphKey("dp_convert", bucket=rows.shape[1], batch=rows.shape[0], fast=fast)
+        return rep.graphs.run(key, partial(dp_convert_body, rep.model, fast, rep.dec_cache), inputs)
 
     with torch.no_grad():
         shards = spmd(mesh, local)

@@ -30,12 +30,12 @@ up through pinned memory asynchronously, and a reader thread waits for each
 group's copy back to host memory, so that one group's packing and readback
 overlap another group's compute.
 
-On one card each group runs as a replay of one CUDA graph per (mode,
-bucket, padded batch, fast) from its second call of that shape on
-(``runtime/graphs.py``; the JAX package's ``_jit_convert_pcm16`` and
-``voice_conversion_jit``): the int16 decode, the STFT, the conversion and
-the int16 wire encode.  A batcher over a mesh of several data positions runs
-its shards eagerly.
+Each group runs as a replay of one CUDA graph per (mode, bucket, padded
+batch, fast) from its second call of that shape on (``runtime/graphs.py``;
+the JAX package's ``_jit_convert_pcm16`` and ``voice_conversion_jit``): the
+int16 decode, the STFT, the conversion and the int16 wire encode.  Over a
+mesh each data position's shard of a group replays its own graph, from the
+`GraphCache` of its device's replica.
 """
 
 from __future__ import annotations
@@ -57,9 +57,9 @@ from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
 from openvoice_tpu_torch.runtime.bucketing import allowed_batch_sizes, plan_groups
-from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
-from openvoice_tpu_torch.runtime.mesh import Mesh, upload
-from openvoice_tpu_torch.runtime.parallel import replicate
+from openvoice_tpu_torch.runtime.graphs import GraphKey
+from openvoice_tpu_torch.runtime.mesh import Mesh
+from openvoice_tpu_torch.runtime.parallel import make_replicas
 from openvoice_tpu_torch.runtime.profiler import METRICS, trace
 
 
@@ -76,15 +76,6 @@ class ConvertRequest:
     audio: np.ndarray | None = None
     future: Future = field(default_factory=Future)
     enqueued_at: float = field(default_factory=time.perf_counter)
-
-
-def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on `device`.  To the GPU through pinned memory and an
-    asynchronous copy: a copy from pageable memory waits for every kernel
-    queued before it, which would hold the dispatch thread until the
-    previous group's compute ends, and one group's packing could not overlap
-    another's compute."""
-    return upload(torch.from_numpy(a), device)
 
 
 def _wire_int16(audio: torch.Tensor) -> torch.Tensor:
@@ -126,8 +117,9 @@ def group_body(model: S.Synthesizer, cfg: SynthesizerConfig, fast: bool, dec_cac
     return _wire_int16(audio)
 
 
-def _wire_to_host(wire: torch.Tensor) -> tuple:
-    """A group's int16 wire → (host tensor, events that complete its copy).
+def _wire_to_host(wire: torch.Tensor, host: torch.Tensor | None = None) -> tuple:
+    """A group's (or a shard's) int16 wire → (host tensor, events that
+    complete its copy), into `host` (rows of a pinned buffer) where given.
     On the card: an asynchronous copy into pinned memory, which the reader
     thread waits for while this thread goes on to the next group.  Where the
     wire is a graph's output, `GraphCache.run` calls this under the device's
@@ -136,7 +128,8 @@ def _wire_to_host(wire: torch.Tensor) -> tuple:
     memory."""
     if wire.device.type != "cuda":
         return wire.clone(), []
-    host = torch.empty(wire.shape, dtype=torch.int16, pin_memory=True)
+    if host is None:
+        host = torch.empty(wire.shape, dtype=torch.int16, pin_memory=True)
     host.copy_(wire, non_blocking=True)
     done = torch.cuda.Event()
     done.record()
@@ -173,11 +166,10 @@ class ConvertBatcher:
             devices = [by_data[d] for d in sorted(by_data)]
         self.device = devices[0]
         self.model = model.to(self.device).eval()
-        copies = {dev: (m.eval(), S.make_dec_cache(m) if fast else None)
-                  for dev, m in replicate(self.model, devices).items()}
-        self.dec_cache = copies[self.device][1]
-        self._shards = [(dev, *copies[dev]) for dev in devices]  # one a data position
-        self.graphs = GraphCache(self.device)  # one device's groups; a mesh's shards run eagerly
+        self.replicas = make_replicas(self.model, devices, fast)  # the weights and graphs of each device
+        self.dec_cache = self.replicas[self.device].dec_cache
+        self.graphs = self.replicas[self.device].graphs  # the first data position's device's
+        self._shards = devices  # one a data position
         self.cfg = cfg
         self.fast = fast
         self.max_batch = max_batch
@@ -349,46 +341,28 @@ class ConvertBatcher:
                     spec[i, : r.n_frames] = r.spec
                     noise[i] = np.random.default_rng(r.seed).standard_normal(
                         (bucket, cfg.inter_channels)).astype(np.float32)
-            if n_shards == 1:
-                if group[0].audio is not None:
-                    inputs = {"pcm": pcm, "noise": row_noise(seeds, bucket, cfg.inter_channels, self.device)}
-                else:
-                    inputs = {"spec": spec, "noise": noise}
-                with trace("convert_batch"):
-                    host, events = self._run_group(bucket, {"lengths": lengths, "g_src": g_src, "g_tgt": g_tgt,
-                                                            "taus": taus, **inputs})
-                METRICS.add("busy_seconds", time.perf_counter() - t0)
-                METRICS.add("batches")
-                self._readq.put((host, events, group))
-                return
             per = n // n_shards
             host, events = None, []
-            for k, (dev, model, cache) in enumerate(self._shards):
-                rows = slice(k * per, (k + 1) * per)
-                # a kernel launches on the current device, which the tensors' device must be
-                with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
-                    args = [_upload(a[rows], dev) for a in (lengths, g_src, g_tgt, taus)]
-                    with trace("convert_batch"):
+            if self.device.type == "cuda":
+                host = torch.empty((n, bucket * cfg.upsample_factor), dtype=torch.int16, pin_memory=True)
+            wires = []
+            with trace("convert_batch"):
+                for k, dev in enumerate(self._shards):
+                    rows = slice(k * per, (k + 1) * per)
+                    inputs = {"lengths": lengths[rows], "g_src": g_src[rows], "g_tgt": g_tgt[rows],
+                              "taus": taus[rows]}
+                    # a kernel launches on the current device, which the tensors' device must be
+                    with torch.cuda.device(dev) if dev.type == "cuda" else nullcontext():
                         if group[0].audio is not None:
-                            wire = _convert_pcm16(model, cfg, _upload(pcm[rows], dev), *args, seeds[rows],
-                                                  fast=self.fast, dec_cache=cache)
+                            noise_k = row_noise(seeds[rows], bucket, cfg.inter_channels, dev)
+                            inputs.update(pcm=pcm[rows], noise=noise_k)
                         else:
-                            audio, _ = S.voice_conversion(model, _upload(spec[rows], dev), args[0], args[1],
-                                                          args[2], args[3], _upload(noise[rows], dev),
-                                                          fast=self.fast, dec_cache=cache)
-                            wire = _wire_int16(audio)
-                    if dev.type == "cuda":
-                        # an asynchronous copy into pinned memory; the reader
-                        # thread waits on the events, this thread goes on to
-                        # the next group
-                        if host is None:
-                            host = torch.empty((n, wire.shape[1]), dtype=torch.int16, pin_memory=True)
-                        host[rows].copy_(wire, non_blocking=True)
-                        done = torch.cuda.Event()
-                        done.record()
-                        events.append(done)
-                    else:
-                        host = wire if host is None else torch.cat([host, wire])
+                            inputs.update(spec=spec[rows], noise=noise[rows])
+                        wire, done = self._run_group(bucket, inputs, k, None if host is None else host[rows])
+                    wires.append(wire)
+                    events += done
+            if host is None:
+                host = torch.cat(wires)
             METRICS.add("busy_seconds", time.perf_counter() - t0)
             METRICS.add("batches")
             self._readq.put((host, events, group))
@@ -399,15 +373,16 @@ class ConvertBatcher:
                     r.future.set_exception(RuntimeError(f"batch failed: {exc}\n{tb}"))
             METRICS.add("batch_failures")
 
-    def _run_group(self, bucket: int, inputs: dict) -> tuple:
-        """One device's group (`group_body`'s inputs by name) through
-        `self.graphs` → (its int16 wire in host memory, the events the
+    def _run_group(self, bucket: int, inputs: dict, shard: int = 0, host: torch.Tensor | None = None) -> tuple:
+        """One data position's rows of a group (`group_body`'s inputs by
+        name) through the graphs of its device's replica → (its int16 wire
+        in host memory, copied into `host` where given, and the events the
         reader waits on)."""
-        _, model, cache = self._shards[0]
+        rep = self.replicas[self._shards[shard]]
         mode = "pcm" if "pcm" in inputs else "spec"
         key = GraphKey(f"batch_{mode}", bucket=bucket, batch=len(inputs["lengths"]), fast=self.fast)
-        return self.graphs.run(key, partial(group_body, model, self.cfg, self.fast, cache), inputs,
-                               consume=_wire_to_host)
+        return rep.graphs.run(key, partial(group_body, rep.model, self.cfg, self.fast, rep.dec_cache), inputs,
+                              consume=partial(_wire_to_host, host=host))
 
     def _read_loop(self) -> None:
         cfg = self.cfg

@@ -15,7 +15,9 @@ protocol closes the gap:
    padded row has length 0 and converts to zeros);
 4. every process converts its rows on its own device
    (``runtime/parallel.py::data_parallel_convert``, with replicas built once
-   at construction);
+   at construction), each position's rows a replay of its replica's CUDA
+   graph of the round's shape from the second round of that shape on (the
+   JAX package's one ``voice_conversion_jit`` a round);
 5. each process reads back only its own rows.
 
 The noise of a request is ``np.random.default_rng(seed)`` over its live
@@ -38,7 +40,7 @@ from openvoice_tpu_torch.config import SynthesizerConfig
 from openvoice_tpu_torch.models import synthesizer as S
 from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
 from openvoice_tpu_torch.runtime.mesh import GroupComm, Mesh, Sharded, batch_sharding, shard_rows, upload
-from openvoice_tpu_torch.runtime.parallel import data_parallel_convert, replicate
+from openvoice_tpu_torch.runtime.parallel import data_parallel_convert, make_replicas
 
 
 @dataclass
@@ -67,12 +69,12 @@ class DistributedConvertService:
         local = {mesh.devices[c] for c in mesh.local_coords()}
         if any(d.type != dev.type for d in local):
             raise ValueError(f"the mesh's local devices {sorted(map(str, local))} are not on {dev}")
-        # the weights are replicated once per local device; the serving mode's
-        # packed cache is built only for fast=True
+        # the weights are replicated once per local device, each copy with
+        # its graphs; the serving mode's packed cache is built only for
+        # fast=True
         with torch.no_grad():
-            copies = replicate(model.eval(), local)
-            self.replicas = {d: (m, S.make_dec_cache(m) if fast else None) for d, m in copies.items()}
-        self._model = copies[next(iter(local))]
+            self.replicas = make_replicas(model.eval(), local, fast)
+        self._model = self.replicas[next(iter(local))].model
         n_procs = len({int(r) for r in mesh.ranks.flat}) if mesh.multiprocess else 1
         if mesh.shape["data"] % n_procs:
             raise ValueError(f"data axis {mesh.shape['data']} not divisible by {n_procs} processes")

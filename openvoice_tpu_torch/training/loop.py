@@ -1,12 +1,16 @@
 """Training loop driver (the port of ``openvoice_tpu/training/loop.py``):
 data pipeline → (GAN) train step → checkpoints, with resume.
 
-``train(root, cfg, steps=...)`` on one device.  With ``torch.distributed``
-initialised each process reads its own shard of the files and only rank 0
-writes checkpoints; with ``mesh=`` (`runtime.multihost.global_mesh`, one
-process per data position) each step is data-parallel: the processes'
-batches form one global batch (`data.make_global_batch`) and the gradients
-are averaged over the data axis (`train.gan_train_step`).
+``train(root, cfg, steps=...)`` on one device, where each step replays the
+train state's CUDA graph of the batch's shape after its first call
+(`train.gan_train_step`; the prefetch thread pins each batch in host
+memory, and the step stages it into the graph's inputs).  With
+``torch.distributed`` initialised each process reads its own shard of the
+files and only rank 0 writes checkpoints; with ``mesh=``
+(`runtime.multihost.global_mesh`, one process per data position) each step
+is data-parallel and eager: the processes' batches form one global batch
+(`data.make_global_batch`) and the gradients are averaged over the data
+axis.
 """
 
 from __future__ import annotations
@@ -17,11 +21,19 @@ import torch
 
 from openvoice_tpu_torch.ckpt import native_io as CIO
 from openvoice_tpu_torch.config import SynthesizerConfig
-from openvoice_tpu_torch.runtime.mesh import Mesh, upload
+from openvoice_tpu_torch.runtime.mesh import Mesh, pinned
 from openvoice_tpu_torch.training import train as T
 from openvoice_tpu_torch.training.data import (
     ConverterDataset, PrefetchIterator, make_global_batch, process_index_count,
 )
+
+
+def _host_batches(ds: ConverterDataset, device: torch.device):
+    """The dataset's batches as host tensors, pinned where the steps copy
+    them to the card (this runs in the prefetch worker thread)."""
+    for batch in ds:
+        tensors = tuple(torch.from_numpy(a) for a in batch)
+        yield tuple(map(pinned, tensors)) if device.type == "cuda" else tensors
 
 
 def train(data_root: str, cfg: SynthesizerConfig, *, steps: int = 1000, batch_size: int = 8,
@@ -75,14 +87,14 @@ def train(data_root: str, cfg: SynthesizerConfig, *, steps: int = 1000, batch_si
         epoch_start = step
         # host batch prep overlaps the device step; the with-block stops the
         # worker thread on early exit
-        with PrefetchIterator(iter(ds)) as prefetch:
+        with PrefetchIterator(_host_batches(ds, dev)) as prefetch:
             for batch in prefetch:
                 if step >= steps:
                     break
                 if mesh is not None:
-                    spec, audio, lengths, g = (make_global_batch(torch.from_numpy(a), mesh) for a in batch)
+                    spec, audio, lengths, g = (make_global_batch(x, mesh) for x in batch)
                 else:
-                    spec, audio, lengths, g = (upload(torch.from_numpy(a), dev) for a in batch)
+                    spec, audio, lengths, g = batch
                 state, metrics = step_fn(state, cfg, spec, audio, lengths, g, draws,
                                          segment_frames=min(32, segment_frames), lr=lr, mesh=mesh)
                 step += 1

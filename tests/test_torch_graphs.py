@@ -4,14 +4,11 @@ each site's body (what a graph captures) against the direct call, the convert
 and streaming bodies against JAX, invalidation, launch accounting, and that
 the CPU never captures or replays.
 
-There is no card here, so capture and replay go through a stand-in
-(`fake_graphs`): a "capture" runs the body once and keeps it, a "replay"
-runs it again on the static buffers and writes the captured outputs in
-place, as a replay writes the graph's output buffers.  Everything around
-them (staging, keys, the replay's consumers, launch tallies) is the port's
-own code."""
+There is no card here, so capture and replay go through the stand-ins of
+``tests/_torch_graphs.py`` (`fake_graphs`).  The fused chains, the
+data-parallel convert and the train steps have their own files
+(tests/test_torch_graphs_{chains,train}.py)."""
 
-import contextlib
 from functools import partial
 
 import jax.numpy as jnp
@@ -32,6 +29,7 @@ from openvoice_tpu_torch.runtime import graphs as G
 from openvoice_tpu_torch.runtime.bucketing import DEFAULT_BUCKETS, round_up_to_bucket
 from openvoice_tpu_torch.runtime import streaming as tstreaming
 from openvoice_tpu_torch.serve import batcher as tbatcher
+from tests._torch_graphs import _Graph, _record, fake_graphs, no_cuda_graphs  # noqa: F401 (fixtures)
 from tests._torch_port import (
     TINY, TINY_API, TINY_TTS_TAIL, jax_cfg, jax_params, t, torch_cfg, torch_model,
 )
@@ -42,62 +40,6 @@ AUDIO_TOL = 5e-4  # the port's audio bar against JAX (f32), as tests/test_torch_
 # shapes, so the JAX jit caches below grow only by this file's calls
 KEYED = dict(TINY_API, gin_channels=48)
 TEXT = "The quick brown fox jumps over the lazy dog. It was a sunny day."
-
-
-class _Stream:
-    def wait_event(self, event):
-        pass
-
-    def wait_stream(self, stream):
-        pass
-
-
-class _Event:
-    def record(self, stream=None):
-        pass
-
-
-class _Graph:
-    """Stands in for a captured CUDA graph: `replay` runs the captured body
-    on its static buffers and writes the captured outputs in place."""
-
-    def __init__(self):
-        self.body = self.static = self.outputs = None
-        self.replayed = 0
-
-    def replay(self):
-        new = self.body(**self.static)
-        for out, value in zip(G._tensors(self.outputs), G._tensors(new)):
-            out.copy_(value)
-        self.replayed += 1
-
-
-def _record(graph, body, static, stream, device):
-    graph.body, graph.static = body, static
-    graph.outputs = body(**static)
-    return graph.outputs
-
-
-@pytest.fixture
-def fake_graphs(monkeypatch):
-    """Graph caches on the CPU capture and replay through `_Graph`."""
-    monkeypatch.setattr(G.GraphCache, "active", lambda self: self.enabled)
-    monkeypatch.setattr(G, "_streams", lambda device: (_Stream(), _Stream()))
-    monkeypatch.setattr(G, "_record", _record)
-    monkeypatch.setattr(G, "_LAST", {})
-    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "Event", _Event)
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
-
-
-@pytest.fixture
-def no_cuda_graphs(monkeypatch):
-    """Any capture or replay of a real CUDA graph raises."""
-    def refuse(*args, **kwargs):
-        raise AssertionError("a CUDA graph was captured or replayed on the CPU")
-
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", refuse)
-    monkeypatch.setattr(torch.cuda, "graph", refuse)
 
 
 def _voice(seconds: float, f0: float, seed: int) -> np.ndarray:
@@ -551,6 +493,10 @@ def test_a_replay_adds_the_launches_recorded_at_capture(fake_graphs, monkeypatch
 
 def test_cpu_entry_points_never_capture_or_replay(keyed_pair, tts_model, no_cuda_graphs, tmp_path):
     from openvoice_tpu_torch.audio.io import write_wav
+    from openvoice_tpu_torch.runtime.mesh import make_mesh
+    from openvoice_tpu_torch.serve.distributed import DistRequest, DistributedConvertService
+    from openvoice_tpu_torch.training.loop import train
+    from tests._torch_port import TINY_TAIL
 
     tconv = ToneColorConverter(cfg=torch_cfg(KEYED), device="cpu", enable_watermark=False)
     tconv.set_model(keyed_pair[1].model)
@@ -564,8 +510,17 @@ def test_cpu_entry_points_never_capture_or_replay(keyed_pair, tts_model, no_cuda
     tconv.convert_streaming(_voice(1.3, 150.0, 23), se, se, message="", chunk_frames=24)
     tts.tts(TEXT, None, 1, fast=True)
     tts.tts_batched(TEXT, None, 1)
+    # the fused chains, on a converter whose hop is the TTS's upsampling
+    chain_conv = ToneColorConverter(cfg=torch_cfg(TINY_TAIL), device="cpu", enable_watermark=False)
+    chain_conv.init_random(0)
+    chain_se = np.ones((1, TINY_TAIL["gin_channels"], 1), np.float32)
+    for fast in (False, True):
+        tapi.tts_convert_batched(tts, chain_conv, TEXT, 1, chain_se, chain_se, fast=fast, message="")
+        tapi.tts_convert_single_dispatch(tts, chain_conv, TEXT, 1, chain_se, chain_se, fast=fast, message="")
+        list(tapi.tts_convert_stream(tts, chain_conv, TEXT, 1, chain_se, chain_se, fast=fast, message=""))
     cfg = torch_cfg(TINY)
-    b = tbatcher.ConvertBatcher(torch_model(TINY, jax_params(TINY, seed=24)), cfg, max_batch=2, device="cpu")
+    model = torch_model(TINY, jax_params(TINY, seed=24))
+    b = tbatcher.ConvertBatcher(model, cfg, max_batch=2, device="cpu")
     b.start()
     try:
         fut = b.submit(tbatcher.ConvertRequest(audio=_voice(0.1, 150.0, 25), g_src=np.zeros(cfg.gin_channels),
@@ -573,6 +528,21 @@ def test_cpu_entry_points_never_capture_or_replay(keyed_pair, tts_model, no_cuda
         assert fut.result(timeout=120).size > 0
     finally:
         b.stop()
-    for owner in (tconv, tts, b):
-        assert not owner.graphs.active()
-        assert len(owner.graphs) == owner.graphs.captures == owner.graphs.replays == 0
+    svc = DistributedConvertService(model, cfg, make_mesh(2, data=2, model=1, devices=["cpu", "cpu"]),
+                                    fast=True, device="cpu")
+    req = DistRequest(spec=np.ones((30, cfg.spec_channels), np.float32), n_frames=30, g_src=np.zeros(cfg.gin_channels),
+                      g_tgt=np.zeros(cfg.gin_channels))
+    for _ in range(2):
+        assert svc.convert_round([req, req, req])[0].shape == (30 * cfg.upsample_factor,)
+    root = tmp_path / "train_set"
+    for s, f0 in enumerate((140.0, 230.0)):
+        (root / f"speaker{s}").mkdir(parents=True)
+        write_wav(str(root / f"speaker{s}" / "utt0.wav"), _voice(2.0, f0, 26 + s), SR)
+    state = train(str(root), cfg, steps=2, batch_size=2, segment_frames=24, adversarial=True, log_every=0,
+                  device="cpu")
+    assert state.gen.step == 2
+    owners = [tconv.graphs, tts.graphs, tts.chain_graphs(chain_conv), chain_conv.graphs, b.graphs, state.graphs,
+              *(rep.graphs for rep in svc.replicas.values())]
+    for graphs in owners:
+        assert not graphs.active()
+        assert len(graphs) == graphs.captures == graphs.replays == 0
