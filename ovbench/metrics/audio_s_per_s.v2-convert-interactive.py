@@ -1,0 +1,4 @@
+"""`audio_s_per_s` of the cell v2-convert-interactive alone, under a bound of its own: its runs
+spread about twice as widely as the other cells' (PERF.md §2)."""
+
+from ovbench.metrics.audio_s_per_s import read  # noqa: F401

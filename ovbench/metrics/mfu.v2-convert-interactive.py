@@ -1,0 +1,4 @@
+"""`mfu` of the cell v2-convert-interactive, which reports `audio_s_per_s.v2-convert-interactive`
+in place of `audio_s_per_s`."""
+
+from ovbench.metrics.mfu import read  # noqa: F401
