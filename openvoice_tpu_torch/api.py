@@ -27,10 +27,24 @@ call of a shape runs eagerly and captures the graph; later calls replay it.
 Each instance keeps its graphs in ``self.graphs`` (a TTS model also the
 chains' through each converter, `BaseSpeakerTTS.chain_graphs`);
 ``self.graphs.enabled = False`` runs every call eagerly.
+
+Spans (``runtime/profiler.py::trace``, recorded while a profiler runs): each
+public entry is an ``ov.<entry>`` span (``ov.convert``,
+``ov.tts_convert_batched``, ...; a generator's one a ``next``), named with its
+``fast`` and a request number of the process, and the spans on its thread
+inside it are its parts: ``ov.prepare`` (a call's inputs: audio load,
+reflect pad and bucket buffer, or a TTS group's tokens and stacked encode
+rows), ``ov.noise`` (the host draws), ``ov.text`` (sentence split, cleaners,
+g2p, ids), ``ov.readback`` (the host waiting on the card), ``ov.join`` (the
+sentences and their gaps joined), ``ov.watermark`` and ``GraphCache``'s
+``ov.graph.*``.
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
+import itertools
 import os
 import re
 import weakref
@@ -53,6 +67,7 @@ from openvoice_tpu_torch.pipeline.se_extractor import split_audio_vad
 from openvoice_tpu_torch.pipeline.whisper_seg import make_segmenter, split_audio_whisper
 from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
 from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
+from openvoice_tpu_torch.runtime.profiler import profiling, trace
 from openvoice_tpu_torch.runtime.streaming import voice_conversion_streaming
 
 # the reference's sampling knobs of tts() (api.py:73-98), as the JAX package
@@ -60,6 +75,47 @@ from openvoice_tpu_torch.runtime.streaming import voice_conversion_streaming
 NOISE_SCALE = 0.667
 NOISE_SCALE_W = 0.6
 SDP_RATIO = 0.2
+
+
+_REQUESTS = itertools.count()
+
+
+def _entry(fn):
+    """`fn` as a public entry: while a profiler records, each call (each
+    ``next``, for a generator: a chunk, and last the stream's end) is an
+    ``ov.<name>`` span named with the call's ``fast``, where it has one,
+    and a request number of the process."""
+    name = "ov." + fn.__name__
+    params = inspect.signature(fn).parameters
+    at = list(params).index("fast") if "fast" in params else None
+
+    def span(args, kwargs):
+        if not profiling():
+            return trace(name)
+        named = {"req": next(_REQUESTS)}
+        if at is not None:
+            named["fast"] = kwargs.get("fast", args[at] if len(args) > at else params["fast"].default)
+        return trace(name, args=named)
+
+    if inspect.isgeneratorfunction(fn):
+        @functools.wraps(fn)
+        def chunks(*args, **kwargs):
+            it = fn(*args, **kwargs)
+            while True:
+                with span(args, kwargs):
+                    chunk = next(it, None)
+                if chunk is None:
+                    return
+                yield chunk
+        return chunks
+
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        if not profiling():
+            return fn(*args, **kwargs)
+        with span(args, kwargs):
+            return fn(*args, **kwargs)
+    return call
 
 
 def resolve_device(device: str | torch.device | None) -> torch.device:
@@ -169,6 +225,7 @@ class ToneColorConverter(OpenVoiceBaseClass):
 
     # -- speaker embeddings -------------------------------------------------
 
+    @_entry
     def extract_se(self, ref_wav_list, se_save_path: str | None = None) -> np.ndarray:
         """Per-file SE then mean over files (api.py:114-139); returns
         [1, gin, 1] like the reference's SE tensors."""
@@ -183,6 +240,7 @@ class ToneColorConverter(OpenVoiceBaseClass):
             np.save(se_save_path if se_save_path.endswith(".npy") else se_save_path + ".npy", out)
         return out
 
+    @_entry
     def extract_se_from_file(self, audio_path: str, vad: bool = True) -> np.ndarray:
         """Segment a reference recording, batch the segments through ref_enc,
         mean → [1, gin, 1] (the get_se fast path).
@@ -217,10 +275,12 @@ class ToneColorConverter(OpenVoiceBaseClass):
             lengths[i] = n_frames
         ses = self.graphs.run(GraphKey("tone_color", bucket=bucket, batch=len(prepared)),
                               partial(tone_color_body, model, cfg), {"audio": batch, "lengths": lengths})
-        return ses.mean(dim=0).cpu().numpy()
+        with trace("ov.readback"):
+            return ses.mean(dim=0).cpu().numpy()
 
     # -- conversion ---------------------------------------------------------
 
+    @_entry
     @torch.inference_mode()
     def convert(self, audio_src_path, src_se, tgt_se, output_path: str | None = None,
                 tau: float = 0.3, message: str = "default", seed: int = 0, fast: bool = False):
@@ -232,23 +292,24 @@ class ToneColorConverter(OpenVoiceBaseClass):
         hand-written kernels.
         """
         model, cfg = self._require_model(), self.cfg
-        if isinstance(audio_src_path, (str, os.PathLike)):
-            audio, _ = load_audio(str(audio_src_path), sr=cfg.sampling_rate)
-        else:
-            audio = np.asarray(audio_src_path, np.float32)
-
-        padded, n_frames = _spec_from_audio(audio, cfg)
-        bucket = round_up_to_bucket(n_frames)
-        buf = np.zeros((1, (bucket - 1) * cfg.hop_length + cfg.filter_length), np.float32)
-        buf[0, : len(padded)] = padded
-        # host noise, drawn exactly as the JAX package draws it
-        noise = np.random.default_rng(seed).standard_normal(
-            (1, bucket, cfg.inter_channels)).astype(np.float32)
-        inputs = {"audio": buf, "lengths": np.asarray([n_frames], np.int64), "g_src": _g_host(src_se),
-                  "g_tgt": _g_host(tgt_se), "tau": np.full((1, 1, 1), tau, np.float32), "noise": noise}
+        with trace("ov.prepare"):
+            if isinstance(audio_src_path, (str, os.PathLike)):
+                audio, _ = load_audio(str(audio_src_path), sr=cfg.sampling_rate)
+            else:
+                audio = np.asarray(audio_src_path, np.float32)
+            padded, n_frames = _spec_from_audio(audio, cfg)
+            bucket = round_up_to_bucket(n_frames)
+            buf = np.zeros((1, (bucket - 1) * cfg.hop_length + cfg.filter_length), np.float32)
+            buf[0, : len(padded)] = padded
+            inputs = {"audio": buf, "lengths": np.asarray([n_frames], np.int64), "g_src": _g_host(src_se),
+                      "g_tgt": _g_host(tgt_se), "tau": np.full((1, 1, 1), tau, np.float32)}
+        with trace("ov.noise"):  # host noise, drawn exactly as the JAX package draws it
+            inputs["noise"] = np.random.default_rng(seed).standard_normal(
+                (1, bucket, cfg.inter_channels)).astype(np.float32)
         body = partial(convert_body, model, cfg, fast, self._require_dec_cache() if fast else None)
         out = self.graphs.run(GraphKey("convert", bucket=bucket, batch=1, fast=fast), body, inputs)
-        audio_out = out[0, : n_frames * cfg.upsample_factor, 0].cpu().numpy()
+        with trace("ov.readback"):
+            audio_out = out[0, : n_frames * cfg.upsample_factor, 0].cpu().numpy()
         if self.enable_watermark and message:
             audio_out = self.add_watermark(audio_out, message)
         if output_path is None:
@@ -256,6 +317,7 @@ class ToneColorConverter(OpenVoiceBaseClass):
         write_wav(output_path, audio_out, cfg.sampling_rate)
         return None
 
+    @_entry
     def convert_streaming(self, audio_src_path, src_se, tgt_se, output_path: str | None = None,
                           tau: float = 0.3, message: str = "default", seed: int = 0, fast: bool = True,
                           chunk_frames: int = 896):
@@ -267,14 +329,15 @@ class ToneColorConverter(OpenVoiceBaseClass):
         uploads one window at a time."""
         cfg = self.cfg
         model = self._require_model()
-        if isinstance(audio_src_path, (str, os.PathLike)):
-            audio, _ = load_audio(str(audio_src_path), sr=cfg.sampling_rate)
-        else:
-            audio = np.asarray(audio_src_path, np.float32)
-        padded, n_frames = _spec_from_audio(audio, cfg)
-        spec = host_spectrogram(padded, cfg.filter_length, cfg.hop_length, cfg.win_length)[None]
-        # the first n_frames rows of what `convert` draws for the same seed
-        noise = np.random.default_rng(seed).standard_normal((1, n_frames, cfg.inter_channels)).astype(np.float32)
+        with trace("ov.prepare"):
+            if isinstance(audio_src_path, (str, os.PathLike)):
+                audio, _ = load_audio(str(audio_src_path), sr=cfg.sampling_rate)
+            else:
+                audio = np.asarray(audio_src_path, np.float32)
+            padded, n_frames = _spec_from_audio(audio, cfg)
+            spec = host_spectrogram(padded, cfg.filter_length, cfg.hop_length, cfg.win_length)[None]
+        with trace("ov.noise"):  # the first n_frames rows of what `convert` draws for the same seed
+            noise = np.random.default_rng(seed).standard_normal((1, n_frames, cfg.inter_channels)).astype(np.float32)
         out = voice_conversion_streaming(
             model, spec[:, :n_frames], np.asarray([n_frames]), _g_host(src_se), _g_host(tgt_se),
             float(tau), noise, chunk_frames=chunk_frames, fast=fast,
@@ -356,12 +419,13 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
                 speaker_id = 0
 
         token_seqs = []
-        for sentence in split_sentence(text, language_str=mark):
-            sentence = re.sub(r"([a-z])([A-Z])", r"\1 \2", sentence)
-            seq = text_to_sequence(f"[{mark}]{sentence}[{mark}]", symbols, cleaners)
-            if self.cfg.add_blank:
-                seq = intersperse(seq, 0)
-            token_seqs.append(np.asarray(seq, np.int32))
+        with trace("ov.text"):
+            for sentence in split_sentence(text, language_str=mark):
+                sentence = re.sub(r"([a-z])([A-Z])", r"\1 \2", sentence)
+                seq = text_to_sequence(f"[{mark}]{sentence}[{mark}]", symbols, cleaners)
+                if self.cfg.add_blank:
+                    seq = intersperse(seq, 0)
+                token_seqs.append(np.asarray(seq, np.int32))
         return token_seqs, speaker_id
 
     def _finish(self, pieces: list[np.ndarray], output_path: str | None, speed: float):
@@ -371,6 +435,7 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
         write_wav(output_path, out, self.cfg.sampling_rate)
         return None
 
+    @_entry
     @torch.inference_mode()
     def tts(self, text: str, output_path: str | None, speaker, language: str = "English",
             speed: float = 1.0, seed: int = 0, fast: bool = False):
@@ -387,16 +452,21 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
             t_bucket = round_up_to_bucket(len(tokens))
             padded = np.zeros((1, t_bucket), np.int32)
             padded[0, : len(tokens)] = tokens
-            noise_w = rng_w.standard_normal((1, t_bucket, 2)).astype(np.float32)
+            with trace("ov.noise"):
+                noise_w = rng_w.standard_normal((1, t_bucket, 2)).astype(np.float32)
             enc = _tts_encode(self.graphs, model, padded, np.asarray([len(tokens)], np.int64),
                               np.asarray([speaker_id], np.int64), noise_w, speed)
-            fb = round_up_to_bucket(max(int(enc.w_ceil.sum()), 1))
-            noise = rng_y.standard_normal((1, fb, cfg.inter_channels)).astype(np.float32)
+            with trace("ov.readback"):
+                fb = round_up_to_bucket(max(int(enc.w_ceil.sum()), 1))
+            with trace("ov.noise"):
+                noise = rng_y.standard_normal((1, fb, cfg.inter_channels)).astype(np.float32)
             audio, y_mask = _tts_decode(self.graphs, model, enc, fb, noise, fast, dec_cache)
-            y_len = int(y_mask[0, :, 0].sum())
-            pieces.append(audio[0, : y_len * cfg.upsample_factor, 0].cpu().numpy())
+            with trace("ov.readback"):
+                y_len = int(y_mask[0, :, 0].sum())
+                pieces.append(audio[0, : y_len * cfg.upsample_factor, 0].cpu().numpy())
         return self._finish(pieces, output_path, speed)
 
+    @_entry
     @torch.inference_mode()
     def tts_batched(self, text: str, output_path: str | None, speaker, language: str = "English",
                     speed: float = 1.0, seed: int = 0, fast: bool = False):
@@ -415,12 +485,13 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
         pieces: list[np.ndarray | None] = [None] * n
         dec_cache = self._require_dec_cache() if fast else None
         for fb, idxs in frame_groups(enc_rows).items():
-            enc = _stack_enc_rows(enc_rows, idxs, g_row)
-            noise = np.stack([noise_rngs[i][1].standard_normal((fb, cfg.inter_channels)).astype(np.float32)
-                              for i in idxs])
+            with trace("ov.prepare"):
+                enc = _stack_enc_rows(enc_rows, idxs, g_row)
+                noise = _draw_rows([r[1] for r in noise_rngs], idxs, fb, cfg.inter_channels)
             audio, y_mask = _tts_decode(self.graphs, model, enc, fb, noise, fast, dec_cache)
-            audio = audio[..., 0].cpu().numpy()
-            y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
+            with trace("ov.readback"):
+                audio = audio[..., 0].cpu().numpy()
+                y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
             for r, i in enumerate(idxs):
                 pieces[i] = audio[r, : y_lengths[r] * cfg.upsample_factor]
         return self._finish(pieces, output_path, speed)
@@ -468,15 +539,18 @@ def _finish_cloned(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, pie
 def _draw_rows(rngs, idxs, frames: int, channels: int) -> np.ndarray:
     """One standard-normal [frames, channels] draw per sentence in `idxs`,
     from its generator, stacked."""
-    return np.stack([rngs[i].standard_normal((frames, channels)).astype(np.float32) for i in idxs])
+    with trace("ov.noise"):
+        return np.stack([rngs[i].standard_normal((frames, channels)).astype(np.float32) for i in idxs])
 
 
 def _on_host(out: tuple) -> tuple:
     """A chain's outputs copied to host memory (`GraphCache.run`'s consumer,
     before another replay may overwrite them)."""
-    return tuple(x.cpu() for x in out)
+    with trace("ov.readback"):
+        return tuple(x.cpu() for x in out)
 
 
+@_entry
 @torch.inference_mode()
 def tts_convert_batched(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, text: str, speaker, src_se,
                         tgt_se, language: str = "English", speed: float = 1.0, tau: float = 0.3, seed: int = 0,
@@ -504,6 +578,7 @@ def tts_convert_batched(tts_model: BaseSpeakerTTS, converter: ToneColorConverter
     return _finish_cloned(tts_model, converter, pieces, output_path, speed, message)
 
 
+@_entry
 @torch.inference_mode()
 def tts_convert_single_dispatch(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, text: str, speaker,
                                 src_se, tgt_se, language: str = "English", speed: float = 1.0, tau: float = 0.3,
@@ -548,6 +623,7 @@ def tts_convert_single_dispatch(tts_model: BaseSpeakerTTS, converter: ToneColorC
     return _finish_cloned(tts_model, converter, pieces, output_path, speed, message)
 
 
+@_entry
 @torch.inference_mode()
 def tts_convert_stream(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, text: str, speaker, src_se,
                        tgt_se, language: str = "English", speed: float = 1.0, tau: float = 0.3, seed: int = 0,
@@ -589,13 +665,14 @@ def _synthesize_convert(chain: _Chain, token_seqs, idxs: list[int], tb: int, fb:
     shape → host (audio [m, fb·upsample], decoded frames [m], uncapped
     duration sums [m])."""
     m = len(idxs)
-    toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
-    inputs = {"tokens": toks, "lengths": lens, "sid": np.full(m, speaker_id, np.int64), "noise_w": noise_w,
-              "noise_dec": _draw_rows([r[1] for r in noise_rngs], idxs, fb, chain.model.cfg.inter_channels),
-              **_conv_inputs(chain, m, tau), "noise_conv": _draw_rows(conv_rngs, idxs, fb,
-                                                                      chain.conv_model.cfg.inter_channels),
-              "noise_scale": np.float32(NOISE_SCALE), "noise_scale_w": np.float32(NOISE_SCALE_W),
-              "length_scale": np.float32(1.0 / speed), "sdp_ratio": np.float32(SDP_RATIO)}
+    with trace("ov.prepare"):
+        toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
+        inputs = {"tokens": toks, "lengths": lens, "sid": np.full(m, speaker_id, np.int64), "noise_w": noise_w,
+                  "noise_dec": _draw_rows([r[1] for r in noise_rngs], idxs, fb, chain.model.cfg.inter_channels),
+                  **_conv_inputs(chain, m, tau), "noise_conv": _draw_rows(conv_rngs, idxs, fb,
+                                                                          chain.conv_model.cfg.inter_channels),
+                  "noise_scale": np.float32(NOISE_SCALE), "noise_scale_w": np.float32(NOISE_SCALE_W),
+                  "length_scale": np.float32(1.0 / speed), "sdp_ratio": np.float32(SDP_RATIO)}
     key = GraphKey("tts_synthesize_convert", bucket=tb, batch=m, fast=chain.fast, max_frames=fb)
     body = partial(tts_synthesize_convert_body, chain.model, chain.conv_model, fb, chain.fast, chain.tts_cache,
                    chain.conv_cache)
@@ -621,10 +698,12 @@ def _decode_convert_groups(chain: _Chain, enc_rows: list[dict], sent_ids: list[i
     g_row = chain.model.emb_g.weight[speaker_id][None, :]
     for fb, ks in frame_groups(enc_rows).items():
         m, ids = len(ks), [sent_ids[k] for k in ks]
-        enc = _stack_enc_rows(enc_rows, ks, g_row)
-        inputs = {**enc._asdict(), "noise_dec": _draw_rows(dec_rngs, ids, fb, cfg.inter_channels),
-                  **_conv_inputs(chain, m, tau), "noise_conv": _draw_rows(conv_rngs, ids, fb, ccfg.inter_channels),
-                  "noise_scale": np.float32(NOISE_SCALE)}
+        with trace("ov.prepare"):
+            enc = _stack_enc_rows(enc_rows, ks, g_row)
+            inputs = {**enc._asdict(), "noise_dec": _draw_rows(dec_rngs, ids, fb, cfg.inter_channels),
+                      **_conv_inputs(chain, m, tau), "noise_conv": _draw_rows(conv_rngs, ids, fb,
+                                                                              ccfg.inter_channels),
+                      "noise_scale": np.float32(NOISE_SCALE)}
         key = GraphKey("tts_decode_convert", bucket=enc.m_p.shape[1], batch=m, fast=chain.fast, max_frames=fb)
         body = partial(tts_decode_convert_body, chain.model, chain.conv_model, fb, chain.fast, chain.tts_cache,
                        chain.conv_cache)
@@ -651,11 +730,12 @@ def _two_stage_pieces(chain: _Chain, token_seqs, sent_ids: list[int], seed: int,
 
 def frame_groups(enc_rows: list[dict]) -> dict[int, list[int]]:
     """Sentence indices grouped by the frame bucket of their duration sum,
-    in first-seen order: one decode a group."""
+    in first-seen order: one decode a group.  Each sum waits for the card."""
     groups: dict[int, list[int]] = {}
-    for i, row in enumerate(enc_rows):
-        total = int(row["w_ceil"].sum())
-        groups.setdefault(round_up_to_bucket(max(total, 1)), []).append(i)
+    with trace("ov.readback"):
+        for i, row in enumerate(enc_rows):
+            total = int(row["w_ceil"].sum())
+            groups.setdefault(round_up_to_bucket(max(total, 1)), []).append(i)
     return groups
 
 
@@ -666,10 +746,11 @@ def _pack_token_batch(token_seqs, idxs, tb, noise_rngs):
     toks = np.zeros((m, tb), np.int32)
     lens = np.zeros(m, np.int32)
     noise_w = np.zeros((m, tb, 2), np.float32)
-    for r, i in enumerate(idxs):
-        toks[r, : len(token_seqs[i])] = token_seqs[i]
-        lens[r] = len(token_seqs[i])
-        noise_w[r] = noise_rngs[i][0].standard_normal((tb, 2)).astype(np.float32)
+    with trace("ov.noise"):
+        for r, i in enumerate(idxs):
+            toks[r, : len(token_seqs[i])] = token_seqs[i]
+            lens[r] = len(token_seqs[i])
+            noise_w[r] = noise_rngs[i][0].standard_normal((tb, 2)).astype(np.float32)
     return toks, lens, noise_w
 
 
@@ -685,7 +766,8 @@ def _encode_rows(model: S.Synthesizer, token_seqs, speaker_id: int, speed: float
     for i, seq in enumerate(token_seqs):
         groups.setdefault(round_up_to_bucket(len(seq)), []).append(i)
     for tb, idxs in groups.items():
-        toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
+        with trace("ov.prepare"):
+            toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
         enc = _tts_encode(graphs, model, toks, lens.astype(np.int64), np.full(len(idxs), speaker_id, np.int64),
                           noise_w, speed)
         for r, i in enumerate(idxs):
@@ -810,23 +892,26 @@ def _sentence_noise_rngs(seed: int, n: int) -> list[tuple[np.random.Generator, n
     """Per-sentence (sdp noise, decode noise) numpy generators, spawned as the
     JAX package spawns them; `tts` and `tts_batched` share them."""
     out = []
-    for child in np.random.SeedSequence(seed).spawn(n):
-        w_ss, y_ss = child.spawn(2)
-        out.append((np.random.default_rng(w_ss), np.random.default_rng(y_ss)))
+    with trace("ov.noise"):
+        for child in np.random.SeedSequence(seed).spawn(n):
+            w_ss, y_ss = child.spawn(2)
+            out.append((np.random.default_rng(w_ss), np.random.default_rng(y_ss)))
     return out
 
 
 def _sentence_conv_rngs(seed: int, n: int) -> list[np.random.Generator]:
     """Per-sentence conversion-noise generators of the fused chains, spawned
     as the JAX package spawns them (a root apart from the TTS draws)."""
-    return [np.random.default_rng(ss) for ss in np.random.SeedSequence([seed, 0xC04]).spawn(n)]
+    with trace("ov.noise"):
+        return [np.random.default_rng(ss) for ss in np.random.SeedSequence([seed, 0xC04]).spawn(n)]
 
 
 def _concat_with_gaps(pieces: list[np.ndarray], sr: int, speed: float) -> np.ndarray:
     """0.05 s ÷ speed of silence after each sentence (api.py:56-63)."""
-    gap = np.zeros(int(sr * 0.05 / speed), np.float32)
-    out: list[np.ndarray] = []
-    for p in pieces:
-        out.append(np.asarray(p, np.float32).reshape(-1))
-        out.append(gap)
-    return np.concatenate(out) if out else np.zeros(0, np.float32)
+    with trace("ov.join"):
+        gap = np.zeros(int(sr * 0.05 / speed), np.float32)
+        out: list[np.ndarray] = []
+        for p in pieces:
+            out.append(np.asarray(p, np.float32).reshape(-1))
+            out.append(gap)
+        return np.concatenate(out) if out else np.zeros(0, np.float32)

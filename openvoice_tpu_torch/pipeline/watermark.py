@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from openvoice_tpu_torch.runtime.profiler import trace
 from openvoice_tpu_torch.utils import bits_to_string, string_to_bits
 
 K = 16000  # samples per watermark window (api.py:169)
@@ -111,24 +112,25 @@ def add_watermark(audio: np.ndarray, message: str) -> np.ndarray:
     """
     if not message:
         return audio
-    audio = np.array(audio, dtype=np.float32, copy=True)
-    bits = string_to_bits(message).reshape(-1)
-    n_repeat = len(bits) // BITS_PER_WINDOW
-    n_slots = max(0, (len(audio) - K) // (COEFF * K) + 1)
-    if n_slots < n_repeat:
-        print("Audio too short, fail to add watermark")
-    for m in range(n_slots):
-        start = (COEFF * m) * K
-        chunk = audio[start : start + K]
-        n = m % n_repeat
-        window_bits = bits[n * BITS_PER_WINDOW : (n + 1) * BITS_PER_WINDOW]
-        idx_bits = np.array([(m >> b) & 1 for b in range(N_IDX_BITS)], np.int64)
-        audio[start : start + K] = (
-            chunk
-            + _qim_embed(chunk, _PN, window_bits)
-            + _qim_embed(chunk, _PN_IDX, idx_bits)
-        )
-    return audio
+    with trace("ov.watermark", args={"samples": len(audio)}):
+        audio = np.array(audio, dtype=np.float32, copy=True)
+        bits = string_to_bits(message).reshape(-1)
+        n_repeat = len(bits) // BITS_PER_WINDOW
+        n_slots = max(0, (len(audio) - K) // (COEFF * K) + 1)
+        if n_slots < n_repeat:
+            print("Audio too short, fail to add watermark")
+        for m in range(n_slots):
+            start = (COEFF * m) * K
+            chunk = audio[start : start + K]
+            n = m % n_repeat
+            window_bits = bits[n * BITS_PER_WINDOW : (n + 1) * BITS_PER_WINDOW]
+            idx_bits = np.array([(m >> b) & 1 for b in range(N_IDX_BITS)], np.int64)
+            audio[start : start + K] = (
+                chunk
+                + _qim_embed(chunk, _PN, window_bits)
+                + _qim_embed(chunk, _PN_IDX, idx_bits)
+            )
+        return audio
 
 
 # lattice-fit residual below this = "this really is our QIM lattice".

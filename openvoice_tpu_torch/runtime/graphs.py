@@ -43,6 +43,12 @@ capture's tally (`ops.recording_launches`), and each replay adds that tally
 to the wrappers' ``launches`` counts, so a replayed call counts what the
 eager call counts.
 
+Spans (``runtime/profiler.py::trace``, while a profiler records):
+``ov.graph.stage`` (the inputs' copies through pinned memory),
+``ov.graph.replay`` (the replay and its launch accounting) and
+``ov.graph.capture`` (warm-up and capture), each named with the key's site,
+bucket and batch.  None goes inside a body.
+
 Nothing falls back: a capture or replay that fails raises.  On the CPU, or
 with ``enabled = False``, `run` calls the body eagerly and never captures or
 replays anything.
@@ -66,6 +72,7 @@ import torch
 
 from openvoice_tpu_torch import ops
 from openvoice_tpu_torch.runtime.mesh import pinned, upload
+from openvoice_tpu_torch.runtime.profiler import trace
 
 
 class GraphKey(NamedTuple):
@@ -241,22 +248,26 @@ class GraphCache:
                 cur.wait_event(last)
             graph = self._graphs.get(key)
             if graph is None:  # the warm-up's outputs are the caller's own
-                out = self._capture(key, body, inputs, cur, side)
+                with trace("ov.graph.capture", args=_span_args(key)):
+                    out = self._capture(key, body, inputs, cur, side)
                 out = out if consume is None else consume(out)
             else:  # the pool's: consumed here, before another replay may run
-                out = self._replay(graph, inputs)
+                out = self._replay(key, graph, inputs)
                 out = _clone(out) if consume is None else consume(out)
             done = torch.cuda.Event()
             done.record(cur)
             _LAST[self.device] = done
             return out
 
-    def _replay(self, graph: CapturedGraph, inputs: dict):
+    def _replay(self, key: GraphKey, graph: CapturedGraph, inputs: dict):
         """Stage, replay, count the recorded launches; returns the graph's
         own outputs."""
-        stage(graph.inputs, inputs)
-        graph.graph.replay()
-        ops.add_launches(graph.tally)
+        args = _span_args(key)
+        with trace("ov.graph.stage", args=args):
+            stage(graph.inputs, inputs)
+        with trace("ov.graph.replay", args=args):
+            graph.graph.replay()
+            ops.add_launches(graph.tally)
         self.replays += 1
         return graph.outputs
 
@@ -283,3 +294,6 @@ class GraphCache:
         self.captures += 1
         self.capture_seconds += capture_s
         return warm
+
+def _span_args(key: GraphKey) -> dict:
+    return {"site": key.site, "bucket": key.bucket, "batch": key.batch}

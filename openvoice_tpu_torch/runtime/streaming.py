@@ -28,6 +28,7 @@ import torch
 
 from openvoice_tpu_torch.models.synthesizer import Synthesizer, voice_conversion_masked
 from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
+from openvoice_tpu_torch.runtime.profiler import trace
 from openvoice_tpu_torch.runtime.sequence_parallel import required_halo
 
 
@@ -87,7 +88,8 @@ def voice_conversion_streaming(model: Synthesizer, spec, spec_lengths, g_src, g_
                   "tau": taus, "noise": nwin}
 
         def emitted(audio, offset=offset):  # a view of the window's output, copied out at once
-            return audio[:, offset * up:(offset + chunk_frames) * up, 0].to("cpu", copy=True).numpy()
+            with trace("ov.readback"):
+                return audio[:, offset * up:(offset + chunk_frames) * up, 0].to("cpu", copy=True).numpy()
 
         pieces.append(graphs.run(key, body, inputs, consume=emitted))
     return np.concatenate(pieces, axis=1)[:, : t * up, None]

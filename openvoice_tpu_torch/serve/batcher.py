@@ -30,6 +30,19 @@ up through pinned memory asynchronously, and a reader thread waits for each
 group's copy back to host memory, so that one group's packing and readback
 overlap another group's compute.
 
+Spans (``runtime/profiler.py::trace``, recorded while a profiler runs):
+``ov.batcher.plan`` (the planner over the pending pool), ``ov.batcher.pack``
+(the host arrays, the PCM pad and round; its name carries the group's
+number, rows, bucket and request ids), ``ov.noise``, ``convert_batch`` (the
+enqueue of the group's call; its latency also goes into ``METRICS``) and, on
+the reader thread, ``ov.batcher.readback`` (the wait for the copy) and
+``ov.batcher.answer`` (the int16 → float step and the answers), both named
+with the group's number.  Each dispatched group adds to ``METRICS``, under
+one lock: ``batches``, ``busy_seconds``, ``queue_seconds`` (its requests'
+waits from submit to dispatch), ``dispatched_requests``, ``true_frames``
+(their frames) and ``dispatched_frames`` (bucket × padded rows, the rows
+added for sharding included).
+
 Each group runs as a replay of one CUDA graph per (mode, bucket, padded
 batch, fast) from its second call of that shape on (``runtime/graphs.py``;
 the JAX package's ``_jit_convert_pcm16`` and ``voice_conversion_jit``): the
@@ -40,6 +53,7 @@ mesh each data position's shard of a group replays its own graph, from the
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -63,6 +77,9 @@ from openvoice_tpu_torch.runtime.parallel import make_replicas
 from openvoice_tpu_torch.runtime.profiler import METRICS, trace
 
 
+_REQUEST_IDS = itertools.count()
+
+
 @dataclass
 class ConvertRequest:
     spec: np.ndarray | None = None  # [n_frames, n_freq] true-length spectrogram (spec mode)
@@ -76,6 +93,7 @@ class ConvertRequest:
     audio: np.ndarray | None = None
     future: Future = field(default_factory=Future)
     enqueued_at: float = field(default_factory=time.perf_counter)
+    request_id: int = field(default_factory=_REQUEST_IDS.__next__)  # the process's, ties spans to requests
 
 
 def _wire_int16(audio: torch.Tensor) -> torch.Tensor:
@@ -86,10 +104,11 @@ def _wire_int16(audio: torch.Tensor) -> torch.Tensor:
 def row_noise(seeds: list[int], frames: int, channels: int, device: torch.device) -> torch.Tensor:
     """The PCM mode's noise [B, frames, channels]: row i from
     ``torch.Generator(device)`` seeded with seeds[i]."""
-    return torch.stack([
-        torch.randn(frames, channels, generator=torch.Generator(device).manual_seed(s), device=device)
-        for s in seeds
-    ])
+    with trace("ov.noise"):
+        return torch.stack([
+            torch.randn(frames, channels, generator=torch.Generator(device).manual_seed(s), device=device)
+            for s in seeds
+        ])
 
 
 def _convert_pcm16(model: S.Synthesizer, cfg: SynthesizerConfig, pcm: torch.Tensor, spec_lengths: torch.Tensor,
@@ -189,6 +208,7 @@ class ConvertBatcher:
         self._readq: queue.Queue[tuple | None] = queue.Queue(maxsize=4)
         self._reader = threading.Thread(target=self._read_loop, daemon=True)
         self._running = False
+        self._groups = itertools.count()  # the number of each dispatched group, in its spans
 
     def start(self) -> None:
         self._running = True
@@ -299,7 +319,9 @@ class ConvertBatcher:
                          [r for r in pending if r.audio is None]):
                 if not mode:
                     continue
-                for idx, bucket, padded_batch in plan_groups([r.n_frames for r in mode], max_batch=self.max_batch):
+                with trace("ov.batcher.plan", args={"pending": len(mode)}):
+                    plan = plan_groups([r.n_frames for r in mode], max_batch=self.max_batch)
+                for idx, bucket, padded_batch in plan:
                     group = [mode[i] for i in idx]
                     full = len(group) >= self._full_batch
                     due = any(r.enqueued_at + self.max_wait_s <= now for r in group)
@@ -311,42 +333,47 @@ class ConvertBatcher:
 
     def _dispatch(self, bucket: int, group: list[ConvertRequest], padded_batch: int) -> None:
         cfg = self.cfg
+        t_dispatch = time.perf_counter()
+        number = next(self._groups)
         try:
             n_shards = len(self._shards)
             n = -(-padded_batch // n_shards) * n_shards  # whole rows per data shard
-            lengths = np.zeros(n, np.int64)  # padded rows stay length 0: fully masked
-            g_src = np.zeros((n, 1, cfg.gin_channels), np.float32)
-            g_tgt = np.zeros((n, 1, cfg.gin_channels), np.float32)
-            taus = np.zeros((n, 1, 1), np.float32)
-            for i, r in enumerate(group):
-                lengths[i] = r.n_frames
-                g_src[i, 0] = np.asarray(r.g_src, np.float32).reshape(-1)
-                g_tgt[i, 0] = np.asarray(r.g_tgt, np.float32).reshape(-1)
-                taus[i, 0, 0] = r.tau
-            t0 = time.perf_counter()
-            if group[0].audio is not None:
-                pad = (cfg.filter_length - cfg.hop_length) // 2
-                target = (bucket - 1) * cfg.hop_length + cfg.filter_length
-                pcm = np.zeros((n, target), np.int16)
-                seeds = [0] * n
+            with trace("ov.batcher.pack", args={"group": number, "rows": n, "bucket": bucket,
+                                                "requests": ",".join(str(r.request_id) for r in group)}):
+                lengths = np.zeros(n, np.int64)  # padded rows stay length 0: fully masked
+                g_src = np.zeros((n, 1, cfg.gin_channels), np.float32)
+                g_tgt = np.zeros((n, 1, cfg.gin_channels), np.float32)
+                taus = np.zeros((n, 1, 1), np.float32)
                 for i, r in enumerate(group):
-                    a = np.asarray(r.audio, np.float32)
-                    padded = np.concatenate([a[1 : pad + 1][::-1], a, a[-pad - 1 : -1][::-1]])[:target]
-                    pcm[i, : len(padded)] = np.round(np.clip(padded, -1.0, 1.0) * 32767.0).astype(np.int16)
-                    seeds[i] = int(r.seed)
-            else:
-                spec = np.zeros((n, bucket, cfg.spec_channels), np.float32)
-                noise = np.zeros((n, bucket, cfg.inter_channels), np.float32)
-                for i, r in enumerate(group):
-                    spec[i, : r.n_frames] = r.spec
-                    noise[i] = np.random.default_rng(r.seed).standard_normal(
-                        (bucket, cfg.inter_channels)).astype(np.float32)
+                    lengths[i] = r.n_frames
+                    g_src[i, 0] = np.asarray(r.g_src, np.float32).reshape(-1)
+                    g_tgt[i, 0] = np.asarray(r.g_tgt, np.float32).reshape(-1)
+                    taus[i, 0, 0] = r.tau
+                t0 = time.perf_counter()
+                if group[0].audio is not None:
+                    pad = (cfg.filter_length - cfg.hop_length) // 2
+                    target = (bucket - 1) * cfg.hop_length + cfg.filter_length
+                    pcm = np.zeros((n, target), np.int16)
+                    seeds = [0] * n
+                    for i, r in enumerate(group):
+                        a = np.asarray(r.audio, np.float32)
+                        padded = np.concatenate([a[1 : pad + 1][::-1], a, a[-pad - 1 : -1][::-1]])[:target]
+                        pcm[i, : len(padded)] = np.round(np.clip(padded, -1.0, 1.0) * 32767.0).astype(np.int16)
+                        seeds[i] = int(r.seed)
+                else:
+                    spec = np.zeros((n, bucket, cfg.spec_channels), np.float32)
+                    noise = np.zeros((n, bucket, cfg.inter_channels), np.float32)
+                    for i, r in enumerate(group):
+                        spec[i, : r.n_frames] = r.spec
+                        with trace("ov.noise"):
+                            noise[i] = np.random.default_rng(r.seed).standard_normal(
+                                (bucket, cfg.inter_channels)).astype(np.float32)
             per = n // n_shards
             host, events = None, []
             if self.device.type == "cuda":
                 host = torch.empty((n, bucket * cfg.upsample_factor), dtype=torch.int16, pin_memory=True)
             wires = []
-            with trace("convert_batch"):
+            with trace("convert_batch", METRICS):
                 for k, dev in enumerate(self._shards):
                     rows = slice(k * per, (k + 1) * per)
                     inputs = {"lengths": lengths[rows], "g_src": g_src[rows], "g_tgt": g_tgt[rows],
@@ -363,9 +390,12 @@ class ConvertBatcher:
                     events += done
             if host is None:
                 host = torch.cat(wires)
-            METRICS.add("busy_seconds", time.perf_counter() - t0)
-            METRICS.add("batches")
-            self._readq.put((host, events, group))
+            METRICS.add_many({"busy_seconds": time.perf_counter() - t0, "batches": 1.0,
+                              "queue_seconds": sum(t_dispatch - r.enqueued_at for r in group),
+                              "dispatched_requests": float(len(group)),
+                              "true_frames": float(sum(r.n_frames for r in group)),
+                              "dispatched_frames": float(bucket * n)})
+            self._readq.put((host, events, group, number))
         except Exception as exc:  # noqa: BLE001 — a failed call fails its group only
             tb = traceback.format_exc()
             for r in group:
@@ -390,16 +420,18 @@ class ConvertBatcher:
             item = self._readq.get()
             if item is None:
                 break
-            host, events, group = item
+            host, events, group, number = item
             try:
-                for done in events:
-                    done.synchronize()
-                audio = host.numpy().astype(np.float32) / 32767.0  # int16 wire → float
-                for i, r in enumerate(group):
-                    samples = r.n_frames * cfg.upsample_factor
-                    r.future.set_result(audio[i, :samples])
-                    METRICS.add("audio_seconds", samples / cfg.sampling_rate)
-                    METRICS.observe("request_latency", time.perf_counter() - r.enqueued_at)
+                with trace("ov.batcher.readback", args={"group": number}):
+                    for done in events:
+                        done.synchronize()
+                with trace("ov.batcher.answer", args={"group": number}):
+                    audio = host.numpy().astype(np.float32) / 32767.0  # int16 wire → float
+                    for i, r in enumerate(group):
+                        samples = r.n_frames * cfg.upsample_factor
+                        r.future.set_result(audio[i, :samples])
+                        METRICS.add("audio_seconds", samples / cfg.sampling_rate)
+                        METRICS.observe("request_latency", time.perf_counter() - r.enqueued_at)
             except Exception as exc:  # noqa: BLE001 — a failed readback fails its group only
                 for r in group:
                     if not r.future.done():

@@ -9,7 +9,23 @@ Endpoints:
   POST /clone     {text, src_se, tgt_se | tgt_ref_path, mode: fused|single}
                   — the text → cloned audio chain through the fused calls
   GET  /healthz   liveness
-  GET  /metrics   JSON metrics snapshot (latency, audio-seconds)
+  GET  /metrics   JSON metrics snapshot: latency percentiles (``request_latency``,
+                  ``convert_batch``) and the counters; the batcher's
+                  ``batches``, ``busy_seconds``, ``audio_seconds``,
+                  ``queue_seconds`` (its requests' waits from submit to the
+                  dispatch of their group), ``dispatched_requests``,
+                  ``true_frames`` (their frames) and ``dispatched_frames``
+                  (bucket × padded rows): a rise of queue_seconds over one of
+                  dispatched_requests is the mean queue wait, one minus
+                  true_frames over dispatched_frames the padded share
+
+A trace of the serving tier with the port's spans (``ov.batcher.plan``,
+``ov.batcher.pack``, ``convert_batch``, ``ov.batcher.readback``,
+``ov.batcher.answer``, ``ov.graph.*``; ``runtime/profiler.py``): wrap a
+stretch of traffic in ``profile_to(dir)``, which records every thread (the
+batcher's dispatch and reader threads too) and writes
+``dir/trace.json`` for a Chrome trace viewer.  With no profiler running the
+spans cost one flag read each.
 
 Audio-bearing responses take an optional `format`: "f32" (default, exact),
 "pcm16", "wav", or "mp3" (+ optional `kbps`, through the in-repo lame
