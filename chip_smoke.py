@@ -5,7 +5,8 @@
     python3 chip_smoke.py --sweep [wn coupling mrf tail]
                                    # instead: time K1-K4 (or those named) over
                                    # tile sizes, warps, K1's and K2's cluster
-                                   # size and K3's ring depth
+                                   # size, K3's warpgroups, product width and
+                                   # ring depth
     python3 chip_smoke.py --elastic     # instead: build, then phase 11 alone
     python3 chip_smoke.py --installed   # instead: build, then phase 12 alone
     python3 chip_smoke.py --tf32-control
@@ -332,8 +333,12 @@ def build() -> None:
         for line in report.splitlines():
             if "Compiling entry function" in line:
                 print(f"  {name}: {line.split(chr(39))[1]}")
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  {name}:   {line.strip()}")
+        # ptxas waits for every product of a warpgroup when it cannot prove
+        # the products' registers untouched while they run: K3's speed
+        check("wgmma.mma_async instructions are serialized" not in report,
+              f"csrc/{name}.cu: ptxas serialized the wgmma products (see the report above)")
         _nvcc.load(name)
 
 
@@ -690,19 +695,32 @@ def mrf_check(kind: str, gen) -> dict:
 
     phase("3d. kernel check: K3 mrf_stage (csrc/mrf.cu) vs its plain version")
     max_err, ms, hot_ms, plain_ms, stock_ms, flop, nbytes, stage_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, []
-    # V2 stages 0 and 1 of the 10 s clip, and a ragged batch of each width
+    launch = []
+    # V2 stages 0 and 1 of the 10 s clip; a batcher group of 8 ragged rows at
+    # bucket 256; the chain's shortest sentence (a 3-word line, 98 frames, in
+    # bucket 128); and a ragged batch of each width
     for c, rate in [(256, 8), (128, 64)]:
         rbs = resblocks(c, gen)
         rbs16 = copy.deepcopy(rbs).to(torch.bfloat16)
         packed = mrf_cuda.pack_stage_weights(list(rbs))
         timed = None
+        group = [256 * rate - 37 * rate * i for i in range(8)]
         for label, t, lengths in [(f"stage C={c} B=1 T={BUCKET * rate}", BUCKET * rate, [FRAMES * rate]),
+                                  (f"group C={c} B=8 T={256 * rate}", 256 * rate, group),
+                                  (f"chain C={c} B=1 T={128 * rate}", 128 * rate, [98 * rate]),
                                   (f"ragged C={c} B=2 T=1001", 1001, [1001, 613])]:
             x, lens = rand_bf16(gen, len(lengths), t, c), lens_on_card(lengths)
             out = mrf_cuda.mrf_stage(x, lens, packed)
             max_err = max(max_err, agree(label, out, mrf_cuda.mrf_stage_plain(x, lens, packed), MRF_MEAN_TOL, lengths))
             timed = timed or (x, lens, t, lengths[0])
         x, lens, t, n = timed
+        rows, tile, stages, width, _ = mrf_cuda.launch_plan(c, t, packed["kernel_sizes"], packed["dilation_sizes"])
+        attrs = mrf_cuda.kernel_attributes(width, mrf_cuda._WARPGROUPS)
+        launch.append({"c": c, "rows": rows, "tile": tile, "stages": stages, "group": mrf_cuda.group_steps(width),
+                       "width": width, "warpgroups": mrf_cuda._WARPGROUPS, **attrs})
+        print(f"K3 launch C={c}: {rows}/{tile} rows, {stages} ring slabs in groups of "
+              f"{mrf_cuda.group_steps(width)}, m64n{width} products, {mrf_cuda._WARPGROUPS} warpgroups, "
+              f"{attrs['registers']} registers, {attrs['spill_bytes']} B local, {-(-t // tile)} tiles")
         mask = (torch.arange(t, device="cuda") < n).to(torch.bfloat16)[None, None]
         x_bct = (x.transpose(1, 2) * mask).contiguous()
         stock = stock_mrf(rbs16, x_bct, mask).transpose(1, 2)
@@ -722,7 +740,7 @@ def mrf_check(kind: str, gen) -> dict:
     entry = kernel_entry(kind, "mrf_stage", "openvoice_tpu_torch/csrc/mrf.cu",
                          "openvoice_tpu/ops/mrf_pallas.py:515", max_err, ms, hot_ms, plain_ms, stock_ms, flop,
                          nbytes)
-    return {**entry, "stage_ms": stage_ms}
+    return {**entry, "stage_ms": stage_ms, "mrf_launch": launch}
 
 
 def tail_check(kind: str, gen) -> dict:
@@ -823,8 +841,8 @@ def print_windows() -> None:
 
 def sweep(kind: str, only: list[str]) -> None:
     """Time K1-K4 at the main path's shapes over the knobs their wrappers
-    have: the rows a block keeps and its threads, and the weight-ring slabs
-    K3's window leaves room for (more slabs, fewer rows).  Each variant goes
+    have: the rows a block keeps and its threads, and K3's warpgroups, widest
+    product and weight-ring depth.  Each variant goes
     through the kernel's whole check, so a variant that disagrees with the
     plain version fails the run.  The wrappers' defaults were chosen from
     this table."""
@@ -847,8 +865,12 @@ def sweep(kind: str, only: list[str]) -> None:
     grids = [
         (wn_check, "wn_cuda", wn_knobs),
         (coupling_check, "coupling_cuda", coupling),
-        (mrf_check, "mrf_cuda", knobs((tile, th) for tile in (128, 256, 4096) for th in (256, 384))
-         + [{"_RING_RESERVE": n} for n in (3, 4, 6, 8)]),
+        # K3: warpgroups, the widest product (C = 256 in two 128-column
+        # parts), the ring's depth (one group a stage at C = 128), and a
+        # 200-row tile target (a 320-row window and 16 slabs at C = 128;
+        # C = 256 keeps its 192 rows)
+        (mrf_check, "mrf_cuda", [{"_WARPGROUPS": 3}, {"_WARPGROUPS": 2}, {"_WARPGROUPS": 4, "_WIDTH_MAX": 128},
+                                 {"_WIDTH_MAX": 128}, {"_MAX_STAGES": 4}, {"_TILE_TARGET": 200}]),
         # K4: the tile a block keeps (the windows it gives: stage 2 384, 448
         # and 512 rows, stage 3 384, 512, 704 and 960) and threads
         (tail_check, "tail_cuda", knobs((tile, th) for tile in (256, 328, 576, 4096) for th in (384, 512))),
@@ -867,7 +889,7 @@ def sweep(kind: str, only: list[str]) -> None:
             entry = fn(kind, gen)
             table.append((entry["name"], {**default, **variant}, entry["ms"], entry.get("stage_ms", []),
                           entry["stock_bf16_ms"], {**default, **variant} == default,
-                          entry.get("cluster") or entry.get("stage_launch")))
+                          entry.get("cluster") or entry.get("stage_launch") or entry.get("mrf_launch")))
         for k, v in default.items():
             setattr(mod, k, v)
     if not only or "mrf" in only:
@@ -883,6 +905,11 @@ def sweep(kind: str, only: list[str]) -> None:
             regs = f", {launch['registers']} regs, {launch['spill_bytes']} B spilled" if "registers" in launch else ""
             full = f", {launch['full_ms']:.4f} ms at {BUCKET} frames" if "full_ms" in launch else ""
             clusters = f"  [{launch['ctas']} CTAs, {launch['max_clusters']} clusters fit{regs}{full}]"
+        elif launch and "width" in launch[0]:   # K3's launch per stage
+            clusters = "  [" + "; ".join(
+                f"C={st['c']} {st['rows']}/{st['tile']} rows, {st['stages']} slabs by {st['group']}, "
+                f"m64n{st['width']} x {st['warpgroups']}, {st['registers']} regs, {st['spill_bytes']} B local"
+                for st in launch) + "]"
         elif launch:                  # K4's launch per stage
             clusters = "  [" + "; ".join(
                 f"{st['rows']}/{st['tile']} rows, {st['tiles']} tiles, {st['registers']} regs, "

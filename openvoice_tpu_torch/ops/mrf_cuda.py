@@ -26,22 +26,34 @@ launches = 0
 LRELU_SLOPE = 0.1
 MAX_BRANCHES = 4   # MAX_BRANCHES / MAX_PAIRS in csrc/mrf_branch.cuh
 MAX_PAIRS = 4
-# 12 warps of two output tiles each, the most the kernel's registers allow
-# (MAX_THREADS in csrc/mrf.cu); 8 warps were slower on one H100
-# (``python3 chip_smoke.py --sweep mrf`` times both)
-_THREADS = 384
-# samples a block keeps: as many as shared memory holds beside the halo it
-# recomputes (the window search stops at what fits); smaller tiles were no
-# faster in the same sweep
+TILE_M = 64        # rows of one wgmma tile (TILE_M in csrc/mrf.cu)
+_CHUNK_ROWS = 16   # the rows of a `conv_chunks` chunk (CHUNK_ROWS in csrc/tail.cu, K4)
+# The launch plan (`launch_plan`) follows from what the wrapper sees: C, T,
+# the kernel sizes and dilations, and shared memory.  A block's window is a
+# multiple of 64 rows, the largest (up to `_TILE_TARGET` kept rows) that fits
+# beside a ring of `_RING_RESERVE` slabs of 32·C bytes; the ring then takes
+# as many slabs as fit beside it, up to `_MAX_STAGES`, in whole groups (the
+# slabs a warpgroup's products take at once, which the ring moves in one
+# copy: `group_steps`).  A warpgroup computes one item a round, a 64-row tile
+# by up to `_WIDTH_MAX` columns (`product_width`), and each conv covers its
+# range with whole tiles placed from the range's first row (`conv_tiles`).
+# At C = 256 the window is 192 rows (72 kept), the ring 4 slabs in groups of
+# 2, and the tiles compute 2.19x the useful products (2.67x if placed at
+# 64-row boundaries, 1.87x at 16-row chunks).  At C = 128: 384 rows (264
+# kept), 8 slabs in groups of 4, 1.32x.  What bounds K3 on the card is then
+# the products that one warpgroup issues between waits on its own, which
+# ptxas asks of A in registers, so that only the other warpgroups' products
+# fill the tensor cores while it loads; the ring, whose copies wait for the
+# slowest warpgroup; and the epilogues and block barriers between convs,
+# which no product overlaps.  The knobs are the ones
+# ``python3 chip_smoke.py --sweep mrf`` times (warpgroups, widest product,
+# ring depth, tile target); PERF.md has the table the defaults came from.
+_WARPGROUPS = 3
+_WIDTH_MAX = 256
 _TILE_TARGET = 4096
-_CHUNK_ROWS = 16   # CHUNK_ROWS in csrc/mrf.cu
-# slabs of the weight ring (32·C bytes each): the window is the largest that
-# fits beside a ring of _RING_RESERVE slabs, and the ring then takes as many
-# slabs as fit beside the window, up to MAX_STAGES.  ``python3 chip_smoke.py
-# --sweep mrf`` trades ring slabs against window rows; the least ring (2, a
-# slab read while the next lands) kept the largest window and won.
-_RING_RESERVE = 2
+_RING_RESERVE = 4  # the largest group of slabs (`group_steps`)
 _MAX_STAGES = 16   # MAX_STAGES in csrc/mrf.cu
+_WIDTHS = (256, 128, 64)   # the product widths csrc/mrf.cu has an instance of
 # launch plans, kept per sizes and knobs (`launch_plan`)
 _PLANS: dict[tuple, tuple] = {}
 
@@ -88,41 +100,87 @@ def conv_chunks(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int) -
     return out
 
 
+def conv_tiles(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int) -> list[tuple[int, int]]:
+    """`conv_ranges` as the kernel computes them: (first row, count) of the
+    64-row tiles that cover each range, placed from the range's first row
+    (moved back only as far as the window's end asks).  The last tile may
+    reach past the range; those rows hold stale values that no later conv's
+    range reads, so they never reach the kept rows."""
+    out = []
+    for lo, hi in conv_ranges(kernel_sizes, dilation_sizes, halo, tile):
+        count = -(-(hi - lo) // TILE_M)
+        first = min(lo, rows - count * TILE_M)
+        if first < 0:
+            raise ValueError(f"rows [{lo}, {hi}) do not fit a {rows}-row window in {TILE_M}-row tiles")
+        out.append((first, count))
+    return out
+
+
+def group_steps(width: int) -> int:
+    """Slabs whose products a warpgroup issues at once, and that the weight
+    ring moves in one copy (csrc/mrf.cu's group_steps): two at 256 columns,
+    whose accumulators leave room for two slabs' fragments, four below."""
+    return 2 if width >= 256 else 4
+
+
+def product_width(c: int) -> int | None:
+    """The columns of one warpgroup's product: the widest instance of the
+    kernel (`_WIDTHS`, up to `_WIDTH_MAX`) that divides C; None where none
+    does."""
+    return next((n for n in _WIDTHS if n <= _WIDTH_MAX and c % n == 0), None)
+
+
 def launch_plan(c: int, t: int, kernel_sizes, dilation_sizes) -> tuple:
-    """(rows, tile, stages, chunks) of a launch at C channels and T samples:
-    the largest window (up to `_TILE_TARGET` kept rows) that fits beside a
-    ring of `_RING_RESERVE` slabs, then as many slabs as fit beside it, up to
-    `_MAX_STAGES`, and `conv_chunks` of that window as the kernel's ctypes
-    array.  Computed once per sizes and knobs."""
-    key = (c, min(_TILE_TARGET, max(t, 1)), kernel_sizes, dilation_sizes, _RING_RESERVE, _TILE_TARGET)
+    """(rows, tile, stages, width, tiles) of a launch at C channels and T
+    samples: the window and ring of the comment above, the product width,
+    and `conv_tiles` of that window as the kernel's ctypes array.  Computed
+    once per sizes and knobs."""
+    key = (c, min(_TILE_TARGET, max(t, 1)), kernel_sizes, dilation_sizes, _RING_RESERVE, _TILE_TARGET,
+           _MAX_STAGES, _WIDTH_MAX)
     if key not in _PLANS:
         lib = _library()
-        reserve = _RING_RESERVE
+        width = product_width(c)
+        group = group_steps(width or TILE_M)
+        reserve = max(_RING_RESERVE, group)
         halo = stage_halo(kernel_sizes, dilation_sizes)
         rows, tile = _frag.window(("mrf", c, reserve), halo, t, _TILE_TARGET,
-                                  lambda r, tl: lib.mrf_stage_smem_bytes(c, r, reserve))
+                                  lambda r, tl: lib.mrf_stage_smem_bytes(c, r, reserve), multiples=(TILE_M,))
         stages = reserve
         while stages < _MAX_STAGES and lib.mrf_stage_smem_bytes(c, rows, stages + 1) <= _frag.SMEM_MAX:
             stages += 1
-        chunks = [v for rng in conv_chunks(kernel_sizes, dilation_sizes, halo, tile, rows) for v in rng]
-        _PLANS[key] = (rows, tile, stages, (ctypes.c_int * len(chunks))(*chunks))
+        stages -= stages % group  # the ring moves whole groups
+        tiles = [v for rng in conv_tiles(kernel_sizes, dilation_sizes, halo, tile, rows) for v in rng]
+        _PLANS[key] = (rows, tile, stages, width, (ctypes.c_int * len(tiles))(*tiles))
     return _PLANS[key]
 
 
 def chosen_stages() -> dict[tuple[int, int], int]:
     """The ring depth of each (C, window rows) planned so far."""
-    return {(key[0], rows): stages for key, (rows, _tile, stages, _chunks) in _PLANS.items()}
+    return {(key[0], plan[0]): plan[2] for key, plan in _PLANS.items()}
 
 
-def pack_stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Pack the `nn.hifigan.ResBlock1` branches of one stage, once, in
-    execution order (per branch, per dilation: dilated conv, second conv):
+def pack_slabs(w: torch.Tensor) -> torch.Tensor | None:
+    """[n_taps, C_in, C_out] → the kernel's weight slabs [n_taps, C_in/16,
+    C_out, 16] bfloat16: slab (tap, k-tile) is the [16, C_out] B tile of
+    ``csrc/wgmma.cuh``, K-major (row n holds the tile's 16 K values of output
+    channel n), with the 32-byte swizzle: the 16-byte halves of row n trade
+    places where (n / 4) % 2 is 1.  None where C has no such layout (the
+    kernel takes C % 64 == 0; the plain version does not need it)."""
+    n_taps, k, n = w.shape
+    if k % 64 or n % 64:
+        return None
+    v = w.to(torch.bfloat16).reshape(n_taps, k // 16, 2, 8, n).permute(0, 1, 4, 2, 3)  # tap, kt, n, half, k8
+    swap = ((torch.arange(n, device=w.device) >> 2) & 1).bool()[:, None, None]
+    return torch.where(swap, v.flip(-2), v).reshape(n_taps, k // 16, n, 16).contiguous()
+
+
+def stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The `nn.hifigan.ResBlock1` branches of one stage, in execution order
+    (per branch, per dilation: dilated conv, second conv):
 
       w [n_taps, C, C]  tap j of a conv as the [C_in, C_out] matrix that
                         multiplies x[t + (j − (k−1)/2)·d]
       b [n_convs, C]
-      w_frag            w in the kernel's fragment order (None where C has
-                        no such layout)
       kernel_sizes, dilation_sizes   the branches' static structure
     """
     taps, biases, kernel_sizes, dilation_sizes = [], [], [], []
@@ -138,8 +196,16 @@ def pack_stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
         b = torch.stack(biases).to(dtype).contiguous()
     if len({len(d) for d in dilation_sizes}) != 1:
         raise ValueError(f"branches must have equally many conv pairs, got {dilation_sizes}")
-    return {"w": w, "b": b, "w_frag": _frag.maybe_frag(w),
-            "kernel_sizes": tuple(kernel_sizes), "dilation_sizes": tuple(dilation_sizes)}
+    return {"w": w, "b": b, "kernel_sizes": tuple(kernel_sizes), "dilation_sizes": tuple(dilation_sizes)}
+
+
+def pack_stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Pack one stage for `mrf_stage`, once: `stage_weights`, and ``w_slabs``,
+    w as `pack_slabs` lays it out for the kernel (None where C has no such
+    layout)."""
+    packed = stage_weights(resblocks, dtype)
+    packed["w_slabs"] = pack_slabs(packed["w"])
+    return packed
 
 
 def lrelu_plain(x: torch.Tensor, slope: float, dt: torch.dtype) -> torch.Tensor:
@@ -195,15 +261,16 @@ def check_stage(packed: dict, c: int, dtype: torch.dtype) -> None:
         raise TypeError(f"activations {dtype}, weights {packed['w'].dtype} must agree")
 
 
-def check_stage_cuda(packed: dict, c: int, device: torch.device):
-    """What the kernels ask of the packed branches; returns the ctypes
-    arrays (kernel sizes, dilations) of the launch."""
+def check_stage_cuda(packed: dict, c: int, device: torch.device, weights: str, multiple: int):
+    """What the kernels ask of the packed branches: the kernel's weight
+    layout under the key `weights`, C a multiple of `multiple`.  Returns the
+    ctypes arrays (kernel sizes, dilations) of the launch."""
     ks, dils = packed["kernel_sizes"], packed["dilation_sizes"]
     if len(ks) > MAX_BRANCHES or len(dils[0]) > MAX_PAIRS:
         raise ValueError(f"the kernel takes up to {MAX_BRANCHES} branches of {MAX_PAIRS} conv pairs")
-    if packed["w_frag"] is None or c % 16:
-        raise ValueError(f"the kernel needs C % 16 == 0, got C = {c}")
-    for name in ("w_frag", "b"):
+    if packed.get(weights) is None or c % multiple:
+        raise ValueError(f"the kernel needs C % {multiple} == 0, got C = {c}")
+    for name in (weights, "b"):
         _frag.check_bf16(name, packed[name])
         if packed[name].device != device:
             raise ValueError(f"{name} on {packed[name].device}, activations on {device}")
@@ -215,11 +282,23 @@ def _library() -> ctypes.CDLL:
     lib = _nvcc.load("mrf")
     lib.mrf_stage_bf16.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.mrf_stage_bf16.restype = ctypes.c_int
     lib.mrf_stage_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.mrf_stage_smem_bytes.restype = ctypes.c_int
+    lib.mrf_stage_attributes.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mrf_stage_attributes.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes(width: int, warpgroups: int) -> dict:
+    """Registers a thread and local (stack and spilled) bytes of the kernel
+    instance of a product width and warpgroup count (cudaFuncGetAttributes)."""
+    out = (ctypes.c_int * 2)()
+    err = _library().mrf_stage_attributes(width, warpgroups, out)
+    if err != 0:
+        raise RuntimeError(f"no K3 instance of {width} columns and {warpgroups} warpgroups ({err})")
+    return {"registers": out[0], "spill_bytes": out[1]}
 
 
 def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Tensor:
@@ -240,22 +319,22 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
         raise ValueError(f"mrf_stage runs on cuda or cpu, not {x.device}")
 
     _frag.check_bf16("x", x)
-    ks, dils = check_stage_cuda(packed, c, x.device)
+    ks, dils = check_stage_cuda(packed, c, x.device, "w_slabs", TILE_M)
     if batch > _frag.GRID_MAX_Y:
         raise ValueError(f"batch {batch} exceeds the launch grid")
     lengths = _frag.check_lengths(lengths, batch, x.device)
 
     lib = _library()
-    rows, tile, stages, chunks = launch_plan(c, t, packed["kernel_sizes"], packed["dilation_sizes"])
+    rows, tile, stages, width, tiles = launch_plan(c, t, packed["kernel_sizes"], packed["dilation_sizes"])
     out = torch.empty_like(x)
     # where the finished branches' outputs wait for the last one, a tile a block
     scratch = torch.empty(batch * -(-t // tile) * (len(packed["kernel_sizes"]) - 1) * tile * c,
                           dtype=torch.bfloat16, device=x.device)
     err = lib.mrf_stage_bf16(
-        x.data_ptr(), lengths.data_ptr(), packed["w_frag"].data_ptr(), packed["b"].data_ptr(),
+        x.data_ptr(), lengths.data_ptr(), packed["w_slabs"].data_ptr(), packed["b"].data_ptr(),
         out.data_ptr(), scratch.data_ptr(), batch, t, c,
         len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils,
-        chunks, rows, tile, stages, _THREADS, x.device.index or 0,
+        tiles, rows, tile, stages, width, _WARPGROUPS, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

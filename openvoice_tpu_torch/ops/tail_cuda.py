@@ -22,8 +22,8 @@ import torch.nn.functional as F
 
 from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 from openvoice_tpu_torch.ops.mrf_cuda import (
-    LRELU_SLOPE, check_stage, check_stage_cuda, conv_chunks, lrelu_plain, mrf_branches_plain,
-    pack_stage_weights, stage_halo,
+    LRELU_SLOPE, check_stage, check_stage_cuda, conv_chunks, lrelu_plain, mrf_branches_plain, stage_halo,
+    stage_weights,
 )
 
 launches = 0
@@ -48,14 +48,15 @@ def pack_tail_weights(up, resblocks, conv_post=None, dtype: torch.dtype = torch.
       up_w [k_up, C_in, C_out]  tap j is the transposed conv's W[:, :, j]
       up_b [C_out], stride, pad_up
       post_w [k_post, C_out] or None
-      and the keys of `mrf_cuda.pack_stage_weights`; ``up_w_frag`` is up_w in
-      the kernel's fragment order (None where the sizes have no such layout).
+      and the keys of `mrf_cuda.stage_weights`; ``w_frag`` and ``up_w_frag``
+      are w and up_w in the kernel's fragment order (None where the sizes
+      have no such layout).
     """
     k_up, stride, pad_up = up.kernel_size[0], up.stride[0], up.padding[0]
     if k_up - stride - 2 * pad_up != 0 or up.output_padding[0] != 0 or up.dilation[0] != 1:
         raise ValueError(f"the fused stage needs T_out = T_in·stride: kernel {k_up}, stride {stride}, "
                          f"padding {pad_up}")
-    packed = pack_stage_weights(resblocks, dtype)
+    packed = stage_weights(resblocks, dtype)
     with torch.no_grad():
         packed["up_w"] = up.weight.permute(2, 0, 1).to(dtype).contiguous()
         packed["up_b"] = up.bias.to(dtype).contiguous()
@@ -64,6 +65,7 @@ def pack_tail_weights(up, resblocks, conv_post=None, dtype: torch.dtype = torch.
             if conv_post.bias is not None or conv_post.out_channels != 1:
                 raise ValueError("conv_post must have one output channel and no bias")
             packed["post_w"] = conv_post.weight[0].t().to(dtype).contiguous()  # [k_post, C]
+    packed["w_frag"] = _frag.maybe_frag(packed["w"])
     packed["up_w_frag"] = _frag.maybe_frag(packed["up_w"])
     packed["stride"], packed["pad_up"] = stride, pad_up
     return packed
@@ -199,7 +201,7 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
         raise ValueError(f"tail_stage runs on cuda or cpu, not {x.device}")
 
     _frag.check_bf16("x", x)
-    ks, dils = check_stage_cuda(packed, c, x.device)
+    ks, dils = check_stage_cuda(packed, c, x.device, "w_frag", 16)
     if packed["up_w_frag"] is None or cin % 16:
         raise ValueError(f"the kernel needs C_in % 16 == 0, got C_in = {cin}")
     for name in ("up_w_frag", "up_b") + (("post_w",) if post_w is not None else ()):

@@ -520,6 +520,119 @@ def test_mrf_conv_chunks_cover_the_ranges():
             assert round(issued / (sum(KS) * 6 * rows / 16), 2) == want
 
 
+class _SmemStandIn:
+    """The K3 library's shared-memory size, as ``csrc/mrf.cu::
+    mrf_stage_smem_bytes`` computes it (alignment room, slabs of 32·C bytes
+    and their two barriers, a claim count a stage rounded to 16 bytes, the
+    ring's 400-byte plan, a zero row and two [rows, C] bf16 buffers), so
+    that `launch_plan` runs without the card."""
+
+    @staticmethod
+    def mrf_stage_smem_bytes(c, rows, stages):
+        return 256 + stages * (32 * c + 16) + -(-4 * stages // 16) * 16 + 400 + (1 + 2 * rows) * c * 2
+
+
+@pytest.mark.parametrize("c,t_len,rows,stages", [
+    (256, 8192, 192, 4), (128, 65536, 384, 8),    # a 1024-frame bucket's two stages
+    (256, 1024, 192, 4), (128, 8192, 384, 8),     # bucket 128, the shortest batcher and stream bucket
+    (256, 40, 192, 4), (128, 100, 256, 16)],      # shorter than one tile
+    ids=["c256-bucket1024", "c128-bucket1024", "c256-bucket128", "c128-bucket128", "c256-short", "c128-short"])
+def test_mrf_conv_tiles_cover_the_ranges(monkeypatch, c, t_len, rows, stages):
+    """K3's row plan: each conv's 64-row tiles cover its range, lie inside
+    the window, start at the range's first row unless the window's end moves
+    them back, and reach past the range only into rows no later conv of the
+    branch reads within its own range; the kept rows, which `out` takes, lie
+    inside every range.  Each branch's last conv has the same tiles (the
+    threads that park a branch's rows sum them).  The ring holds whole
+    groups of slabs."""
+    monkeypatch.setattr(mrf_cuda, "_library", lambda: _SmemStandIn)
+    monkeypatch.setattr(mrf_cuda, "_PLANS", {})
+    monkeypatch.setattr(_frag, "_WINDOWS", {})
+    got_rows, tile, got_stages, width, flat = mrf_cuda.launch_plan(c, t_len, KS, DILS)
+    assert (got_rows, got_stages, width) == (rows, stages, c)
+    assert stages % mrf_cuda.group_steps(width) == 0
+    item = mrf_cuda.TILE_M
+    assert _SmemStandIn.mrf_stage_smem_bytes(c, rows, stages) <= _frag.SMEM_MAX
+    halo = mrf_cuda.stage_halo(KS, DILS)
+    assert rows - tile == 2 * halo and (tile >= t_len or rows == 192 or rows == 384)
+    tiles = list(zip(flat[0::2], flat[1::2]))
+    ranges = mrf_cuda.conv_ranges(KS, DILS, halo, tile)
+    assert tiles == mrf_cuda.conv_tiles(KS, DILS, halo, tile, rows) and len(tiles) == 18
+    for j, ((lo, hi), (first, count)) in enumerate(zip(ranges, tiles)):
+        end = first + count * item
+        assert 0 <= first <= lo and hi <= end <= rows
+        assert first == lo or end == rows
+        assert lo <= halo and halo + tile <= hi       # the kept rows lie inside the range
+        assert end - hi < item and count == -(-(hi - lo) // item)
+        if j % 6 < 5:                                  # later convs of the branch read only inside this range
+            reach = mrf_cuda.conv_reaches(KS[j // 6], DILS[j // 6])[j % 6 + 1]
+            nlo, nhi = ranges[j + 1]
+            assert lo <= nlo - reach and nhi + reach <= hi
+    assert len(set(tiles[5::6])) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("rows", [192, 384], ids=["c256-window", "c128-window"])
+@torch.inference_mode()
+def test_mrf_tile_spans_keep_the_stage(rows, dtype):
+    """The rows K3's 64-row tiles compute past a conv's range hold values
+    made from stale rows: a window computed on the tiles' whole spans, with
+    NaN on every row outside them, keeps its tile finite and equal to
+    `mrf_stage_plain`, at the clip's start, inside it and across its end,
+    in the windows the plan gives C = 256 and C = 128."""
+    c, t_len, length = 16, 900, 850
+    rng = np.random.default_rng(17)
+    jrbs = _random_resblocks(rng, c)
+    x = (rng.standard_normal((1, t_len, c)) * 0.5).astype(np.float32)
+    halo = mrf_cuda.stage_halo(KS, DILS)
+    tile = rows - 2 * halo
+    spans = [(first, first + count * mrf_cuda.TILE_M)
+             for first, count in mrf_cuda.conv_tiles(KS, DILS, halo, tile, rows)]
+    assert any(s != r for s, r in zip(spans, mrf_cuda.conv_ranges(KS, DILS, halo, tile)))
+    packed = mrf_cuda.pack_stage_weights(_torch_resblocks(jrbs, c), dtype)
+    xt = t(x).to(dtype)
+    plain = mrf_cuda.mrf_stage_plain(xt, t(np.asarray([length])), packed)
+    close = (lambda o, r: _close_f32(o, r, 1e-4, 1e-4)) if dtype == torch.float32 else _close_bf16
+    for pos0 in (-halo, 100, length - halo - tile // 2, t_len - halo - tile // 2):
+        got = _window_model(xt[0], length, packed, pos0, rows, spans, dtype)[halo:halo + tile]
+        n = min(tile, t_len - pos0 - halo)
+        assert bool(torch.isfinite(got).all())
+        close(got[:n].to(dtype), plain[0, pos0 + halo:pos0 + halo + n].float().numpy())
+
+
+@pytest.mark.parametrize("c", [128, 256])
+def test_mrf_wgmma_slabs_give_back_the_weights(c):
+    """`pack_slabs`, read back by byte address: element W[k, n] of slab
+    (tap, k // 16) sits at byte 32·n + 2·(k % 16) of the slab with bit 4 of
+    the address XOR bit 7 (the 32-byte swizzle wgmma's descriptor names).
+    Every conv's dense [tap][C_in][C_out] weights come back exactly."""
+    gen = torch.Generator().manual_seed(c)
+    rbs = [ResBlock1(c, k, d) for k, d in zip(KS, DILS)]
+    with torch.no_grad():
+        for rb in rbs:
+            for p in rb.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen))
+    packed = mrf_cuda.pack_stage_weights(rbs)
+    w, slabs = packed["w"], packed["w_slabs"]
+    assert slabs.shape == (w.shape[0], c // 16, c, 16) and slabs.dtype == torch.bfloat16 and slabs.is_contiguous()
+    k = np.arange(c)[:, None]
+    n = np.arange(c)[None, :]
+    byte = 32 * n + 2 * (k % 16)
+    byte = byte ^ (((byte >> 7) & 1) << 4)
+    flat = slabs.view(torch.int16).reshape(w.shape[0], c // 16, c * 16)
+    dense = flat[:, torch.from_numpy(k // 16 + 0 * n), torch.from_numpy(byte // 2)]
+    assert torch.equal(dense, w.view(torch.int16))
+    tap = 0
+    for rb in rbs:
+        for conv in (m for pair in zip(rb.convs1, rb.convs2) for m in pair):
+            size = conv.kernel_size[0]
+            assert torch.equal(dense[tap:tap + size].view(torch.bfloat16),
+                               conv.weight.detach().permute(2, 1, 0).to(torch.bfloat16))
+            tap += size
+    assert tap == w.shape[0]
+    assert mrf_cuda.pack_slabs(torch.zeros(3, 48, 48)) is None
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("c_in,c_out,t_in,last", [(128, 64, 301, False), (64, 32, 403, True)],
                          ids=["middle", "last"])
