@@ -9,6 +9,7 @@
                                    # ring depth
     python3 chip_smoke.py --elastic     # instead: build, then phase 11 alone
     python3 chip_smoke.py --installed   # instead: build, then phase 12 alone
+    python3 chip_smoke.py --melo-tail   # instead: build, then phase 3f alone
     python3 chip_smoke.py --tf32-control
                                    # instead: phase 9.4's gradients, plus the
                                    # card's f32 pass again with TF32 on, which
@@ -25,7 +26,8 @@ Phases, in order; any failure exits non-zero before the result line:
    time, the plain version's, the bound, and one PyTorch library call's (K5)
    or the stock bf16 layers' (K1-K4); K5 also at n_fft 256, 512, 768, 1000,
    2048 and 4096 (its FFT and its DFT route), K1 and K4 also at length 0,
-   where their tiles exit early.  Every time is CUDA events around calls
+   where their tiles exit early; then (3f) K4 at MeloTTS-English's decoder
+   stages 2-4 (upsample kernels 8 and 2, 16 channels with conv_post).  Every time is CUDA events around calls
    queued behind a 1 ms device spin (`time_ms`), so that the host's enqueue
    of a call never lands inside its window;
 4. main path, f32: a full-width V2 converter with seeded random weights runs
@@ -820,6 +822,54 @@ def tail_check(kind: str, gen) -> dict:
                          "openvoice_tpu/ops/mrf_pallas.py:731", max_err, ms, hot_ms, plain_ms, stock_ms, flop,
                          nbytes)
     return {**entry, "stage_ms": stage_ms, "stage_launch": launches_}
+
+
+MELO_FRAMES, MELO_BUCKET = 866, 1024   # the longest prose line at 44.1 kHz, hop 512 (10.06 s), and its bucket
+
+
+def tail_melo_check(gen) -> dict:
+    """3f: K4 at MeloTTS-English's decoder stages 2-4, which no V1 or V2
+    decoder gives it: 128 → 64 channels with upsample kernel 8, 64 → 32 with
+    kernel 2, 32 → 16 with kernel 2 then conv_post and tanh (stride 2 each;
+    inputs at 64, 128 and 256 samples a frame).  Each against its plain
+    version at the longest line's frames in its bucket and on a ragged
+    batch, at length 0 (the tiles past it exit), and timed."""
+    import torch
+
+    from openvoice_tpu_torch.nn.conv import conv1d, conv_transpose1d
+    from openvoice_tpu_torch.ops import tail_cuda
+
+    phase("3f. kernel check: K4 tail_stage (csrc/tail.cu) at MeloTTS's stages 2-4 vs its plain version")
+    out, u = {"stages": []}, 2
+    for c_in, c, k_up, rate_in, last in [(128, 64, 8, 64, False), (64, 32, 2, 128, False), (32, 16, 2, 256, True)]:
+        up, rbs = redraw(conv_transpose1d(c_in, c, k_up, u), gen), resblocks(c, gen)
+        post = redraw(conv1d(c, 1, 7, bias=False), gen) if last else None
+        packed = tail_cuda.pack_tail_weights(up, list(rbs), post)
+        worst, timed = 0.0, None
+        for label, t_in, lengths in [
+                (f"melo {c_in}→{c} k{k_up} B=1 T_in={MELO_BUCKET * rate_in}", MELO_BUCKET * rate_in,
+                 [MELO_FRAMES * rate_in * u]),
+                (f"melo {c_in}→{c} k{k_up} ragged B=2 T_in=501", 501, [1002, 614])]:
+            x, lens = rand_bf16(gen, len(lengths), t_in, c_in), lens_on_card(lengths)
+            got = tail_cuda.tail_stage(x, lens, packed)
+            worst = max(worst, agree(label, got, tail_cuda.tail_stage_plain(x, lens, packed), MRF_MEAN_TOL,
+                                     lengths, zero_after=3 if last else 0))
+            timed = timed or (x, lens, {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(
+                tail_cuda.last_launch["smem"])})
+        x, lens, launch = timed
+        zero = tail_cuda.tail_stage(x, lens_on_card([0]), packed)
+        torch.cuda.synchronize()
+        check(bool((zero == 0).all()), f"K4 melo {c_in}→{c} at length 0: output not all zero")
+        ms = time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10)
+        empty_ms = time_ms(lambda: tail_cuda.tail_stage(x, lens_on_card([0]), packed), 10)
+        check(empty_ms < 0.5 * ms, f"K4 melo {c_in}→{c}: at length 0 the tiles do not exit early")
+        print(f"K4 melo launch {c_in}→{c} k{k_up}: rows/kept {launch['rows']}/{launch['tile']}, {launch['threads']} "
+              f"threads, {launch['registers']} registers, {launch['spill_bytes']} bytes spilled, "
+              f"{launch['tiles']} tiles, {launch['blocks_per_sm']} block(s) an SM; {ms:.4f} ms at "
+              f"{MELO_FRAMES} frames, {empty_ms:.4f} ms at length 0")
+        out["stages"].append({"c_in": c_in, "c": c, "k_up": k_up, "last": last, "max_abs_err": worst, "ms": ms,
+                              "empty_ms": empty_ms, **launch})
+    return out
 
 
 def print_windows() -> None:
@@ -4478,6 +4528,11 @@ def main() -> int:
             print(json.dumps({"elastic_tier": elastic_tier_phase(tmp, smi)}))
         print(smi)
         return 0
+    if sys.argv[1:] == ["--melo-tail"]:
+        with torch.inference_mode():
+            print(json.dumps({"k4_melo": tail_melo_check(torch.Generator().manual_seed(SEED + 3))}))
+        print(smi)
+        return 0
     if sys.argv[1:] == ["--installed"]:
         with tempfile.TemporaryDirectory() as tmp:
             print(json.dumps({"installed": installed_phase(tmp, smi)}))
@@ -4487,6 +4542,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED + 2)
     with torch.inference_mode():
         kernels = [stft_check(kind)] + [fn(kind, gen) for fn in (wn_check, coupling_check, mrf_check, tail_check)]
+        print(json.dumps({"k4_melo": tail_melo_check(gen)}))
     print_windows()
     _L2_FLUSH.clear()  # the converts' peak memory is theirs alone
     tc = converter()

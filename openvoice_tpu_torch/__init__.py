@@ -1,5 +1,6 @@
-"""OpenVoice tone-colour conversion and V1 base-speaker TTS in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""OpenVoice tone-colour conversion, the V1 base-speaker TTS and MeloTTS-English
+(V2's base speaker) in PyTorch, with hand-written CUDA kernels for NVIDIA
+Hopper (sm_90a).
 
 The port of ``openvoice_tpu`` (JAX/Pallas), which stays beside it as the
 reference.  This package imports neither JAX nor anything of
@@ -12,8 +13,11 @@ from openvoice_tpu_torch.config import (  # noqa: F401
     V1_CONVERTER_CONFIG,
     V2_CONVERTER_CONFIG,
     HParams,
+    MeloTTSConfig,
     SynthesizerConfig,
     load_hparams,
+    melo_tts_en_config,
     v1_base_tts_config,
 )
+from openvoice_tpu_torch.nn.bert import load_bert_state_dict  # noqa: F401
 from openvoice_tpu_torch.pipeline.se_extractor import get_se  # noqa: F401

@@ -8,7 +8,9 @@ decoder → watermark.  ``convert(fast=False)`` is the f32 parity mode on stock
 layers; ``convert(fast=True)`` is the bf16 serving mode, whose WaveNet, flow
 and decoder stages are hand-written kernels (``csrc/{wn,coupling,mrf,tail}.cu``).
 The base-speaker TTS encodes text in f32 and decodes in either mode, the
-serving mode through the flow and decoder kernels.  `convert_streaming`
+serving mode through the flow and decoder kernels.  A MeloTTS config (OpenVoice
+V2's base speaker) runs the same way, with BERT word features ahead of its
+encode and its transformer-coupling flow on stock bf16 layers.  `convert_streaming`
 converts audio of any length in fixed windows (``runtime/streaming.py``), and
 the fused chains `tts_convert_batched`, `tts_convert_single_dispatch` and
 `tts_convert_stream` take text to cloned audio with the base audio kept on
@@ -21,7 +23,8 @@ package runs it as one ``jax.jit`` program per bucket
 embedding of `extract_se` / `extract_se_from_file` (``_jit_tone_color``),
 the chunks of `convert_streaming` (its ``_run_chunk``), the text encode
 and the decode of `BaseSpeakerTTS.tts` / `tts_batched` (``tts_encode_jit``,
-``tts_decode_jit``), and the fused chains' groups
+``tts_decode_jit``; for MeloTTS also its BERT, site ``tts_bert``, a graph a
+wordpiece bucket), and the fused chains' groups
 (``tts_decode_convert_jit``, ``tts_synthesize_convert_jit``).  The first
 call of a shape runs eagerly and captures the graph; later calls replay it.
 Each instance keeps its graphs in ``self.graphs`` (a TTS model also the
@@ -35,9 +38,12 @@ public entry is an ``ov.<entry>`` span (``ov.convert``,
 inside it are its parts: ``ov.prepare`` (a call's inputs: audio load,
 reflect pad and bucket buffer, or a TTS group's tokens and stacked encode
 rows), ``ov.noise`` (the host draws), ``ov.text`` (sentence split, cleaners,
-g2p, ids), ``ov.readback`` (the host waiting on the card), ``ov.join`` (the
-sentences and their gaps joined), ``ov.watermark`` and ``GraphCache``'s
-``ov.graph.*``.
+g2p, ids), ``ov.bert`` (MeloTTS: a group's wordpieces and each phone's
+wordpiece from ``word2ph``), ``ov.readback`` (the host waiting on the card),
+``ov.join`` (the sentences and their gaps joined), ``ov.watermark`` and
+``GraphCache``'s ``ov.graph.*``.  `BaseSpeakerTTS.tts` and `tts_batched`
+raise the ``METRICS`` counters ``tts_true_frames`` and
+``tts_decoded_frames`` (rows × frame bucket) once a decode group.
 """
 
 from __future__ import annotations
@@ -61,13 +67,14 @@ from openvoice_tpu_torch.ckpt.native_io import load_npz
 from openvoice_tpu_torch.ckpt.torch_import import load_torch_checkpoint
 from openvoice_tpu_torch.config import HParams, SynthesizerConfig, load_hparams
 from openvoice_tpu_torch.models import synthesizer as S
+from openvoice_tpu_torch.nn.bert import Bert, BertConfig, init_bert
 from openvoice_tpu_torch.ops.stft_cuda import stft_magnitude
 from openvoice_tpu_torch.pipeline import watermark as wm
 from openvoice_tpu_torch.pipeline.se_extractor import split_audio_vad
 from openvoice_tpu_torch.pipeline.whisper_seg import make_segmenter, split_audio_whisper
 from openvoice_tpu_torch.runtime.bucketing import round_up_to_bucket
 from openvoice_tpu_torch.runtime.graphs import GraphCache, GraphKey
-from openvoice_tpu_torch.runtime.profiler import profiling, trace
+from openvoice_tpu_torch.runtime.profiler import METRICS, profiling, trace
 from openvoice_tpu_torch.runtime.streaming import voice_conversion_streaming
 
 # the reference's sampling knobs of tts() (api.py:73-98), as the JAX package
@@ -75,6 +82,11 @@ from openvoice_tpu_torch.runtime.streaming import voice_conversion_streaming
 NOISE_SCALE = 0.667
 NOISE_SCALE_W = 0.6
 SDP_RATIO = 0.2
+# MeloTTS's (melo/api.py::tts_to_file's defaults; its sdp_ratio is SDP_RATIO)
+MELO_NOISE_SCALE = 0.6
+MELO_NOISE_SCALE_W = 0.8
+# wordpiece buckets of the BERT graphs (bert-base-uncased takes 512 positions)
+WORDPIECE_BUCKETS = (16, 32, 48, 64, 96, 128, 192, 256, 384, 512)
 
 
 _REQUESTS = itertools.count()
@@ -367,21 +379,44 @@ class ToneColorConverter(OpenVoiceBaseClass):
 
 
 class BaseSpeakerTTS(OpenVoiceBaseClass):
-    """V1 text → speech in the stock voices (reference api.py:42-98).
+    """V1 text → speech in the stock voices (reference api.py:42-98), or
+    MeloTTS's English (melo/api.py::tts_to_file) from a MeloTTS config.
 
     The text front end (``openvoice_tpu_torch/text``) is host Python; Chinese
     text needs ``jieba``.  The encode (text encoder, duration predictors) runs
     in f32 in both modes; ``fast=True`` decodes in bf16 through the flow and
-    decoder kernels."""
+    decoder kernels.  MeloTTS's encode also takes each phone's BERT feature:
+    ``self.bert`` (`nn.bert.Bert`, f32, layers 1-10 of bert-base-uncased; see
+    `set_bert`) runs ahead of it, one graph a wordpiece bucket; its flow
+    runs on stock bf16 layers with ``fast=True``, its decoder through K3 and
+    K4 (``text/melo.py`` says what of MeloTTS's text side is kept)."""
 
     # the reference ships EN/ZH only (api.py:43-46); JA/KO work here because
     # the front end implements the cleaners the reference left undefined
     language_marks = {"english": "EN", "chinese": "ZH", "japanese": "JA", "korean": "KO"}
 
     def __init__(self, config_path: str | None = None, cfg: SynthesizerConfig | None = None, *,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, bert_cfg: BertConfig | None = None):
         super().__init__(config_path, cfg, device=device)
         self._chain_graphs: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()  # converter → its chains' graphs
+        melo = self.cfg.is_melo
+        self.bert_cfg = (bert_cfg or BertConfig()) if melo else None
+        self.bert: Bert | None = None
+        self.noise_scale = MELO_NOISE_SCALE if melo else NOISE_SCALE
+        self.noise_scale_w = MELO_NOISE_SCALE_W if melo else NOISE_SCALE_W
+
+    def init_random(self, seed: int = 0) -> None:
+        """Random weights, and for MeloTTS a random BERT (`nn.bert.init_bert`)."""
+        super().init_random(seed)
+        if self.cfg.is_melo:
+            self.set_bert(init_bert(self.bert_cfg, torch.Generator().manual_seed(seed + 1)))
+
+    def set_bert(self, bert: Bert) -> None:
+        """Use `bert` (moved to this instance's device) for MeloTTS's word
+        features; a bert-base-uncased state dict loads into
+        ``Bert(BertConfig())`` with `nn.bert.load_bert_state_dict`."""
+        self.bert = bert.to(self.device).eval()
+        self.graphs.clear()  # they read the old tensors
 
     def chain_graphs(self, converter: "ToneColorConverter") -> GraphCache:
         """The graphs of the fused chains from this model through
@@ -393,15 +428,18 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
             self._chain_graphs[converter] = GraphCache(self.device, reads=(self.graphs, converter.graphs))
         return self._chain_graphs[converter]
 
-    def _sentence_tokens(self, text: str, speaker, language: str) -> tuple[list[np.ndarray], int]:
+    def _sentence_tokens(self, text: str, speaker, language: str) -> tuple[list, int]:
         """Sentence split → cleaners → IPA token ids: (one int32 array a
-        sentence, speaker id)."""
+        sentence, speaker id); for MeloTTS one `text.melo.MeloTokens` a
+        piece."""
         from openvoice_tpu_torch.text import default_symbols, intersperse, text_to_sequence
         from openvoice_tpu_torch.text.split import split_sentence
 
         mark = self.language_marks.get(language.lower())
         if mark is None:
             raise ValueError(f"language {language} is not supported")
+        if self.cfg.is_melo:
+            return self._melo_tokens(text, speaker, mark)
         if self.hps is not None:
             symbols = list(self.hps.symbols)
             cleaners = list(self.hps.data.text_cleaners)
@@ -428,6 +466,37 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
                 token_seqs.append(np.asarray(seq, np.int32))
         return token_seqs, speaker_id
 
+    def _melo_tokens(self, text: str, speaker, mark: str) -> tuple[list, int]:
+        """MeloTTS's English text side (``text/melo.py``): pieces split as
+        melo/split_utils.py splits them, each piece's phones, tones,
+        languages, wordpieces and word2ph."""
+        from openvoice_tpu_torch.text import melo
+
+        if mark != "EN":
+            raise ValueError("the MeloTTS path reads English")
+        spk2id = self.hps.data.get("spk2id") if self.hps is not None else None
+        if isinstance(speaker, str) and not speaker.lstrip("-").isdigit():
+            speaker_id = spk2id[speaker] if spk2id is not None else 0
+        else:
+            speaker_id = int(speaker)
+        with trace("ov.text"):
+            rows = [melo.english_tokens(re.sub(r"([a-z])([A-Z])", r"\1 \2", piece), self.cfg.n_vocab,
+                                        self.bert_cfg.vocab_size, self.cfg.add_blank)
+                    for piece in melo.split_pieces(text)]
+        return rows, speaker_id
+
+    def _encode_inputs(self) -> dict:
+        """What `_encode_rows` needs of this model: its sampling knobs, and
+        for MeloTTS its BERT."""
+        if self.cfg.is_melo and self.bert is None:
+            raise RuntimeError("no BERT weights: call set_bert() or init_random()")
+        return {"noise_scale_w": self.noise_scale_w, "bert": self.bert}
+
+    def _frames_done(self, rows: int, frame_bucket: int, y_lengths) -> None:
+        """One decode group's frames: its rows' own and the padded bucket's."""
+        METRICS.add_many({"tts_true_frames": float(np.sum(y_lengths)),
+                          "tts_decoded_frames": float(rows * frame_bucket)})
+
     def _finish(self, pieces: list[np.ndarray], output_path: str | None, speed: float):
         out = _concat_with_gaps(pieces, self.cfg.sampling_rate, speed)
         if output_path is None:
@@ -447,23 +516,22 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
         token_seqs, speaker_id = self._sentence_tokens(text, speaker, language)
         noise_rngs = _sentence_noise_rngs(seed, len(token_seqs))
         dec_cache = self._require_dec_cache() if fast else None
+        knobs = self._encode_inputs()
+        g_row = model.emb_g.weight[speaker_id][None, :]  # [1, gin]
         pieces = []
         for tokens, (rng_w, rng_y) in zip(token_seqs, noise_rngs):
-            t_bucket = round_up_to_bucket(len(tokens))
-            padded = np.zeros((1, t_bucket), np.int32)
-            padded[0, : len(tokens)] = tokens
-            with trace("ov.noise"):
-                noise_w = rng_w.standard_normal((1, t_bucket, 2)).astype(np.float32)
-            enc = _tts_encode(self.graphs, model, padded, np.asarray([len(tokens)], np.int64),
-                              np.asarray([speaker_id], np.int64), noise_w, speed)
+            enc_rows = _encode_rows(model, [tokens], speaker_id, speed, [(rng_w, rng_y)], self.device,
+                                    self.graphs, **knobs)
             with trace("ov.readback"):
-                fb = round_up_to_bucket(max(int(enc.w_ceil.sum()), 1))
+                fb = round_up_to_bucket(max(int(enc_rows[0]["w_ceil"].sum()), 1))
             with trace("ov.noise"):
                 noise = rng_y.standard_normal((1, fb, cfg.inter_channels)).astype(np.float32)
-            audio, y_mask = _tts_decode(self.graphs, model, enc, fb, noise, fast, dec_cache)
+            audio, y_mask = _tts_decode(self.graphs, model, _stack_enc_rows(enc_rows, [0], g_row), fb, noise, fast,
+                                        dec_cache, self.noise_scale)
             with trace("ov.readback"):
                 y_len = int(y_mask[0, :, 0].sum())
                 pieces.append(audio[0, : y_len * cfg.upsample_factor, 0].cpu().numpy())
+            self._frames_done(1, fb, y_len)
         return self._finish(pieces, output_path, speed)
 
     @_entry
@@ -480,7 +548,8 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
         if n == 0:
             return self._finish([], output_path, speed)
         noise_rngs = _sentence_noise_rngs(seed, n)
-        enc_rows = _encode_rows(model, token_seqs, speaker_id, speed, noise_rngs, dev, self.graphs)
+        enc_rows = _encode_rows(model, token_seqs, speaker_id, speed, noise_rngs, dev, self.graphs,
+                                **self._encode_inputs())
         g_row = model.emb_g.weight[speaker_id][None, :]  # [1, gin]
         pieces: list[np.ndarray | None] = [None] * n
         dec_cache = self._require_dec_cache() if fast else None
@@ -488,12 +557,13 @@ class BaseSpeakerTTS(OpenVoiceBaseClass):
             with trace("ov.prepare"):
                 enc = _stack_enc_rows(enc_rows, idxs, g_row)
                 noise = _draw_rows([r[1] for r in noise_rngs], idxs, fb, cfg.inter_channels)
-            audio, y_mask = _tts_decode(self.graphs, model, enc, fb, noise, fast, dec_cache)
+            audio, y_mask = _tts_decode(self.graphs, model, enc, fb, noise, fast, dec_cache, self.noise_scale)
             with trace("ov.readback"):
                 audio = audio[..., 0].cpu().numpy()
                 y_lengths = y_mask[..., 0].sum(dim=-1).to(torch.int64).cpu().numpy()
             for r, i in enumerate(idxs):
                 pieces[i] = audio[r, : y_lengths[r] * cfg.upsample_factor]
+            self._frames_done(len(idxs), fb, y_lengths)
         return self._finish(pieces, output_path, speed)
 
 
@@ -514,6 +584,8 @@ class _Chain(NamedTuple):
 
 
 def _chain_parts(tts_model: BaseSpeakerTTS, converter: ToneColorConverter, src_se, tgt_se, fast: bool) -> _Chain:
+    if tts_model.cfg.is_melo:
+        raise ValueError("the fused chains take the V1 TTS; run a MeloTTS model's tts / tts_batched, then convert")
     if tts_model.device != converter.device:
         raise ValueError(f"the TTS runs on {tts_model.device}, the converter on {converter.device}")
     return _Chain(tts_model._require_model(), converter._require_model(), _g_host(src_se), _g_host(tgt_se), fast,
@@ -739,6 +811,11 @@ def frame_groups(enc_rows: list[dict]) -> dict[int, list[int]]:
     return groups
 
 
+def _phones(seq) -> np.ndarray:
+    """A sentence's token ids: the array itself, or a MeloTTS row's phones."""
+    return seq.phones if hasattr(seq, "phones") else seq
+
+
 def _pack_token_batch(token_seqs, idxs, tb, noise_rngs):
     """One token-bucket group's (tokens, lengths, sdp noise) arrays, drawn in
     `tts`'s order."""
@@ -748,28 +825,61 @@ def _pack_token_batch(token_seqs, idxs, tb, noise_rngs):
     noise_w = np.zeros((m, tb, 2), np.float32)
     with trace("ov.noise"):
         for r, i in enumerate(idxs):
-            toks[r, : len(token_seqs[i])] = token_seqs[i]
-            lens[r] = len(token_seqs[i])
+            seq = _phones(token_seqs[i])
+            toks[r, : len(seq)] = seq
+            lens[r] = len(seq)
             noise_w[r] = noise_rngs[i][0].standard_normal((tb, 2)).astype(np.float32)
     return toks, lens, noise_w
 
 
+def bert_body(bert: Bert, ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """MeloTTS's BERT features of a padded wordpiece batch → [B, W, hidden]."""
+    return bert(ids, lengths)
+
+
+def _melo_inputs(graphs: GraphCache, bert: Bert, rows, idxs: list[int], tb: int) -> tuple[dict, int]:
+    """A token-bucket group's MeloTTS inputs: tones, languages, the BERT
+    features of its wordpieces (a replay of the group's ``tts_bert`` graph)
+    and each phone's wordpiece → (the encode's extra inputs, the wordpiece
+    bucket)."""
+    from openvoice_tpu_torch.text.melo import phone_word_index
+
+    m = len(idxs)
+    with trace("ov.bert"):
+        wb = round_up_to_bucket(max(len(rows[i].wordpieces) for i in idxs), WORDPIECE_BUCKETS)
+        ids, wlens = np.zeros((m, wb), np.int32), np.zeros(m, np.int64)
+        tones, langs, index = (np.zeros((m, tb), np.int32), np.zeros((m, tb), np.int32),
+                               np.zeros((m, tb), np.int64))
+        for r, i in enumerate(idxs):
+            row = rows[i]
+            ids[r, : len(row.wordpieces)] = row.wordpieces
+            wlens[r] = len(row.wordpieces)
+            tones[r, : len(row.tones)] = row.tones
+            langs[r, : len(row.languages)] = row.languages
+            index[r] = phone_word_index(row.word2ph, tb)
+    feats = graphs.run(GraphKey("tts_bert", bucket=wb, batch=m), partial(bert_body, bert),
+                       {"ids": ids, "lengths": wlens})
+    return {"tones": tones, "languages": langs, "bert": feats, "word_index": index}, wb
+
+
 def _encode_rows(model: S.Synthesizer, token_seqs, speaker_id: int, speed: float, noise_rngs,
-                 device: torch.device, graphs: GraphCache | None = None) -> list[dict]:
+                 device: torch.device, graphs: GraphCache | None = None, noise_scale_w: float = NOISE_SCALE_W,
+                 bert: Bert | None = None) -> list[dict]:
     """The batched encode: sentences grouped by token bucket, one
     `S.tts_encode` a group (a replay of `graphs`' graph of the group's shape
-    where given, else eager); per-sentence rows (m_p, logs_p, x_mask, w_ceil
-    on the device) in input order."""
+    where given, else eager; MeloTTS's rows after their BERT); per-sentence
+    rows (m_p, logs_p, x_mask, w_ceil on the device) in input order."""
     graphs = GraphCache(device, enabled=False) if graphs is None else graphs
     enc_rows: list[dict | None] = [None] * len(token_seqs)
     groups: dict[int, list[int]] = {}
     for i, seq in enumerate(token_seqs):
-        groups.setdefault(round_up_to_bucket(len(seq)), []).append(i)
+        groups.setdefault(round_up_to_bucket(len(_phones(seq))), []).append(i)
     for tb, idxs in groups.items():
         with trace("ov.prepare"):
             toks, lens, noise_w = _pack_token_batch(token_seqs, idxs, tb, noise_rngs)
+        extra, wb = _melo_inputs(graphs, bert, token_seqs, idxs, tb) if bert is not None else ({}, None)
         enc = _tts_encode(graphs, model, toks, lens.astype(np.int64), np.full(len(idxs), speaker_id, np.int64),
-                          noise_w, speed)
+                          noise_w, speed, noise_scale_w, extra, wb)
         for r, i in enumerate(idxs):
             enc_rows[i] = {"m_p": enc.m_p[r], "logs_p": enc.logs_p[r], "x_mask": enc.x_mask[r],
                            "w_ceil": enc.w_ceil[r]}
@@ -822,11 +932,19 @@ def tone_color_body(model: S.Synthesizer, cfg: SynthesizerConfig, audio: torch.T
 
 def tts_encode_body(model: S.Synthesizer, tokens: torch.Tensor, lengths: torch.Tensor, sid: torch.Tensor,
                     noise_w: torch.Tensor, noise_scale_w: torch.Tensor, length_scale: torch.Tensor,
-                    sdp_ratio: torch.Tensor) -> tuple:
+                    sdp_ratio: torch.Tensor, tones: torch.Tensor | None = None,
+                    languages: torch.Tensor | None = None, bert: torch.Tensor | None = None,
+                    word_index: torch.Tensor | None = None) -> tuple:
     """`S.tts_encode` with its sampling knobs as tensors (``tts_encode_jit``)
-    → the fields of `S.TTSEncodeOut`."""
+    → the fields of `S.TTSEncodeOut`.  MeloTTS's rows also take tones,
+    languages, the BERT features of their wordpieces [B, W, 768] and each
+    phone's wordpiece [B, T_x], whose feature the phone takes."""
+    ja_bert = None
+    if bert is not None:
+        ja_bert = torch.gather(bert, 1, word_index[..., None].expand(-1, -1, bert.shape[2]))
     return tuple(S.tts_encode(model, tokens, lengths, sid, noise_w, noise_scale_w=noise_scale_w,
-                              length_scale=length_scale, sdp_ratio=sdp_ratio))
+                              length_scale=length_scale, sdp_ratio=sdp_ratio, tones=tones, languages=languages,
+                              ja_bert=ja_bert))
 
 
 def tts_decode_body(model: S.Synthesizer, max_frames: int, fast: bool, dec_cache: dict | None,
@@ -871,19 +989,22 @@ def tts_synthesize_convert_body(model: S.Synthesizer, conv_model: S.Synthesizer,
 
 
 def _tts_encode(graphs: GraphCache, model: S.Synthesizer, tokens: np.ndarray, lengths: np.ndarray,
-                sids: np.ndarray, noise_w: np.ndarray, speed: float) -> S.TTSEncodeOut:
-    """One token-bucket batch's encode through `graphs`."""
+                sids: np.ndarray, noise_w: np.ndarray, speed: float, noise_scale_w: float = NOISE_SCALE_W,
+                extra: dict | None = None, wordpieces: int | None = None) -> S.TTSEncodeOut:
+    """One token-bucket batch's encode through `graphs` (`extra`: MeloTTS's
+    inputs, from BERT features of `wordpieces` rows)."""
     inputs = {"tokens": tokens, "lengths": lengths, "sid": sids, "noise_w": noise_w,
-              "noise_scale_w": np.float32(NOISE_SCALE_W), "length_scale": np.float32(1.0 / speed),
-              "sdp_ratio": np.float32(SDP_RATIO)}
-    key = GraphKey("tts_encode", bucket=tokens.shape[1], batch=tokens.shape[0])
+              "noise_scale_w": np.float32(noise_scale_w), "length_scale": np.float32(1.0 / speed),
+              "sdp_ratio": np.float32(SDP_RATIO), **(extra or {})}
+    key = GraphKey("tts_encode", bucket=tokens.shape[1], batch=tokens.shape[0], wordpieces=wordpieces)
     return S.TTSEncodeOut(*graphs.run(key, partial(tts_encode_body, model), inputs))
 
 
 def _tts_decode(graphs: GraphCache, model: S.Synthesizer, enc: S.TTSEncodeOut, max_frames: int,
-                noise: np.ndarray, fast: bool, dec_cache: dict | None) -> tuple[torch.Tensor, torch.Tensor]:
+                noise: np.ndarray, fast: bool, dec_cache: dict | None,
+                noise_scale: float = NOISE_SCALE) -> tuple[torch.Tensor, torch.Tensor]:
     """One frame-bucket group's decode through `graphs` → (audio, y_mask)."""
-    inputs = {**enc._asdict(), "noise": noise, "noise_scale": np.float32(NOISE_SCALE)}
+    inputs = {**enc._asdict(), "noise": noise, "noise_scale": np.float32(noise_scale)}
     key = GraphKey("tts_decode", bucket=enc.m_p.shape[1], batch=enc.m_p.shape[0], fast=fast, max_frames=max_frames)
     return graphs.run(key, partial(tts_decode_body, model, max_frames, fast, dec_cache), inputs)
 

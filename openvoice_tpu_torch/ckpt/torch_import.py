@@ -16,6 +16,11 @@ parameter of the module explicitly, so that no leaf keeps a random draw:
   flows' elementwise affine, the GRU and the linear layers) is left
   ``None`` there and fails later; here it raises a ``KeyError`` that names
   the key, at load;
+* a MeloTTS checkpoint (``cfg.is_melo``) gives the text encoder's tone and
+  language tables, its BERT projections and speaker projection
+  (``enc_p.encoder.spk_emb_linear``), and the transformer couplings' keys
+  (``flow.flows.N.{pre,enc,post}``, ``enc`` an attention encoder), each
+  under MeloTTS's own name;
 * optional layers follow JAX's presence tests: a conditioning layer
   (``dec.cond``, ``sdp.cond``, ``dp.cond``, a WaveNet's ``cond_layer``) or
   the reference encoder's ``layernorm`` that the file lacks is taken out of
@@ -149,6 +154,23 @@ def _sdp_flows(sd: _SD, prefix: str, out: dict) -> None:
         _conv(sd, f"{prefix}.{i}.proj", out)
 
 
+def _encoder(sd: _SD, prefix: str, n_layers: int, conditioned: bool, out: dict) -> None:
+    """A relative-attention `Encoder` (the text encoder's, a transformer
+    coupling's), with its ``spk_emb_linear`` where it is conditioned."""
+    for i in range(n_layers):
+        ap = f"{prefix}.attn_layers.{i}"
+        for name in ("q", "k", "v", "o"):
+            _conv(sd, f"{ap}.conv_{name}", out)
+        out[f"{ap}.emb_rel_k"] = sd.need(f"{ap}.emb_rel_k")
+        out[f"{ap}.emb_rel_v"] = sd.need(f"{ap}.emb_rel_v")
+        _ln(sd, f"{prefix}.norm_layers_1.{i}", out)
+        _conv(sd, f"{prefix}.ffn_layers.{i}.conv_1", out)
+        _conv(sd, f"{prefix}.ffn_layers.{i}.conv_2", out)
+        _ln(sd, f"{prefix}.norm_layers_2.{i}", out)
+    if conditioned:
+        _linear(sd, f"{prefix}.spk_emb_linear", out)
+
+
 def _optional_conv(sd: _SD, owner: nn.Module, prefix: str, out: dict) -> None:
     """A conditioning conv that JAX takes only when ``<prefix>.weight`` is in
     the file; otherwise it leaves the module."""
@@ -173,7 +195,10 @@ def import_synthesizer(state_dict: Mapping[str, torch.Tensor],
     for i in range(cfg.flow_n_flows):
         fp = f"flow.flows.{2 * i}"  # odd slots are the parameter-free flips
         _conv(sd, f"{fp}.pre", out)
-        _wn(sd, model.flow.flows[2 * i].enc, f"{fp}.enc", cfg.flow_wn_layers, cfg.gin_channels, out)
+        if cfg.is_melo:  # MeloTTS's TransformerCouplingLayer
+            _encoder(sd, f"{fp}.enc", cfg.n_layers_trans_flow, bool(cfg.gin_channels), out)
+        else:
+            _wn(sd, model.flow.flows[2 * i].enc, f"{fp}.enc", cfg.flow_wn_layers, cfg.gin_channels, out)
         _conv(sd, f"{fp}.post", out)
 
     for i in range(len(cfg.upsample_rates)):
@@ -203,17 +228,13 @@ def import_synthesizer(state_dict: Mapping[str, torch.Tensor],
             model.ref_enc.layernorm = nn.Identity()
         _linear(sd, "ref_enc.proj", out)
     else:
-        for i in range(cfg.n_layers):
-            ap = f"enc_p.encoder.attn_layers.{i}"
-            for name in ("q", "k", "v", "o"):
-                _conv(sd, f"{ap}.conv_{name}", out)
-            out[f"{ap}.emb_rel_k"] = sd.need(f"{ap}.emb_rel_k")
-            out[f"{ap}.emb_rel_v"] = sd.need(f"{ap}.emb_rel_v")
-            _ln(sd, f"enc_p.encoder.norm_layers_1.{i}", out)
-            _conv(sd, f"enc_p.encoder.ffn_layers.{i}.conv_1", out)
-            _conv(sd, f"enc_p.encoder.ffn_layers.{i}.conv_2", out)
-            _ln(sd, f"enc_p.encoder.norm_layers_2.{i}", out)
+        _encoder(sd, "enc_p.encoder", cfg.n_layers, cfg.is_melo and bool(cfg.gin_channels), out)
         out["enc_p.emb.weight"] = sd.need("enc_p.emb.weight")
+        if cfg.is_melo:  # melo/models.py TextEncoder's tables and BERT projections
+            out["enc_p.tone_emb.weight"] = sd.need("enc_p.tone_emb.weight")
+            out["enc_p.language_emb.weight"] = sd.need("enc_p.language_emb.weight")
+            _conv(sd, "enc_p.bert_proj", out)
+            _conv(sd, "enc_p.ja_bert_proj", out)
         _conv(sd, "enc_p.proj", out)
         for name in ("pre", "proj"):
             _conv(sd, f"sdp.{name}", out)

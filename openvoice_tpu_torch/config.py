@@ -133,15 +133,35 @@ class SynthesizerConfig:
     def has_text_path(self) -> bool:
         return self.n_speakers > 0
 
+    # whether the text path is MeloTTS's (`MeloTTSConfig`: tones, languages,
+    # BERT, a transformer-coupling flow)
+    is_melo = False
+
     @staticmethod
     def from_hparams(hps: HParams, n_symbols: int | None = None) -> "SynthesizerConfig":
-        """Build from a reference-format config (mirrors api.py:23-28 splat)."""
+        """Build from a reference-format config (mirrors api.py:23-28 splat).
+
+        A MeloTTS ``config.json`` (top-level ``num_tones``; melo/models.py
+        SynthesizerTrn's arguments) gives a `MeloTTSConfig`: its tone and
+        language tables and ``model.n_layers_trans_flow``.  Every published
+        MeloTTS config conditions the encoder on the speaker and builds the
+        transformer-coupling flow, the only ones the port builds; a config
+        that sets ``use_transformer_flow`` or ``use_spk_conditioned_encoder``
+        false is refused."""
         model: Mapping[str, Any] = hps.model.to_dict() if isinstance(hps.model, HParams) else dict(hps.model)
         data = hps.data
         if n_symbols is None:
             n_symbols = len(hps.get("symbols", []) or [])
         known = {f.name for f in dataclasses.fields(SynthesizerConfig)}
         kwargs = {k: v for k, v in model.items() if k in known}
+        cls = SynthesizerConfig
+        if "num_tones" in hps:
+            cls = MeloTTSConfig
+            for key in ("use_transformer_flow", "use_spk_conditioned_encoder"):  # melo/models.py's defaults: on
+                if not model.get(key, True):
+                    raise ValueError(f"a MeloTTS config with {key} false is not supported")
+            kwargs.update(num_tones=int(hps.num_tones), num_languages=int(hps.num_languages))
+            kwargs.update({k: v for k, v in model.items() if k == "n_layers_trans_flow"})
         # tolerate extra model keys like the reference's **kwargs (models.py:424)
         kwargs.update(
             n_vocab=n_symbols,
@@ -159,7 +179,7 @@ class SynthesizerConfig:
                 kwargs[k] = tuple(kwargs[k])
         if "resblock_dilation_sizes" in kwargs:
             kwargs["resblock_dilation_sizes"] = tuple(tuple(d) for d in kwargs["resblock_dilation_sizes"])
-        return SynthesizerConfig(**kwargs)
+        return cls(**kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -176,3 +196,41 @@ V2_CONVERTER_CONFIG = SynthesizerConfig(n_speakers=0, zero_g=True)
 def v1_base_tts_config(n_vocab: int, n_speakers: int = 10) -> SynthesizerConfig:
     """V1 base speaker TTS: text path + speaker-style embedding table."""
     return SynthesizerConfig(n_vocab=n_vocab, n_speakers=n_speakers, zero_g=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeloTTSConfig(SynthesizerConfig):
+    """MeloTTS's synthesizer (melo/models.py SynthesizerTrn): the base
+    fields, and the text path's tone and language tables, the widths of the
+    two BERT feature inputs (``bert`` 1024, zeros for English; ``ja_bert``
+    768, bert-base-uncased's layer 10), the speaker added before the text
+    encoder's layer 2 (where gin_channels > 0), and the flow of transformer
+    couplings (`nn.extras.TransformerCouplingBlock`, each a
+    relative-attention encoder of `n_layers_trans_flow` layers over the
+    frames, FFN kernel flow_kernel_size).  The base class keeps the JAX
+    package's fields alone."""
+
+    num_tones: int = 16
+    num_languages: int = 10
+    bert_channels: int = 1024
+    ja_bert_channels: int = 768
+    n_layers_trans_flow: int = 3
+
+    is_melo = True
+
+
+# melo/text/symbols.py: the length of the ``symbols`` list MeloTTS's
+# config.json carries (table rows only, no width)
+MELO_N_SYMBOLS = 219
+
+
+def melo_tts_en_config(n_vocab: int = MELO_N_SYMBOLS) -> MeloTTSConfig:
+    """MeloTTS-English (its config.json; melo/models.py SynthesizerTrn): the
+    V1 TTS's widths with tone (16) and language (10) tables, BERT features,
+    a speaker-conditioned text encoder, a transformer-coupling flow of 4 ×
+    3 attention layers, and a five-stage HiFi-GAN at 44.1 kHz (hop 512)."""
+    return MeloTTSConfig(
+        n_vocab=n_vocab, n_speakers=256, zero_g=False, spec_channels=1025,
+        upsample_rates=(8, 8, 2, 2, 2), upsample_kernel_sizes=(16, 16, 8, 2, 2),
+        sampling_rate=44100, filter_length=2048, hop_length=512, win_length=2048,
+    )

@@ -13,6 +13,12 @@ the flow and every decoder stage run as one hand-written kernel each
 (``ops/{wn,coupling,mrf,tail}_cuda.py``).  The TTS text encoder and duration
 predictors stay f32 in both modes, as in the JAX package: only its decode
 (reverse flow and decoder) runs in bf16.
+
+A MeloTTS config (``cfg.is_melo``; melo/models.py SynthesizerTrn) adds tone
+and language tables and BERT features to the text encoder, conditions it on
+the speaker, and builds the flow of transformer couplings
+(`nn.extras.TransformerCouplingBlock`), which the serving mode runs on stock
+bf16 layers inside the decode graph, ahead of the decoder's kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from openvoice_tpu_torch.nn.conv import conv1d
 from openvoice_tpu_torch.nn.duration import (
     DurationPredictor, StochasticDurationPredictor, apply_duration_predictor, apply_sdp_reverse,
 )
+from openvoice_tpu_torch.nn.extras import TransformerCouplingBlock
 from openvoice_tpu_torch.nn.flows import ConvFlow, ResidualCouplingBlock
 from openvoice_tpu_torch.nn.hifigan import (
     Generator, apply_generator, cast_copy, pack_generator_caches,
@@ -70,15 +77,24 @@ class PosteriorEncoder(nn.Module):
 
 class TextEncoder(nn.Module):
     """Tokens → relative-attention encoder → (m_p, logs_p) (models.py:16-57);
-    attributes ``emb``, ``encoder``, ``proj``."""
+    attributes ``emb``, ``encoder``, ``proj``.  MeloTTS's adds
+    ``tone_emb``, ``language_emb``, ``bert_proj`` and ``ja_bert_proj`` (1×1
+    convs of the BERT features) to the token embedding, and the encoder's
+    ``spk_emb_linear`` (melo/models.py TextEncoder)."""
 
     def __init__(self, cfg: SynthesizerConfig):
         super().__init__()
         h = cfg.hidden_channels
         self.hidden = h
         self.emb = nn.Embedding(cfg.n_vocab, h)
+        if cfg.is_melo:
+            self.tone_emb = nn.Embedding(cfg.num_tones, h)
+            self.language_emb = nn.Embedding(cfg.num_languages, h)
+            self.bert_proj = conv1d(cfg.bert_channels, h)
+            self.ja_bert_proj = conv1d(cfg.ja_bert_channels, h)
         self.encoder = Encoder(h, cfg.filter_channels, cfg.n_heads, cfg.n_layers, cfg.kernel_size,
-                               cfg.attn_window_size)
+                               cfg.attn_window_size,
+                               gin_channels=cfg.gin_channels if cfg.is_melo else 0)
         self.proj = conv1d(h, 2 * cfg.inter_channels)
 
 
@@ -92,10 +108,16 @@ class Synthesizer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.enc_q = PosteriorEncoder(cfg)
-        self.flow = ResidualCouplingBlock(
-            cfg.inter_channels, cfg.hidden_channels, cfg.flow_kernel_size,
-            cfg.flow_wn_layers, cfg.flow_n_flows, cfg.gin_channels,
-        )
+        if cfg.is_melo:
+            self.flow = TransformerCouplingBlock(
+                cfg.inter_channels, cfg.hidden_channels, cfg.filter_channels, cfg.n_heads,
+                cfg.n_layers_trans_flow, cfg.flow_kernel_size, cfg.flow_n_flows, cfg.gin_channels,
+            )
+        else:
+            self.flow = ResidualCouplingBlock(
+                cfg.inter_channels, cfg.hidden_channels, cfg.flow_kernel_size,
+                cfg.flow_wn_layers, cfg.flow_n_flows, cfg.gin_channels,
+            )
         self.dec = Generator(cfg)
         if cfg.n_speakers == 0:
             self.ref_enc = ReferenceEncoder(cfg.spec_channels, cfg.gin_channels)
@@ -188,7 +210,9 @@ def make_dec_cache(model: Synthesizer, dtype: torch.dtype = torch.bfloat16) -> d
     * ``wn``: the posterior encoder's WaveNet stack;
     * ``coupling``: both directions of the flow, flips folded in;
     * ``enc_q`` / ``flow_cond``: copies in `dtype` of the stock layers that
-      stay outside the kernels (pre, proj and the conditioning 1×1 convs).
+      stay outside the kernels (pre, proj and the conditioning 1×1 convs);
+    * for a transformer-coupling flow (MeloTTS) instead of ``coupling`` and
+      ``flow_cond``: ``flow``, a copy of the block in `dtype`.
 
     Pass it as ``dec_cache``.  Build it again when the weights change."""
     def cast(module):
@@ -197,12 +221,17 @@ def make_dec_cache(model: Synthesizer, dtype: torch.dtype = torch.bfloat16) -> d
     cache = pack_generator_caches(model.dec, dtype)
     cache["dtype"] = dtype
     cache["wn"] = {"enc_q": stack_wn_params(model.enc_q.enc, dtype)}
+    cache["enc_q"] = {"pre": cast(model.enc_q.pre), "proj": cast(model.enc_q.proj),
+                      "cond": cast(model.enc_q.enc.cond_layer)}
+    if isinstance(model.flow, TransformerCouplingBlock):
+        # no kernel takes a transformer coupling: a copy in `dtype` of the
+        # whole block, which the TTS decode runs on stock layers
+        cache["flow"] = cast(model.flow)
+        return cache
     cache["coupling"] = {
         "fwd": pack_coupling_block(model.flow, reverse=False, dtype=dtype),
         "rev": pack_coupling_block(model.flow, reverse=True, dtype=dtype),
     }
-    cache["enc_q"] = {"pre": cast(model.enc_q.pre), "proj": cast(model.enc_q.proj),
-                      "cond": cast(model.enc_q.enc.cond_layer)}
     cache["flow_cond"] = [cast(flow.enc.cond_layer) for flow in model.flow.flows[::2]]
     return cache
 
@@ -281,6 +310,8 @@ def _latents_packed(model: Synthesizer, cache: dict, spec: torch.Tensor, y_mask:
     posterior encoder (stock pre → WaveNet kernel → stock proj), then the flow
     forward with g_src and back with g_tgt (one kernel each)."""
     cfg = model.cfg
+    if "coupling" not in cache:
+        raise ValueError("the conversion's kernel route needs a WaveNet coupling flow")
     g_enc = torch.zeros_like(g_src) if cfg.zero_g else g_src
     tau_t = torch.as_tensor(tau, dtype=spec.dtype, device=spec.device)  # a float, or [B, 1, 1]
     lengths = (y_mask[:, :, 0] != 0).sum(dim=1, dtype=torch.int32)
@@ -312,13 +343,26 @@ class TTSEncodeOut(NamedTuple):
     g: torch.Tensor | None  # [B, 1, gin]
 
 
-def text_encode(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor):
+def text_encode(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor,
+                tones: torch.Tensor | None = None, languages: torch.Tensor | None = None,
+                ja_bert: torch.Tensor | None = None, g: torch.Tensor | None = None):
     """tokens [B, T_x] int, token_lengths [B] → (h [B, T_x, hidden], m_p,
-    logs_p [B, T_x, inter], x_mask [B, T_x, 1]), all float32."""
+    logs_p [B, T_x, inter], x_mask [B, T_x, 1]), all float32.
+
+    MeloTTS's encoder (``cfg.is_melo``) also takes tones and languages
+    [B, T_x] int, ja_bert [B, T_x, ja_bert_channels] (each phone's BERT
+    feature) and g [B, 1, gin], the speaker it is conditioned on; its
+    ``bert`` input is zeros for English, so ``bert_proj`` gives its bias
+    alone, which is what the 1×1 conv of zeros gives."""
     enc = model.enc_p
     x_mask = sequence_mask(token_lengths, tokens.shape[1])[..., None].float()
-    h = enc.emb(tokens.long()) * math.sqrt(enc.hidden)
-    h = enc.encoder(_bct(h * x_mask), _bct(x_mask))
+    h = enc.emb(tokens.long())
+    if model.cfg.is_melo:
+        h = (h + enc.tone_emb(tones.long()) + enc.language_emb(languages.long()) + enc.bert_proj.bias
+             + _bct(enc.ja_bert_proj(_bct(ja_bert))))
+    h = h * math.sqrt(enc.hidden)
+    g_enc = _bct(g) if g is not None and model.cfg.is_melo else None
+    h = enc.encoder(_bct(h * x_mask), _bct(x_mask), g_enc)
     stats = _bct(enc.proj(h)) * x_mask
     inter = model.cfg.inter_channels
     return _bct(h), stats[..., :inter], stats[..., inter:], x_mask
@@ -335,15 +379,17 @@ def log_durations(model: Synthesizer, h: torch.Tensor, x_mask: torch.Tensor, g: 
 
 def tts_encode(model: Synthesizer, tokens: torch.Tensor, token_lengths: torch.Tensor,
                sid: torch.Tensor | None, noise_w: torch.Tensor, noise_scale_w: float = 0.6,
-               length_scale: float = 1.0, sdp_ratio: float = 0.2) -> TTSEncodeOut:
+               length_scale: float = 1.0, sdp_ratio: float = 0.2, tones: torch.Tensor | None = None,
+               languages: torch.Tensor | None = None, ja_bert: torch.Tensor | None = None) -> TTSEncodeOut:
     """Text encoder and duration predictors → integral durations (the first
     half of models.py:467-482), f32 in both modes.
 
     tokens [B, T_x] int, noise_w [B, T_x, 2] standard normal (the JAX
     package's ``noise_w``; the caller draws it so that a seed gives the same
-    draws in both packages)."""
-    h, m_p, logs_p, x_mask = text_encode(model, tokens, token_lengths)
+    draws in both packages); tones, languages and ja_bert as `text_encode`
+    takes them (MeloTTS)."""
     g = model.emb_g(sid.long())[:, None, :] if sid is not None else None  # [B, 1, gin]
+    h, m_p, logs_p, x_mask = text_encode(model, tokens, token_lengths, tones, languages, ja_bert, g)
     logw = log_durations(model, h, x_mask, g, noise_w, noise_scale_w, sdp_ratio)
     w = torch.exp(logw) * x_mask * length_scale
     return TTSEncodeOut(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w_ceil=torch.ceil(w)[..., 0], g=g)
@@ -355,7 +401,7 @@ def tts_latents(model: Synthesizer, enc: TTSEncodeOut, max_frames: int, noise: t
     (z [B, max_frames, inter], y_mask [B, max_frames, 1] float32, y_lengths
     [B] int32, g), z and g in the route's dtype: float32 on stock layers
     without a cache, else the cache's dtype through the K2 route (bf16 for
-    fast=True)."""
+    fast=True), or a transformer-coupling flow's stock layers in it."""
     if fast and dec_cache is None:
         raise ValueError("fast=True needs dec_cache=make_dec_cache(model)")
     y_lengths = torch.clamp(enc.w_ceil.sum(dim=-1), 1, max_frames).to(torch.int32)
@@ -369,6 +415,11 @@ def tts_latents(model: Synthesizer, enc: TTSEncodeOut, max_frames: int, noise: t
     dt = torch.bfloat16 if fast else z_p.dtype
     if dec_cache["dtype"] != dt:
         raise TypeError(f"dec_cache holds {dec_cache['dtype']}, this call runs in {dt}")
+    if "flow" in dec_cache:  # a transformer-coupling flow, on stock layers in the cache's dtype
+        g = g.to(dt) if g is not None else None
+        z = dec_cache["flow"](_bct(z_p.to(dt)), _bct(y_mask.to(dt)), g=_bct(g) if g is not None else None,
+                              reverse=True)
+        return _bct(z), y_mask, y_lengths, g
     z_p = (z_p * y_mask).to(dt).contiguous()
     rev = dec_cache["coupling"]["rev"]
     if g is not None:

@@ -1,14 +1,15 @@
 """Auxiliary blocks of the reference's inventory (the port of
 ``openvoice_tpu/nn/extras.py``): `ConvReluNorm` (modules.py:32-81), the
-VITS2-style `TransformerCouplingLayer` (modules.py:519-581) and the
-attention `Decoder` stack (attentions.py:124-207).
+VITS2-style `TransformerCouplingLayer` (modules.py:519-581) and its block
+`TransformerCouplingBlock`, and the attention `Decoder` stack
+(attentions.py:124-207).
 
-No released config instantiates them; the JAX package keeps them as working
-components (a transformer coupling as an alternative flow for training new
-models, the decoder stack for an autoregressive text path), and so does the
-port.  Modules run in [B, C, T]; their attributes follow the reference's
-state-dict keys.  ``ckpt/from_jax.py::extras_from_jax`` fills them from the
-JAX package's parameter pytrees.
+MeloTTS (OpenVoice V2's base speaker, melo/models.py TransformerCouplingBlock)
+builds its flow of `TransformerCouplingBlock`; `ConvReluNorm` and `Decoder`
+are working components that no released config instantiates, kept as the
+JAX package keeps them.  Modules run in [B, C, T]; their attributes follow
+the reference's state-dict keys.  ``ckpt/from_jax.py::extras_from_jax``
+fills them from the JAX package's parameter pytrees.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from torch import nn
 from openvoice_tpu_torch.models.align import subsequent_mask
 from openvoice_tpu_torch.nn.attention import FFN, Encoder, MultiHeadAttention
 from openvoice_tpu_torch.nn.conv import LayerNorm, conv1d
+from openvoice_tpu_torch.nn.flows import Flip
 
 
 class ConvReluNorm(nn.Module):
@@ -83,6 +85,32 @@ class TransformerCouplingLayer(nn.Module):
         if reverse:
             return torch.cat([x0, (x1 - m) * x_mask], dim=1)
         return torch.cat([x0, (m + x1) * x_mask], dim=1), x.new_zeros(x.shape[0])
+
+
+class TransformerCouplingBlock(nn.Module):
+    """n_flows × [mean-only `TransformerCouplingLayer` + flip]
+    (melo/models.py TransformerCouplingBlock, without shared parameters);
+    ``flows.{0,2,4,6}`` are the couplings, each with its own context
+    encoder.  The stock layers run it in both modes: no kernel takes it."""
+
+    def __init__(self, channels: int, hidden_channels: int, filter_channels: int, n_heads: int, n_layers: int,
+                 kernel_size: int, n_flows: int = 4, gin_channels: int = 0):
+        super().__init__()
+        flows: list[nn.Module] = []
+        for _ in range(n_flows):
+            flows.append(TransformerCouplingLayer(channels, hidden_channels, filter_channels, kernel_size,
+                                                  n_layers, n_heads, gin_channels=gin_channels))
+            flows.append(Flip())
+        self.flows = nn.ModuleList(flows)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None,
+                reverse: bool = False) -> torch.Tensor:
+        """x [B, C, T], x_mask [B, 1, T], g [B, gin, 1] → [B, C, T]; reverse
+        runs the chain backwards (the TTS's direction)."""
+        for flow in (reversed(self.flows) if reverse else self.flows):
+            out = flow(x, x_mask, g=g, reverse=reverse)
+            x = out if reverse or isinstance(flow, Flip) else out[0]
+        return x
 
 
 class Decoder(nn.Module):

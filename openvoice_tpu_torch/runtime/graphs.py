@@ -18,7 +18,7 @@ device.  ``run(key, body, inputs)`` runs ``body(**inputs)``:
   clone — before another replay of the device's pool may run.
 
 A key is what the JAX site marks static, with the shapes: (site, bucket,
-batch, fast, chunk_frames, max_frames, segment_frames, device).  Every
+batch, fast, chunk_frames, max_frames, segment_frames, device, wordpieces).  Every
 traced value is an input tensor (tau, lengths, g, noise, the sampling knobs,
 a train step's draws and learning rate), never a constant captured into the
 graph.  A graph reads the model's parameters and its
@@ -88,6 +88,7 @@ class GraphKey(NamedTuple):
     max_frames: int | None = None
     segment_frames: int | None = None
     device: str | None = None
+    wordpieces: int | None = None  # MeloTTS's encode: the wordpiece bucket of its BERT features
 
 
 class CapturedGraph(NamedTuple):

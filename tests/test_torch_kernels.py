@@ -634,11 +634,14 @@ def test_mrf_wgmma_slabs_give_back_the_weights(c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("c_in,c_out,t_in,last", [(128, 64, 301, False), (64, 32, 403, True)],
-                         ids=["middle", "last"])
+@pytest.mark.parametrize("c_in,c_out,t_in,last,k_up", [
+    (128, 64, 301, False, 4), (64, 32, 403, True, 4),
+    # MeloTTS's stages 2-4: upsample kernels 8 and 2, the last at 16 channels
+    (128, 64, 233, False, 8), (64, 32, 257, False, 2), (32, 16, 281, True, 2),
+], ids=["middle", "last", "melo-stage2", "melo-stage3", "melo-stage4"])
 @torch.inference_mode()
-def test_tail_stage_matches_pallas(c_in, c_out, t_in, last, dtype):
-    u, k_up = 2, 4
+def test_tail_stage_matches_pallas(c_in, c_out, t_in, last, k_up, dtype):
+    u = 2
     rng = np.random.default_rng(c_in + t_in)
     jrbs = _random_resblocks(rng, c_out)
     up = {"w": (rng.standard_normal((k_up, c_in, c_out)) * 0.1).astype(np.float32),
@@ -679,14 +682,15 @@ def test_tail_stage_matches_pallas(c_in, c_out, t_in, last, dtype):
         _close_bf16(out, ref)
 
 
-def _tail_packed(rng, c_in, c_out, last, dtype):
+def _tail_packed(rng, c_in, c_out, last, dtype, k_up=4):
     """A tail stage's packed weights from seeded numpy draws: upsample ×2
-    (k 4), the V2 branches, and conv_post (k 7) on the last stage."""
-    up = {"w": (rng.standard_normal((4, c_in, c_out)) * 0.1).astype(np.float32),
+    (k 4, the V2 stages'; MeloTTS's take 8 and 2), the V2 branches, and
+    conv_post (k 7) on the last stage."""
+    up = {"w": (rng.standard_normal((k_up, c_in, c_out)) * 0.1).astype(np.float32),
           "b": (rng.standard_normal(c_out) * 0.1).astype(np.float32)}
     sd: dict = {}
     from_jax._conv_transpose(up, "up", sd)
-    up_mod = _load(conv_transpose1d(c_in, c_out, 4, 2), {key[3:]: v for key, v in sd.items()})
+    up_mod = _load(conv_transpose1d(c_in, c_out, k_up, 2), {key[3:]: v for key, v in sd.items()})
     post_mod = None
     if last:
         sd = {}
@@ -757,17 +761,21 @@ def _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dt):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("c_in,c_out,t_in,last", [(128, 64, 301, False), (64, 32, 403, True)],
-                         ids=["middle", "last"])
+@pytest.mark.parametrize("c_in,c_out,t_in,last,k_up", [
+    (128, 64, 301, False, 4), (64, 32, 403, True, 4),
+    (128, 64, 301, False, 8), (64, 32, 403, False, 2), (32, 16, 405, True, 2)],
+    ids=["middle", "last", "melo-stage2", "melo-stage3", "melo-stage4"])
 @torch.inference_mode()
-def test_tail_trimmed_rows_keep_the_stage(c_in, c_out, t_in, last, dtype):
+def test_tail_trimmed_rows_keep_the_stage(c_in, c_out, t_in, last, k_up, dtype):
     """K4 computes each MRF conv only on the chunks `tail_cuda.tail_chunks`
     gives (on the last stage the kept rows reach conv_post's half width past
     the tile).  Blocks computed so, with NaN on every other row of their
     windows, give `tail_stage_plain` bit for bit on every tile, and on the
-    last stage the chunks of the tile alone let NaN reach the audio."""
+    last stage the chunks of the tile alone let NaN reach the audio.  Also
+    at MeloTTS's stages 2-4: upsample kernels 8 (the staged input reaches 2
+    rows past the window a side) and 2 (no row past it), 16 channels."""
     rng = np.random.default_rng(c_in + t_in + 7)
-    packed = _tail_packed(rng, c_in, c_out, last, dtype)
+    packed = _tail_packed(rng, c_in, c_out, last, dtype, k_up)
     lengths = torch.tensor([t_in * 2, (t_in - 111) * 2])
     x = torch.from_numpy((rng.standard_normal((2, t_in, c_in)) * 0.5).astype(np.float32)).to(dtype)
     plain = tail_cuda.tail_stage(x, lengths, packed)
@@ -791,6 +799,40 @@ def test_tail_trimmed_rows_keep_the_stage(c_in, c_out, t_in, last, dtype):
         narrow = tail_cuda.tail_chunks(KS, DILS, halo, tile, rows, 0)
         got = _tail_window_model(x, lengths, packed, tile, rows, tile, narrow, dtype)
         assert not bool(torch.isfinite(got.float()).all())
+
+
+@pytest.mark.parametrize("c_in,c_out,k_up,last", [(128, 64, 8, False), (64, 32, 2, False), (32, 16, 2, True)],
+                         ids=["stage2", "stage3", "stage4"])
+@torch.inference_mode()
+def test_tail_stage_plain_takes_melo_stages_as_the_stock_layers(c_in, c_out, k_up, last):
+    """MeloTTS's decoder stages 2-4 (upsample kernels 8, 2, 2 at stride 2;
+    128 → 64, 64 → 32 and 32 → 16 channels, the last with conv_post and
+    tanh), which the V2 and V1 decoders never give K4: `tail_stage_plain`
+    in f32 against the stock modules (`nn.hifigan.ResBlock1`, the
+    transposed conv, conv_post) on a ragged batch, masked as the decoder
+    masks, 1e-5 (f32 sums in another order)."""
+    gen = torch.Generator().manual_seed(c_out + k_up)
+    up = conv_transpose1d(c_in, c_out, k_up, 2)
+    rbs = torch.nn.ModuleList(ResBlock1(c_out, k, d) for k, d in zip(KS, DILS))
+    post = conv1d(c_out, 1, 7, bias=False) if last else None
+    for module in (up, rbs, post):
+        for p in (module.parameters() if module is not None else ()):
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+    packed = tail_cuda.pack_tail_weights(up, list(rbs), post, torch.float32)
+    t_in, lengths_in = 300, torch.tensor([300, 187])
+    x = torch.randn(2, t_in, c_in, generator=gen) * (torch.arange(t_in)[None, :, None] < lengths_in[:, None, None])
+    out = tail_cuda.tail_stage(x.contiguous(), lengths_in * 2, packed)
+    mask_in = (torch.arange(t_in)[None] < lengths_in[:, None]).float()[:, None]
+    mask = torch.repeat_interleave(mask_in, 2, dim=2)
+    y = up(F.leaky_relu(x.transpose(1, 2) * mask_in, 0.1)) * mask
+    y = sum(rb(y, mask) for rb in rbs) / len(rbs)
+    if last:
+        y = torch.tanh(post(F.leaky_relu(y, 0.01)))
+        out, y = out[..., 0], y[:, 0]
+        for r, n in enumerate(lengths_in.tolist()):   # no mask follows conv_post: compare the true samples
+            torch.testing.assert_close(out[r, : 2 * n], y[r, : 2 * n], atol=1e-5, rtol=0)
+    else:
+        torch.testing.assert_close(out, y.transpose(1, 2), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("last,len_out,live", [
