@@ -6,7 +6,7 @@
                                    # instead: time K1-K4 (or those named) over
                                    # tile sizes, warps, K1's and K2's cluster
                                    # size, K3's warpgroups, product width and
-                                   # ring depth
+                                   # ring depth, K4's warpgroups and copy group
     python3 chip_smoke.py --elastic     # instead: build, then phase 11 alone
     python3 chip_smoke.py --installed   # instead: build, then phase 12 alone
     python3 chip_smoke.py --melo-tail   # instead: build, then phase 3f alone
@@ -338,9 +338,16 @@ def build() -> None:
             elif "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  {name}:   {line.strip()}")
         # ptxas waits for every product of a warpgroup when it cannot prove
-        # the products' registers untouched while they run: K3's speed
+        # the products' registers untouched while they run: K3's and K4's speed
         check("wgmma.mma_async instructions are serialized" not in report,
               f"csrc/{name}.cu: ptxas serialized the wgmma products (see the report above)")
+        if name == "tail" and report:  # a library built before has no report
+            # every instance keeps its accumulators and fragments in registers
+            spills = [line.strip() for line in report.splitlines() if "spill" in line
+                      and "0 bytes spill stores, 0 bytes spill loads" not in line]
+            check(not spills, f"csrc/tail.cu spills: {spills}")
+            # the name the traces and the roofline readers match
+            check("tail_stage_kernel" in report, "csrc/tail.cu: no entry function named tail_stage_kernel")
         _nvcc.load(name)
 
 
@@ -756,7 +763,9 @@ def tail_check(kind: str, gen) -> dict:
     max_err, ms, hot_ms, plain_ms, stock_ms, flop, nbytes, stage_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, []
     launches_ = []
     u, k_up = 2, 4
-    # V2 stages 2 (128 → 64 channels) and 3 (64 → 32, then conv_post and tanh)
+    # V2 stages 2 (128 → 64 channels) and 3 (64 → 32, then conv_post and
+    # tanh) of the 10 s clip; a batcher group of 8 ragged rows at bucket 256;
+    # and a ragged batch
     for c_in, c, rate_in, last in [(128, 64, 64, False), (64, 32, 128, True)]:
         up, rbs = redraw(conv_transpose1d(c_in, c, k_up, u), gen), resblocks(c, gen)
         post = redraw(conv1d(c, 1, 7, bias=False), gen) if last else None
@@ -764,8 +773,10 @@ def tail_check(kind: str, gen) -> dict:
         post16 = copy.deepcopy(post).to(torch.bfloat16) if last else None
         packed = tail_cuda.pack_tail_weights(up, list(rbs), post)
         timed = None
+        group = [(256 - 37 * i) * rate_in * u for i in range(8)]
         for label, t_in, lengths in [
                 (f"stage {c_in}→{c} B=1 T_in={BUCKET * rate_in}", BUCKET * rate_in, [FRAMES * rate_in * u]),
+                (f"group {c_in}→{c} B=8 T_in={256 * rate_in}", 256 * rate_in, group),
                 (f"ragged {c_in}→{c} B=2 T_in=501", 501, [1002, 614])]:
             x, lens = rand_bf16(gen, len(lengths), t_in, c_in), lens_on_card(lengths)
             out = tail_cuda.tail_stage(x, lens, packed)
@@ -773,14 +784,12 @@ def tail_check(kind: str, gen) -> dict:
             max_err = max(max_err, agree(label, out, tail_cuda.tail_stage_plain(x, lens, packed), MRF_MEAN_TOL,
                                          lengths, zero_after=3 if last else 0))
             timed = timed or (x, lens, t_in, lengths[0], {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(
-                tail_cuda.last_launch["smem"])})
+                c, tail_cuda.last_launch["smem"])})
         x, lens, t_in, n, launch = timed
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         live = tail_cuda.live_tiles(n, launch["tile"], 3 if last else 0, t_in * u)
         slots = max(launch["blocks_per_sm"], 1) * sms
-        print(f"K4 launch {c_in}→{c}: rows/kept {launch['rows']}/{launch['tile']} (halo {launch['halo']}), "
-              f"{launch['threads']} threads, {launch['registers']} registers, "
-              f"{launch['spill_bytes']} bytes spilled a thread; {launch['tiles']} tiles, of which the exit rule "
+        print(f"K4 launch {c_in}→{c}: {k4_launch_line(launch)}; {launch['tiles']} tiles, of which the exit rule "
               f"leaves {live} live at {FRAMES} frames (computed on the host from the rule, not measured); "
               f"{launch['blocks_per_sm']} block(s) an SM × {sms} SMs: {-(-live // slots)} waves ({live / slots:.2f})")
         check(launch["blocks_per_sm"] >= 1, "no K4 block fits on an SM")
@@ -824,6 +833,15 @@ def tail_check(kind: str, gen) -> dict:
     return {**entry, "stage_ms": stage_ms, "stage_launch": launches_}
 
 
+def k4_launch_line(launch: dict) -> str:
+    """K4's launch, as `tail_cuda.last_launch` and `kernel_attributes` give it."""
+    ring = ("the weight stream resident" if launch["stages"] == 0 else
+            f"a ring of {launch['stages']} groups of {launch['group']} slabs")
+    return (f"window {launch['rows']} rows, {launch['tile']} kept (halo {launch['halo']}), {ring}, products in "
+            f"groups of up to 8, {launch['warpgroups']} warpgroups, {launch['registers']} "
+            f"registers, {launch['spill_bytes']} B local a thread, {launch['smem']} B shared")
+
+
 MELO_FRAMES, MELO_BUCKET = 866, 1024   # the longest prose line at 44.1 kHz, hop 512 (10.06 s), and its bucket
 
 
@@ -855,18 +873,18 @@ def tail_melo_check(gen) -> dict:
             worst = max(worst, agree(label, got, tail_cuda.tail_stage_plain(x, lens, packed), MRF_MEAN_TOL,
                                      lengths, zero_after=3 if last else 0))
             timed = timed or (x, lens, {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(
-                tail_cuda.last_launch["smem"])})
+                c, tail_cuda.last_launch["smem"])})
         x, lens, launch = timed
-        zero = tail_cuda.tail_stage(x, lens_on_card([0]), packed)
+        lens0 = lens_on_card([0])  # made once: a copy from the host inside the timed call would be timed too
+        zero = tail_cuda.tail_stage(x, lens0, packed)
         torch.cuda.synchronize()
         check(bool((zero == 0).all()), f"K4 melo {c_in}→{c} at length 0: output not all zero")
         ms = time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10)
-        empty_ms = time_ms(lambda: tail_cuda.tail_stage(x, lens_on_card([0]), packed), 10)
+        empty_ms = time_ms(lambda: tail_cuda.tail_stage(x, lens0, packed), 10)
+        print(f"K4 melo launch {c_in}→{c} k{k_up}: {k4_launch_line(launch)}, {launch['tiles']} tiles, "
+              f"{launch['blocks_per_sm']} block(s) an SM; {ms:.4f} ms at {MELO_FRAMES} frames, {empty_ms:.4f} ms "
+              f"at length 0")
         check(empty_ms < 0.5 * ms, f"K4 melo {c_in}→{c}: at length 0 the tiles do not exit early")
-        print(f"K4 melo launch {c_in}→{c} k{k_up}: rows/kept {launch['rows']}/{launch['tile']}, {launch['threads']} "
-              f"threads, {launch['registers']} registers, {launch['spill_bytes']} bytes spilled, "
-              f"{launch['tiles']} tiles, {launch['blocks_per_sm']} block(s) an SM; {ms:.4f} ms at "
-              f"{MELO_FRAMES} frames, {empty_ms:.4f} ms at length 0")
         out["stages"].append({"c_in": c_in, "c": c, "k_up": k_up, "last": last, "max_abs_err": worst, "ms": ms,
                               "empty_ms": empty_ms, **launch})
     return out
@@ -891,17 +909,15 @@ def print_windows() -> None:
 
 def sweep(kind: str, only: list[str]) -> None:
     """Time K1-K4 at the main path's shapes over the knobs their wrappers
-    have: the rows a block keeps and its threads, and K3's warpgroups, widest
-    product and weight-ring depth.  Each variant goes
+    have: the rows a block keeps, K1's and K2's threads and cluster size,
+    K3's warpgroups, widest product and weight-ring depth, and K4's
+    warpgroups and copy group.  Each variant goes
     through the kernel's whole check, so a variant that disagrees with the
     plain version fails the run.  The wrappers' defaults were chosen from
     this table."""
     import importlib
 
     import torch
-
-    def knobs(pairs):
-        return [{"_TILE_TARGET": tile, "_THREADS": th} for tile, th in pairs]
 
     # K2: cluster size × tile × threads (at most 384: the kernel's ring of
     # B fragments leaves too few registers for 512), and one unsplit launch
@@ -921,9 +937,12 @@ def sweep(kind: str, only: list[str]) -> None:
         # C = 256 keeps its 192 rows)
         (mrf_check, "mrf_cuda", [{"_WARPGROUPS": 3}, {"_WARPGROUPS": 2}, {"_WARPGROUPS": 4, "_WIDTH_MAX": 128},
                                  {"_WIDTH_MAX": 128}, {"_MAX_STAGES": 4}, {"_TILE_TARGET": 200}]),
-        # K4: the tile a block keeps (the windows it gives: stage 2 384, 448
-        # and 512 rows, stage 3 384, 512, 704 and 960) and threads
-        (tail_check, "tail_cuda", knobs((tile, th) for tile in (256, 328, 576, 4096) for th in (384, 512))),
+        # K4: warpgroups, the copy group (slabs a copy; 0 sizes it from C:
+        # 8 at C = 64, 16 below), the ring's reserve in bytes (64 KB shrinks
+        # stage 2's window to 320 rows), and the tile target (stage 2 keeps
+        # its 448 rows; stage 3 takes 512 rows at 328, 768 from 640 on)
+        (tail_check, "tail_cuda", [{"_WARPGROUPS": 4}, {"_WARPGROUPS": 3}, {"_GROUP": 4}, {"_GROUP": 8},
+                                   {"_RING_RESERVE": 65536}, {"_TILE_TARGET": 328}, {"_TILE_TARGET": 1000}]),
     ]
     if only:
         grids = [grid for grid in grids if grid[1].removesuffix("_cuda") in only]
@@ -962,8 +981,9 @@ def sweep(kind: str, only: list[str]) -> None:
                 for st in launch) + "]"
         elif launch:                  # K4's launch per stage
             clusters = "  [" + "; ".join(
-                f"{st['rows']}/{st['tile']} rows, {st['tiles']} tiles, {st['registers']} regs, "
-                f"{st['spill_bytes']} B spilled, {st['blocks_per_sm']}/SM, {st['empty_ms']:.4f} ms at length 0"
+                f"{st['rows']}/{st['tile']} rows, {st['tiles']} tiles, ring {st['stages']} x {st['group']} slabs, "
+                f"{st['warpgroups']} WG, {st['registers']} regs, {st['spill_bytes']} B local, "
+                f"{st['blocks_per_sm']}/SM, {st['empty_ms']:.4f} ms at length 0"
                 for st in launch) + "]"
         else:
             clusters = ""
@@ -1012,7 +1032,7 @@ def tail_one_tile() -> None:
         x = rand_bf16(gen, 1, t_full, c_in)
         lens = lens_on_card([FRAMES * rate_in * 2])
         tail_cuda.tail_stage(x, lens, packed)
-        launch = {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(tail_cuda.last_launch["smem"])}
+        launch = {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(c, tail_cuda.last_launch["smem"])}
         full = time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10)
         live = tail_cuda.live_tiles(FRAMES * rate_in * 2, launch["tile"], 3 if last else 0, t_full * 2)
         waves = -(-live // (launch["blocks_per_sm"] * sms))
@@ -1047,7 +1067,7 @@ def tail_lengths() -> None:
             t_in, n = bucket * rate_in, frames * rate_in * 2
             x, lens = rand_bf16(gen, 1, t_in, c_in), lens_on_card([n])
             tail_cuda.tail_stage(x, lens, packed)
-            launch = {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(tail_cuda.last_launch["smem"])}
+            launch = {**tail_cuda.last_launch, **tail_cuda.kernel_attributes(c, tail_cuda.last_launch["smem"])}
             ms = time_ms(lambda: tail_cuda.tail_stage(x, lens, packed), 10)
             live = tail_cuda.live_tiles(n, launch["tile"], 3 if last else 0, t_in * 2)
             parts.append(f"{c_in}→{c} {ms:.4f} ms, {launch['tiles']} tiles, {live} live, "

@@ -1,7 +1,9 @@
-// Warp-level bf16 tensor-core tile product shared by the WaveNet kernels
-// (wn.cu, coupling.cu) and the decoder kernels (mrf.cu, tail.cu).
+// Warp-level bf16 tensor-core tile product of the WaveNet kernels (wn.cu,
+// coupling.cu).  The decoder kernels (mrf.cu, tail.cu), whose products run
+// on wgmma (wgmma.cuh), take from here only the types, ldmatrix_x4 and the
+// bf16 rounding helpers.
 //
-// Every product in those kernels has the same form: a [rows, C_in] bf16
+// Every product in the WaveNet kernels has the same form: a [rows, C_in] bf16
 // activation that lives in shared memory, read at a row shift (a convolution
 // tap), times a [C_in, N] bf16 weight matrix that lives in device memory,
 // summed in f32.  One warp computes a 32-row x 32-column tile of the result

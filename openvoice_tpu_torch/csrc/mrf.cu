@@ -59,6 +59,7 @@
 // it), and the epilogues and block barriers between convs, during which no
 // product runs.  PERF.md keeps the ablations that weigh these.
 
+#include "bulk_copy.cuh"
 #include "mrf_branch.cuh"
 #include "wgmma.cuh"
 
@@ -82,46 +83,6 @@ struct ConvTiles {
 // (col / 8) ^ (row % 8) (chan is a multiple of 64).
 __device__ __forceinline__ int at(int row, int col, int chan) {
     return row * chan + ((((col >> 3) ^ row) & 7) | ((col >> 3) & ~7)) * 8 + (col & 7);
-}
-
-// -- mbarrier and bulk-copy primitives (shared::cta addresses) ---------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-                 : "memory");
-}
-
-// Spin until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-            : "=r"(done)
-            : "r"(smem_u32(bar)), "r"(parity)
-            : "memory");
-    } while (!done);
-}
-
-// One 1-D bulk copy global -> shared whose bytes complete a transaction on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-            smem_u32(dst)),
-        "l"(src), "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
 }
 
 // -- the weight ring -----------------------------------------------------------

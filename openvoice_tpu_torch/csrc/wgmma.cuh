@@ -1,5 +1,6 @@
 // Hopper's warpgroup matrix multiply (wgmma, sm_90a) for the MRF-stage
-// kernel (mrf.cu, K3), which alone includes this header.
+// kernel (mrf.cu, K3: N = 64, 128, 256) and the decoder-tail kernel
+// (tail.cu, K4: N = C = 16, 32, 64).
 //
 // One instruction multiplies a 64-row A tile by a [16, N] B tile into f32
 // accumulators held by the four warps of a warpgroup (128 threads):
@@ -13,7 +14,8 @@
 //   256 bytes with the 32-byte swizzle: the 16-byte half h of row n lies at
 //   byte n * 32 + 16 * (h ^ ((n / 4) % 2)), which is bit 4 of the address
 //   XOR bit 7, so the group must start on a 256-byte boundary.  The host
-//   packs the weights so (ops/mrf_cuda.py::pack_slabs).
+//   packs the weights so (ops/mrf_cuda.py::pack_slabs).  A tile of N = 16 is
+//   two such groups, 512 bytes.
 // * The accumulators: d[4 * j + c] of warp w, lane l is row 16w + l / 4 +
 //   8 * (c / 2), column 8j + 2 * (l % 4) + c % 2, as mma.sync's per 8 columns.
 //
@@ -57,6 +59,35 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
 // acc[64 x N] += A[64 x 16] @ B[16 x N]; N / 2 accumulators a thread.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+    static __device__ __forceinline__ void mma(float (&d)[8], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %13, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7"
+            "}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+    }
+};
+
+template <>
+struct Wgmma<32> {
+    static __device__ __forceinline__ void mma(float (&d)[16], const uint32_t (&a)[4], uint64_t desc) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %21, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+            "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+    }
+};
 
 template <>
 struct Wgmma<64> {

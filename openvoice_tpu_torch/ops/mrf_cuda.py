@@ -27,7 +27,6 @@ LRELU_SLOPE = 0.1
 MAX_BRANCHES = 4   # MAX_BRANCHES / MAX_PAIRS in csrc/mrf_branch.cuh
 MAX_PAIRS = 4
 TILE_M = 64        # rows of one wgmma tile (TILE_M in csrc/mrf.cu)
-_CHUNK_ROWS = 16   # the rows of a `conv_chunks` chunk (CHUNK_ROWS in csrc/tail.cu, K4)
 # The launch plan (`launch_plan`) follows from what the wrapper sees: C, T,
 # the kernel sizes and dilations, and shared memory.  A block's window is a
 # multiple of 64 rows, the largest (up to `_TILE_TARGET` kept rows) that fits
@@ -82,22 +81,6 @@ def conv_ranges(kernel_sizes, dilation_sizes, halo: int, tile: int) -> list[tupl
             wide = sum(reach[j + 1:])
             ranges.append((halo - wide, halo + tile + wide))
     return ranges
-
-
-def conv_chunks(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int) -> list[tuple[int, int]]:
-    """`conv_ranges` as the kernel computes them: (first, count) 16-row
-    chunks (one m16 tile) that cover each range, with an even count (a warp
-    tile is two chunks), inside the window's rows // 16 chunks."""
-    n_chunks = rows // _CHUNK_ROWS
-    out = []
-    for lo, hi in conv_ranges(kernel_sizes, dilation_sizes, halo, tile):
-        first, end = lo // _CHUNK_ROWS, -(-hi // _CHUNK_ROWS)
-        if (end - first) % 2:
-            end, first = (end + 1, first) if end < n_chunks else (end, first - 1)
-        if first < 0 or end > n_chunks:
-            raise ValueError(f"rows [{lo}, {hi}) do not fit a {rows}-row window")
-        out.append((first, end - first))
-    return out
 
 
 def conv_tiles(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int) -> list[tuple[int, int]]:
@@ -159,15 +142,16 @@ def chosen_stages() -> dict[tuple[int, int], int]:
     return {(key[0], plan[0]): plan[2] for key, plan in _PLANS.items()}
 
 
-def pack_slabs(w: torch.Tensor) -> torch.Tensor | None:
+def pack_slabs(w: torch.Tensor, multiple: int = 64) -> torch.Tensor | None:
     """[n_taps, C_in, C_out] → the kernel's weight slabs [n_taps, C_in/16,
     C_out, 16] bfloat16: slab (tap, k-tile) is the [16, C_out] B tile of
     ``csrc/wgmma.cuh``, K-major (row n holds the tile's 16 K values of output
     channel n), with the 32-byte swizzle: the 16-byte halves of row n trade
-    places where (n / 4) % 2 is 1.  None where C has no such layout (the
-    kernel takes C % 64 == 0; the plain version does not need it)."""
+    places where (n / 4) % 2 is 1.  None where C_in or C_out is not a
+    multiple of `multiple` (16 at least: K3 takes C % 64 == 0, K4 C_in and C
+    % 16 == 0; the plain versions do not need it)."""
     n_taps, k, n = w.shape
-    if k % 64 or n % 64:
+    if k % multiple or n % multiple:
         return None
     v = w.to(torch.bfloat16).reshape(n_taps, k // 16, 2, 8, n).permute(0, 1, 4, 2, 3)  # tap, kt, n, half, k8
     swap = ((torch.arange(n, device=w.device) >> 2) & 1).bool()[:, None, None]

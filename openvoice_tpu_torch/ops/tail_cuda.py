@@ -3,10 +3,13 @@
 
 Replaces ``openvoice_tpu/ops/mrf_pallas.py::fused_tail_stage``: leaky ReLU →
 ConvTranspose1d → mask → the MRF stage of K3, and on the last stage leaky
-ReLU 0.01 → conv_post → tanh, which gives the audio.  Each MRF conv runs on
-the window rows `tail_chunks` gives, and a tile wholly past the true length
-(`live_tiles`) writes its zeros and returns.  A CUDA tensor goes to the kernel, a CPU tensor
-to `tail_stage_plain`; nothing falls back.
+ReLU 0.01 → conv_post → tanh, which gives the audio.  Every product runs on
+Hopper's warpgroup MMA with N = C (16, 32 or 64 channels), its weights the
+stage's stream of slabs (`pack_stream`) in a shared-memory ring, or resident
+where the whole stream fits beside the window.  Each MRF conv runs on the
+64-row tiles `tail_tiles` gives, and a tile wholly past the true length
+(`live_tiles`) writes its zeros and returns.  A CUDA tensor goes to the
+kernel, a CPU tensor to `tail_stage_plain`; nothing falls back.
 
 ``launches`` counts the kernel's launches; it is raised where the kernel is
 launched and nowhere else (`ops.count_launch`: a
@@ -22,23 +25,70 @@ import torch.nn.functional as F
 
 from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 from openvoice_tpu_torch.ops.mrf_cuda import (
-    LRELU_SLOPE, check_stage, check_stage_cuda, conv_chunks, lrelu_plain, mrf_branches_plain, stage_halo,
-    stage_weights,
+    LRELU_SLOPE, TILE_M, check_stage, check_stage_cuda, conv_tiles, lrelu_plain, mrf_branches_plain, pack_slabs,
+    stage_halo, stage_weights,
 )
 
 launches = 0
 
 POST_SLOPE = 0.01   # the last activation uses torch's default slope
-# the launch's knobs (``python3 chip_smoke.py --sweep tail`` times them):
-# threads a block (a multiple of 32 up to 512, the kernel's launch bound,
-# which leaves a thread 128 registers), and the samples a block keeps (the
-# window grows to it, or to what shared memory holds)
-_THREADS = 512
-_TILE_TARGET = 328
-# what the last launch ran: window rows and tile, halo, threads, tiles in the
-# grid, shared memory a block
+WIDTHS = (16, 32, 64)   # the channel counts csrc/tail.cu has an instance of (N = C)
+MAX_GROUP = 16          # MAX_GROUP in csrc/tail.cu: slabs a copy at most
+MAX_STAGES = 32         # MAX_STAGES in csrc/tail.cu
+# The launch plan (`launch_plan`) follows from what the wrapper sees: C, the
+# length, the stage's structure and shared memory.  The window is a multiple
+# of 64 rows, the largest (up to `_TILE_TARGET` kept rows) that fits beside
+# `_RING_RESERVE` bytes of ring; the whole weight stream then stays resident
+# if it fits beside that window (C = 16), else the ring takes as many groups
+# as fit, up to `MAX_STAGES`.  A group is `copy_group(C)` slabs of 32·C
+# bytes.  The knobs are the ones ``python3 chip_smoke.py --sweep tail``
+# times: warpgroups a block (3 or 4, the instances csrc/tail.cu has), the
+# copy group (0: `copy_group`), the ring's reserve and the tile target;
+# PERF.md has the table the defaults came from.
+_WARPGROUPS = 4
+_GROUP = 0
+_TILE_TARGET = 640
+_RING_RESERVE = 32768
+# what the last launch ran: window rows and tile, halo, warpgroups, threads,
+# tiles in the grid, shared memory a block, ring groups (0: resident) and
+# slabs a group
 last_launch: dict = {}
 _PLANS: dict[tuple, tuple] = {}
+
+
+def phase_taps(k_up: int, stride: int, pad_up: int) -> list[tuple[int, list[int]]]:
+    """Each output phase f of the transposed conv as (ds0, taps): output row
+    m·stride + f takes tap taps[i] from input row m + ds0 − i
+    (csrc/tail.cu: taps j0 + i·stride with j0 = (f + p) mod stride,
+    ds0 = (f + p) div stride)."""
+    out = []
+    for f in range(stride):
+        j0, ds0 = (f + pad_up) % stride, (f + pad_up) // stride
+        out.append((ds0, list(range(j0, k_up, stride))))
+    return out
+
+
+def pack_stream(up_w: torch.Tensor, w: torch.Tensor, stride: int, pad_up: int) -> torch.Tensor | None:
+    """The kernel's weight stream [n_slabs, C, 16] bfloat16: for each
+    upsample phase (`phase_taps`) its taps' slabs, then every MRF tap's, each
+    (tap, k-tile) one slab of `mrf_cuda.pack_slabs`'s layout (wgmma's
+    swizzled B tile).  up_w [k_up, C_in, C], w [n_taps, C, C].  None where
+    the sizes have no such layout (the kernel takes C_in % 16 == 0 and C in
+    `WIDTHS`; the plain version does not need it)."""
+    c = w.shape[-1]
+    if c not in WIDTHS or up_w.shape[1] % 16:
+        return None
+    order = [j for _, taps in phase_taps(up_w.shape[0], stride, pad_up) for j in taps]
+    up = pack_slabs(up_w[order], 16)
+    return torch.cat([up.reshape(-1, c, 16), pack_slabs(w, 16).reshape(-1, c, 16)]).contiguous()
+
+
+def copy_group(c: int) -> int:
+    """Slabs the ring moves in one copy: 16 KB of weights (one thread's bulk
+    copies complete one after another, about as fast at any size up to 16
+    KB), 8 slabs at C = 64, 16 below.  A warpgroup issues a group's products
+    eight slabs at a time."""
+    return min(MAX_GROUP, max(1, 16384 // (32 * c)))
 
 
 def pack_tail_weights(up, resblocks, conv_post=None, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -48,9 +98,9 @@ def pack_tail_weights(up, resblocks, conv_post=None, dtype: torch.dtype = torch.
       up_w [k_up, C_in, C_out]  tap j is the transposed conv's W[:, :, j]
       up_b [C_out], stride, pad_up
       post_w [k_post, C_out] or None
-      and the keys of `mrf_cuda.stage_weights`; ``w_frag`` and ``up_w_frag``
-      are w and up_w in the kernel's fragment order (None where the sizes
-      have no such layout).
+      and the keys of `mrf_cuda.stage_weights`; ``slabs`` is the kernel's
+      weight stream (`pack_stream`; None where the sizes have no such
+      layout).
     """
     k_up, stride, pad_up = up.kernel_size[0], up.stride[0], up.padding[0]
     if k_up - stride - 2 * pad_up != 0 or up.output_padding[0] != 0 or up.dilation[0] != 1:
@@ -65,8 +115,7 @@ def pack_tail_weights(up, resblocks, conv_post=None, dtype: torch.dtype = torch.
             if conv_post.bias is not None or conv_post.out_channels != 1:
                 raise ValueError("conv_post must have one output channel and no bias")
             packed["post_w"] = conv_post.weight[0].t().to(dtype).contiguous()  # [k_post, C]
-    packed["w_frag"] = _frag.maybe_frag(packed["w"])
-    packed["up_w_frag"] = _frag.maybe_frag(packed["up_w"])
+    packed["slabs"] = pack_stream(packed["up_w"], packed["w"], stride, pad_up)
     packed["stride"], packed["pad_up"] = stride, pad_up
     return packed
 
@@ -95,12 +144,7 @@ def tail_stage_plain(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> to
 def _in_margin(k_up: int, stride: int, pad_up: int) -> int:
     """How far, in input samples, an output phase reaches to either side
     (csrc/tail.cu: phase f takes input rows m + (f + p) div u − i)."""
-    reach = 0
-    for f in range(stride):
-        j0, ds0 = (f + pad_up) % stride, (f + pad_up) // stride
-        n_taps = (k_up - j0 + stride - 1) // stride
-        reach = max(reach, abs(ds0), abs(ds0 - (n_taps - 1)))
-    return reach
+    return max(max(abs(ds0), abs(ds0 - len(taps) + 1)) for ds0, taps in phase_taps(k_up, stride, pad_up))
 
 
 def tail_halo(kernel_sizes, dilation_sizes, k_post: int, stride: int) -> int:
@@ -111,12 +155,13 @@ def tail_halo(kernel_sizes, dilation_sizes, k_post: int, stride: int) -> int:
     return -(-halo // stride) * stride
 
 
-def tail_chunks(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int,
-                post_half: int) -> list[tuple[int, int]]:
-    """The 16-row chunks (first, count) each MRF conv computes, in execution
-    order: `mrf_cuda.conv_chunks` of the kept rows, which on the last stage
-    reach `post_half` rows past the tile a side because conv_post reads them."""
-    return conv_chunks(kernel_sizes, dilation_sizes, halo - post_half, tile + 2 * post_half, rows)
+def tail_tiles(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int,
+               post_half: int) -> list[tuple[int, int]]:
+    """The 64-row tiles (first row, count) each MRF conv computes, in
+    execution order: `mrf_cuda.conv_tiles` of the kept rows, which on the
+    last stage reach `post_half` rows past the tile a side because conv_post
+    reads them."""
+    return conv_tiles(kernel_sizes, dilation_sizes, halo - post_half, tile + 2 * post_half, rows)
 
 
 def live_tiles(len_out: int, tile: int, post_half: int, t_out: int) -> int:
@@ -126,53 +171,75 @@ def live_tiles(len_out: int, tile: int, post_half: int, t_out: int) -> int:
     return min(-(-(min(len_out, t_out) + post_half) // tile), -(-t_out // tile))
 
 
-def launch_plan(cin: int, c: int, t_out: int, stride: int, margin: int, k_post: int,
+def launch_plan(cin: int, c: int, t_out: int, k_up: int, stride: int, pad_up: int, k_post: int,
                 kernel_sizes, dilation_sizes) -> tuple:
-    """(rows, tile, halo, chunks, smem bytes) of a launch: the largest window (up to
-    `_TILE_TARGET` kept rows, rows a multiple of 32·stride, which the
-    upsample's phases need) that fits one block's shared memory, and
-    `tail_chunks` of it as the kernel's ctypes array.  Computed once per
-    sizes and knobs."""
-    key = (cin, c, min(_TILE_TARGET, max(t_out, 1)), stride, margin, k_post, kernel_sizes, dilation_sizes,
-           _TILE_TARGET)
+    """(rows, tile, halo, stages, group, ring slabs, tiles, smem bytes) of a
+    launch: the window and weight ring of the comment above (stages 0: the
+    stream is resident, ring slabs then the whole stream's), and
+    `tail_tiles` of that window as the kernel's ctypes array.  Computed once
+    per sizes and knobs."""
+    key = (cin, c, min(_TILE_TARGET, max(t_out, 1)), k_up, stride, pad_up, k_post, kernel_sizes, dilation_sizes,
+           _TILE_TARGET, _GROUP, _RING_RESERVE)
     if key not in _PLANS:
+        if TILE_M % stride:
+            raise ValueError(f"the kernel's 64-row windows take a stride dividing 64, got {stride}")
         lib = _library()
+        margin = _in_margin(k_up, stride, pad_up)
         halo = tail_halo(kernel_sizes, dilation_sizes, k_post, stride)
         n_convs = 2 * sum(len(d) for d in dilation_sizes)
+        group = _GROUP or copy_group(c)
+        reserve = max(1, _RING_RESERVE // (32 * c * group))   # groups
+        n_slabs = stream_slabs(cin, c, k_up, kernel_sizes, dilation_sizes)
+
+        def smem(rows, slabs, stages):
+            return lib.tail_stage_smem_bytes(cin, c, stride, margin, rows, n_convs, slabs, stages)
+
         rows, tile = _frag.window(
-            ("tail", cin, c, stride, margin, n_convs), halo, t_out, _TILE_TARGET,
-            lambda r, tl: lib.tail_stage_smem_bytes(cin, c, stride, margin, r, n_convs),
-            multiples=(_frag.TILE_ROWS * stride,))
-        chunks = [v for rng in tail_chunks(kernel_sizes, dilation_sizes, halo, tile, rows,
-                                           max(k_post - 1, 0) // 2) for v in rng]
-        smem = lib.tail_stage_smem_bytes(cin, c, stride, margin, rows, n_convs)
-        _PLANS[key] = (rows, tile, halo, (ctypes.c_int * len(chunks))(*chunks), smem)
+            ("tail", cin, c, stride, margin, n_convs, group, reserve), halo, t_out, _TILE_TARGET,
+            lambda r, tl: smem(r, reserve * group, reserve), multiples=(TILE_M,))
+        if smem(rows, n_slabs, 0) <= _frag.SMEM_MAX:
+            stages, ring_slabs = 0, n_slabs
+        else:
+            stages = reserve
+            while stages < MAX_STAGES and smem(rows, (stages + 1) * group, stages + 1) <= _frag.SMEM_MAX:
+                stages += 1
+            ring_slabs = stages * group
+        tiles = [v for rng in tail_tiles(kernel_sizes, dilation_sizes, halo, tile, rows,
+                                         max(k_post - 1, 0) // 2) for v in rng]
+        _PLANS[key] = (rows, tile, halo, stages, group, ring_slabs, (ctypes.c_int * len(tiles))(*tiles),
+                       smem(rows, ring_slabs, stages))
     return _PLANS[key]
+
+
+def stream_slabs(cin: int, c: int, k_up: int, kernel_sizes, dilation_sizes) -> int:
+    """Slabs in the weight stream of a stage (`pack_stream`): each upsample
+    tap's C_in/16, each MRF tap's C/16."""
+    return k_up * (cin // 16) + sum(2 * k * len(d) for k, d in zip(kernel_sizes, dilation_sizes)) * (c // 16)
 
 
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("tail")
     lib.tail_stage_bf16.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.tail_stage_bf16.restype = ctypes.c_int
-    lib.tail_stage_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.tail_stage_smem_bytes.argtypes = [ctypes.c_int] * 8
     lib.tail_stage_smem_bytes.restype = ctypes.c_int
-    lib.tail_stage_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 3
+    lib.tail_stage_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
     lib.tail_stage_attributes.restype = ctypes.c_int
     return lib
 
 
-def kernel_attributes(smem: int, device: int = 0) -> dict:
-    """What the kernel takes on the card: registers and spilled bytes a
-    thread (cudaFuncGetAttributes), and how many blocks of `_THREADS` threads
-    and `smem` bytes an SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    regs, local, blocks = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
-    err = _library().tail_stage_attributes(_THREADS, smem, device, ctypes.byref(regs), ctypes.byref(local),
-                                           ctypes.byref(blocks))
+def kernel_attributes(c: int, smem: int, device: int = 0) -> dict:
+    """What the kernel instance of C channels and `_WARPGROUPS` warpgroups
+    takes on the card: registers and local (spilled) bytes a thread
+    (cudaFuncGetAttributes), and how many of its blocks of `smem` bytes an
+    SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    out = (ctypes.c_int * 3)()
+    err = _library().tail_stage_attributes(c, _WARPGROUPS, smem, device, out)
     if err != 0:
-        raise RuntimeError(f"tail kernel attributes failed with error {err} ({_THREADS} threads)")
-    return {"registers": regs.value, "spill_bytes": local.value, "blocks_per_sm": blocks.value}
+        raise RuntimeError(f"tail kernel attributes failed with error {err} (C = {c}, {_WARPGROUPS} warpgroups)")
+    return {"registers": out[0], "spill_bytes": out[1], "blocks_per_sm": out[2]}
 
 
 def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Tensor:
@@ -201,10 +268,10 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
         raise ValueError(f"tail_stage runs on cuda or cpu, not {x.device}")
 
     _frag.check_bf16("x", x)
-    ks, dils = check_stage_cuda(packed, c, x.device, "w_frag", 16)
-    if packed["up_w_frag"] is None or cin % 16:
-        raise ValueError(f"the kernel needs C_in % 16 == 0, got C_in = {cin}")
-    for name in ("up_w_frag", "up_b") + (("post_w",) if post_w is not None else ()):
+    if c not in WIDTHS or cin % 16:
+        raise ValueError(f"the kernel takes C in {WIDTHS} and C_in % 16 == 0, got C = {c}, C_in = {cin}")
+    ks, dils = check_stage_cuda(packed, c, x.device, "slabs", 16)
+    for name in ("up_b",) + (("post_w",) if post_w is not None else ()):
         _frag.check_bf16(name, packed[name])
         if packed[name].device != x.device:
             raise ValueError(f"{name} on {packed[name].device}, x on {x.device}")
@@ -216,8 +283,10 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
     k_post = post_w.shape[0] if post_w is not None else 0
     margin = _in_margin(k_up, stride, pad_up)
     t_out = t_in * stride
-    rows, tile, halo, chunks, smem = launch_plan(cin, c, t_out, stride, margin, k_post, packed["kernel_sizes"],
-                                                 packed["dilation_sizes"])
+    rows, tile, halo, stages, group, _, tiles, smem = launch_plan(
+        cin, c, t_out, k_up, stride, pad_up, k_post, packed["kernel_sizes"], packed["dilation_sizes"])
+    if packed["slabs"].shape[0] != stream_slabs(cin, c, k_up, packed["kernel_sizes"], packed["dilation_sizes"]):
+        raise ValueError(f"the packed stream has {packed['slabs'].shape[0]} slabs, not this stage's")
     out = torch.empty((batch, t_out, 1 if post_w is not None else c), dtype=x.dtype, device=x.device)
     # where the finished branches' outputs wait for the last one: a tile (and
     # conv_post's reach) a block
@@ -225,16 +294,16 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
                           * (tile + max(k_post - 1, 0)) * c, dtype=torch.bfloat16, device=x.device)
     device = x.device.index or 0
     err = lib.tail_stage_bf16(
-        x.data_ptr(), lengths.data_ptr(), packed["up_w_frag"].data_ptr(), packed["up_b"].data_ptr(),
-        packed["w_frag"].data_ptr(), packed["b"].data_ptr(),
-        post_w.data_ptr() if post_w is not None else None, out.data_ptr(), scratch.data_ptr(),
-        batch, t_in, cin, c, stride, k_up, pad_up, margin, k_post,
-        len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils, chunks,
-        rows, tile, _THREADS, device, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), lengths.data_ptr(), packed["slabs"].data_ptr(), packed["up_b"].data_ptr(),
+        packed["b"].data_ptr(), post_w.data_ptr() if post_w is not None else None, out.data_ptr(),
+        scratch.data_ptr(), batch, t_in, cin, c, stride, k_up, pad_up, margin, k_post,
+        len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils, tiles,
+        rows, tile, stages, group, _WARPGROUPS, device, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"tail kernel launch failed with error {err} (CUDA's, or -1: a launch the kernel "
-                           f"cannot take, {_THREADS} threads)")
+                           f"cannot take, {_WARPGROUPS} warpgroups)")
     count_launch(__name__)
-    last_launch.update(rows=rows, tile=tile, halo=halo, threads=_THREADS, tiles=-(-t_out // tile), smem=smem)
+    last_launch.update(rows=rows, tile=tile, halo=halo, warpgroups=_WARPGROUPS, threads=128 * _WARPGROUPS,
+                       tiles=-(-t_out // tile), smem=smem, stages=stages, group=group)
     return out

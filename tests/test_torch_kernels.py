@@ -504,22 +504,6 @@ def test_mrf_trimmed_rows_keep_the_stage(dtype):
             assert not bool(torch.isfinite(got).all()), (j, shrunk)
 
 
-def test_mrf_conv_chunks_cover_the_ranges():
-    """The 16-row chunks the kernel is given cover each range, with an even
-    count inside the window; at the V2 windows they issue 0.70x (C = 256) and
-    0.85x (C = 128) of the products of computing every conv on every row."""
-    halo = mrf_cuda.stage_halo(KS, DILS)
-    for rows, want in ((192, 0.70), (384, 0.85), (160, None), (128, None)):
-        tile = rows - 2 * halo
-        chunks = mrf_cuda.conv_chunks(KS, DILS, halo, tile, rows)
-        for (lo, hi), (first, count) in zip(mrf_cuda.conv_ranges(KS, DILS, halo, tile), chunks):
-            assert count % 2 == 0 and first >= 0 and (first + count) * 16 <= rows
-            assert first * 16 <= lo and hi <= (first + count) * 16
-        issued = sum(count * KS[i // 6] for i, (_, count) in enumerate(chunks))
-        if want is not None:
-            assert round(issued / (sum(KS) * 6 * rows / 16), 2) == want
-
-
 class _SmemStandIn:
     """The K3 library's shared-memory size, as ``csrc/mrf.cu::
     mrf_stage_smem_bytes`` computes it (alignment room, slabs of 32·C bytes
@@ -700,16 +684,18 @@ def _tail_packed(rng, c_in, c_out, last, dtype, k_up=4):
                                        dtype)
 
 
-def _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dt):
+def _tail_window_model(x, lengths, packed, t0, rows, tile, tiles, dt):
     """One K4 block (csrc/tail.cu) in plain torch: the tile starting at
     output sample t0 with its window of `rows` rows around it.  Every value
     the block holds lives on a canvas of the whole batch's shape, so that
     each conv runs as `tail_stage_plain` runs it; canvas rows outside the
     window are 0 (the kernel's zero row), and window rows a conv does not
-    compute (outside its `chunks`) are NaN, where the kernel leaves stale
-    values.  The staged input covers the input rows the upsample's phases
-    reach.  Returns the block's output rows [B, tile, C] (or the audio
-    [B, tile, 1] on the last stage)."""
+    compute (outside the span of its 64-row `tiles`) are NaN, where the
+    kernel leaves stale values; the rows a span computes past the conv's
+    range are computed from what its operand holds, stale rows included.
+    The staged input covers the input rows the upsample's phases reach.
+    Returns the block's output rows [B, tile, C] (or the audio [B, tile, 1]
+    on the last stage)."""
     batch, t_in, _ = x.shape
     stride, post = packed["stride"], packed["post_w"]
     t_out = t_in * stride
@@ -732,8 +718,8 @@ def _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dt):
                            stride=stride, padding=packed["pad_up"]).transpose(1, 2)
     x0 = torch.where(window, y.to(dt).float() * mask, 0.0)
 
-    def conv(operand, taps, bias, d, chunk, epilogue):
-        lo, hi = chunk[0] * 16, (chunk[0] + chunk[1]) * 16
+    def conv(operand, taps, bias, d, span, epilogue):
+        lo, hi = span[0], span[0] + span[1] * mrf_cuda.TILE_M
         out = mrf_cuda._conv_plain(operand, taps, bias, d)
         return torch.where(rows_of(lo, hi), epilogue(out), torch.where(window, float("nan"), 0.0))
 
@@ -743,9 +729,9 @@ def _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dt):
     for k, dils in zip(packed["kernel_sizes"], packed["dilation_sizes"]):
         xb = x0
         for d in dils:
-            xt = conv(mrf_cuda.lrelu_plain(xb, mrf_cuda.LRELU_SLOPE, dt), w[tap:tap + k], b[cv], d, chunks[cv],
+            xt = conv(mrf_cuda.lrelu_plain(xb, mrf_cuda.LRELU_SLOPE, dt), w[tap:tap + k], b[cv], d, tiles[cv],
                       lambda v: mrf_cuda.lrelu_plain(v.to(dt).float(), mrf_cuda.LRELU_SLOPE, dt) * mask)
-            xb = conv(xt, w[tap + k:tap + 2 * k], b[cv + 1], 1, chunks[cv + 1],
+            xb = conv(xt, w[tap + k:tap + 2 * k], b[cv + 1], 1, tiles[cv + 1],
                       lambda v, xb=xb: (xb + v.to(dt).float()).to(dt).float() * mask)
             tap += 2 * k
             cv += 2
@@ -767,13 +753,14 @@ def _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dt):
     ids=["middle", "last", "melo-stage2", "melo-stage3", "melo-stage4"])
 @torch.inference_mode()
 def test_tail_trimmed_rows_keep_the_stage(c_in, c_out, t_in, last, k_up, dtype):
-    """K4 computes each MRF conv only on the chunks `tail_cuda.tail_chunks`
-    gives (on the last stage the kept rows reach conv_post's half width past
-    the tile).  Blocks computed so, with NaN on every other row of their
-    windows, give `tail_stage_plain` bit for bit on every tile, and on the
-    last stage the chunks of the tile alone let NaN reach the audio.  Also
-    at MeloTTS's stages 2-4: upsample kernels 8 (the staged input reaches 2
-    rows past the window a side) and 2 (no row past it), 16 channels."""
+    """K4 computes each MRF conv only on the 64-row tiles
+    `tail_cuda.tail_tiles` gives (on the last stage the kept rows reach
+    conv_post's half width past the tile).  Blocks computed so, on the
+    tiles' whole spans and with NaN on every other row of their windows,
+    give `tail_stage_plain` bit for bit on every tile, and on the last stage
+    the tiles of the tile alone let NaN reach the audio.  Also at MeloTTS's
+    stages 2-4: upsample kernels 8 (the staged input reaches 2 rows past the
+    window a side) and 2 (no row past it), 16 channels."""
     rng = np.random.default_rng(c_in + t_in + 7)
     packed = _tail_packed(rng, c_in, c_out, last, dtype, k_up)
     lengths = torch.tensor([t_in * 2, (t_in - 111) * 2])
@@ -784,21 +771,126 @@ def test_tail_trimmed_rows_keep_the_stage(c_in, c_out, t_in, last, k_up, dtype):
     halo = tail_cuda.tail_halo(KS, DILS, 7 if last else 0, 2)
     assert halo == (64 if last else 60)
     tile = rows - 2 * halo
-    chunks = tail_cuda.tail_chunks(KS, DILS, halo, tile, rows, post_half)
-    # each branch's last conv computes the same chunks (the kernel's threads
+    tiles = tail_cuda.tail_tiles(KS, DILS, halo, tile, rows, post_half)
+    # each branch's last conv computes the same tiles (the kernel's threads
     # park and sum their own elements), around the kept rows
-    (first, count), = set(chunks[5::6])
-    assert first * 16 <= halo - post_half and halo + tile + post_half <= (first + count) * 16
+    (first, count), = set(tiles[5::6])
+    assert first <= halo - post_half and halo + tile + post_half <= first + count * mrf_cuda.TILE_M
     t_out = t_in * 2
     for t0 in range(0, t_out, tile):
-        got = _tail_window_model(x, lengths, packed, t0, rows, tile, chunks, dtype)
+        got = _tail_window_model(x, lengths, packed, t0, rows, tile, tiles, dtype)
         n = min(tile, t_out - t0)
         assert bool(torch.isfinite(got[:, :n].float()).all()), t0
         assert torch.equal(got[:, :n], plain[:, t0:t0 + n]), t0
     if last:
-        narrow = tail_cuda.tail_chunks(KS, DILS, halo, tile, rows, 0)
+        narrow = tail_cuda.tail_tiles(KS, DILS, halo, tile, rows, 0)
         got = _tail_window_model(x, lengths, packed, tile, rows, tile, narrow, dtype)
         assert not bool(torch.isfinite(got.float()).all())
+
+
+class _TailSmemStandIn:
+    """The K4 library's shared-memory size, as ``csrc/tail.cu::smem_bytes``
+    computes it (alignment room, the ring's or the resident stream's slabs
+    of 32·C bytes, two barriers a ring group or one for the resident
+    stream, a zero row, the window's three padded buffers, the third also
+    the staged input's, and the biases), so that `launch_plan` runs without
+    the card."""
+
+    @staticmethod
+    def tail_stage_smem_bytes(cin, c, stride, margin, rows, n_convs, slabs, stages):
+        ld, ldin = c + 8, cin + 8
+        xt = max(rows * ld, (rows // stride + 2 * margin) * ldin)
+        return 256 + slabs * 32 * c + 16 * max(stages, 1) + 2 * (max(ld, ldin) + 2 * rows * ld + xt + (1 + n_convs) * c)
+
+
+@pytest.mark.parametrize("cin,c,k_up,pad,k_post,t_out,rows,stages,group", [
+    (128, 64, 4, 1, 0, 1024 * 128, 448, 2, 8), (128, 64, 4, 1, 0, 128 * 128, 448, 2, 8),    # V2 stage 2
+    (64, 32, 4, 1, 7, 1024 * 256, 768, 2, 16), (64, 32, 4, 1, 7, 128 * 256, 768, 2, 16),   # V2 stage 3
+    (32, 16, 2, 0, 7, 1024 * 512, 768, 0, 16),                                              # MeloTTS stage 4
+    (64, 32, 4, 1, 7, 200, 384, 8, 16)],                                                    # shorter than a tile
+    ids=["v2-stage2-bucket1024", "v2-stage2-bucket128", "v2-stage3-bucket1024", "v2-stage3-bucket128",
+         "melo-stage4-bucket1024", "v2-stage3-short"])
+def test_tail_tiles_cover_the_ranges(monkeypatch, cin, c, k_up, pad, k_post, t_out, rows, stages, group):
+    """K4's launch plan: the window is a multiple of 64 rows and of the
+    stride, and it fits one block's shared memory with its ring (or, at
+    C = 16, the whole resident weight stream: stages 0).  Each MRF conv's
+    64-row tiles cover its range, which on the last stage reaches
+    conv_post's half width past the kept rows, lie inside the window, start
+    at the range's first row unless the window's end moves them back, and
+    reach past the range only into rows no later conv of the branch reads
+    within its own range.  Each branch's last conv has the same tiles (the
+    threads that park a branch's rows sum them)."""
+    monkeypatch.setattr(tail_cuda, "_library", lambda: _TailSmemStandIn)
+    monkeypatch.setattr(tail_cuda, "_PLANS", {})
+    monkeypatch.setattr(_frag, "_WINDOWS", {})
+    got_rows, tile, halo, got_stages, got_group, ring_slabs, flat, smem = tail_cuda.launch_plan(
+        cin, c, t_out, k_up, 2, pad, k_post, KS, DILS)
+    assert (got_rows, got_stages, got_group) == (rows, stages, group)
+    margin = tail_cuda._in_margin(k_up, 2, pad)
+    n_slabs = tail_cuda.stream_slabs(cin, c, k_up, KS, DILS)
+    assert ring_slabs == (n_slabs if stages == 0 else stages * group) and stages <= tail_cuda.MAX_STAGES
+    assert smem == _TailSmemStandIn.tail_stage_smem_bytes(cin, c, 2, margin, rows, 18, ring_slabs, stages)
+    assert smem <= _frag.SMEM_MAX
+    item = mrf_cuda.TILE_M
+    post_half = max(k_post - 1, 0) // 2
+    assert rows % item == 0 and rows % 2 == 0 and halo % 2 == 0 and rows - tile == 2 * halo
+    assert halo == tail_cuda.tail_halo(KS, DILS, k_post, 2) and (tile >= t_out or t_out > 1000)
+    tiles = list(zip(flat[0::2], flat[1::2]))
+    assert tiles == tail_cuda.tail_tiles(KS, DILS, halo, tile, rows, post_half) and len(tiles) == 18
+    ranges = mrf_cuda.conv_ranges(KS, DILS, halo - post_half, tile + 2 * post_half)
+    for j, ((lo, hi), (first, count)) in enumerate(zip(ranges, tiles)):
+        end = first + count * item
+        assert 0 <= first <= lo and hi <= end <= rows
+        assert first == lo or end == rows
+        assert lo <= halo - post_half and halo + tile + post_half <= hi   # the kept rows lie inside the range
+        assert end - hi < item and count == -(-(hi - lo) // item)
+        if j % 6 < 5:                                  # later convs of the branch read only inside this range
+            reach = mrf_cuda.conv_reaches(KS[j // 6], DILS[j // 6])[j % 6 + 1]
+            nlo, nhi = ranges[j + 1]
+            assert lo <= nlo - reach and nhi + reach <= hi
+    assert len(set(tiles[5::6])) == 1
+
+
+@pytest.mark.parametrize("c_in,c_out,k_up", [(128, 64, 4), (64, 32, 4), (32, 16, 2), (128, 64, 8)],
+                         ids=["c64", "c32", "c16", "c64-k8"])
+def test_tail_stream_slabs_give_back_the_weights(c_in, c_out, k_up):
+    """`tail_cuda.pack_stream`, read back by byte address: element W[k, n]
+    of a slab sits at byte 32·n + 2·(k % 16) of it with bit 4 of the address
+    XOR bit 7 (the 32-byte swizzle wgmma's descriptor names).  The
+    upsample's taps come back in phase order (`phase_taps`), each as C_in/16
+    slabs, then every MRF conv's dense taps as C/16 slabs each, exactly."""
+    gen = torch.Generator().manual_seed(c_out + k_up)
+    up = conv_transpose1d(c_in, c_out, k_up, 2)
+    rbs = [ResBlock1(c_out, k, d) for k, d in zip(KS, DILS)]
+    with torch.no_grad():
+        for module in [up, *rbs]:
+            for p in module.parameters():
+                p.copy_(torch.randn(p.shape, generator=gen))
+    packed = tail_cuda.pack_tail_weights(up, rbs)
+    stream, n_slabs = packed["slabs"], tail_cuda.stream_slabs(c_in, c_out, k_up, KS, DILS)
+    assert stream.shape == (n_slabs, c_out, 16) and stream.dtype == torch.bfloat16 and stream.is_contiguous()
+    k = np.arange(16)[:, None]
+    n = np.arange(c_out)[None, :]
+    byte = 32 * n + 2 * k
+    byte = byte ^ (((byte >> 7) & 1) << 4)
+    dense = stream.view(torch.int16).reshape(n_slabs, c_out * 16)[:, torch.from_numpy(byte // 2)]
+    dense = dense.view(torch.bfloat16)  # [n_slabs, 16, C]: slab s's B tile, K by N
+    phases = tail_cuda.phase_taps(k_up, 2, packed["pad_up"])
+    assert sorted(j for _, taps in phases for j in taps) == list(range(k_up))
+    s = 0
+    for _, taps in phases:
+        for j in taps:
+            got = dense[s:s + c_in // 16].reshape(c_in, c_out)
+            assert torch.equal(got, up.weight.detach()[:, :, j].to(torch.bfloat16)), (j, s)
+            s += c_in // 16
+    for rb in rbs:
+        for conv in (m for pair in zip(rb.convs1, rb.convs2) for m in pair):
+            for j in range(conv.kernel_size[0]):
+                got = dense[s:s + c_out // 16].reshape(c_out, c_out)
+                assert torch.equal(got, conv.weight.detach()[:, :, j].t().to(torch.bfloat16)), (j, s)
+                s += c_out // 16
+    assert s == n_slabs
+    assert tail_cuda.pack_stream(packed["up_w"][:, :24], packed["w"], 2, packed["pad_up"]) is None
 
 
 @pytest.mark.parametrize("c_in,c_out,k_up,last", [(128, 64, 8, False), (64, 32, 2, False), (32, 16, 2, True)],
