@@ -5,8 +5,8 @@
     python3 chip_smoke.py --sweep [wn coupling mrf tail]
                                    # instead: time K1-K4 (or those named) over
                                    # tile sizes, warps, K1's and K2's cluster
-                                   # size, K3's warpgroups, product width and
-                                   # ring depth, K4's warpgroups and copy group
+                                   # size, K3's ring depth and tile target,
+                                   # K4's ring reserve and tile target
     python3 chip_smoke.py --elastic     # instead: build, then phase 11 alone
     python3 chip_smoke.py --installed   # instead: build, then phase 12 alone
     python3 chip_smoke.py --melo-tail   # instead: build, then phase 3f alone
@@ -723,12 +723,13 @@ def mrf_check(kind: str, gen) -> dict:
             max_err = max(max_err, agree(label, out, mrf_cuda.mrf_stage_plain(x, lens, packed), MRF_MEAN_TOL, lengths))
             timed = timed or (x, lens, t, lengths[0])
         x, lens, t, n = timed
-        rows, tile, stages, width, _ = mrf_cuda.launch_plan(c, t, packed["kernel_sizes"], packed["dilation_sizes"])
-        attrs = mrf_cuda.kernel_attributes(width, mrf_cuda._WARPGROUPS)
-        launch.append({"c": c, "rows": rows, "tile": tile, "stages": stages, "group": mrf_cuda.group_steps(width),
-                       "width": width, "warpgroups": mrf_cuda._WARPGROUPS, **attrs})
-        print(f"K3 launch C={c}: {rows}/{tile} rows, {stages} ring slabs in groups of "
-              f"{mrf_cuda.group_steps(width)}, m64n{width} products, {mrf_cuda._WARPGROUPS} warpgroups, "
+        rows, tile, stages, group, width, _ = mrf_cuda.launch_plan(c, t, packed["kernel_sizes"],
+                                                                   packed["dilation_sizes"])
+        attrs = mrf_cuda.kernel_attributes(width)
+        launch.append({"c": c, "rows": rows, "tile": tile, "stages": stages * group, "group": group,
+                       "width": width, "warpgroups": mrf_cuda.WARPGROUPS, **attrs})
+        print(f"K3 launch C={c}: {rows}/{tile} rows, {stages * group} ring slabs in groups of "
+              f"{group}, m64n{width} products, {mrf_cuda.WARPGROUPS} warpgroups, "
               f"{attrs['registers']} registers, {attrs['spill_bytes']} B local, {-(-t // tile)} tiles")
         mask = (torch.arange(t, device="cuda") < n).to(torch.bfloat16)[None, None]
         x_bct = (x.transpose(1, 2) * mask).contiguous()
@@ -904,14 +905,13 @@ def print_windows() -> None:
     from openvoice_tpu_torch.ops import mrf_cuda
 
     print("K3 weight ring (slabs of 32·C bytes): " + ", ".join(
-        f"C={c} {rows} rows: {n} stages" for (c, rows), n in sorted(mrf_cuda.chosen_stages().items())))
+        f"C={c} {rows} rows: {n} slabs" for (c, rows), n in sorted(mrf_cuda.chosen_stages().items())))
 
 
 def sweep(kind: str, only: list[str]) -> None:
     """Time K1-K4 at the main path's shapes over the knobs their wrappers
     have: the rows a block keeps, K1's and K2's threads and cluster size,
-    K3's warpgroups, widest product and weight-ring depth, and K4's
-    warpgroups and copy group.  Each variant goes
+    K3's weight-ring depth, and K4's ring reserve.  Each variant goes
     through the kernel's whole check, so a variant that disagrees with the
     plain version fails the run.  The wrappers' defaults were chosen from
     this table."""
@@ -931,18 +931,14 @@ def sweep(kind: str, only: list[str]) -> None:
     grids = [
         (wn_check, "wn_cuda", wn_knobs),
         (coupling_check, "coupling_cuda", coupling),
-        # K3: warpgroups, the widest product (C = 256 in two 128-column
-        # parts), the ring's depth (one group a stage at C = 128), and a
-        # 200-row tile target (a 320-row window and 16 slabs at C = 128;
-        # C = 256 keeps its 192 rows)
-        (mrf_check, "mrf_cuda", [{"_WARPGROUPS": 3}, {"_WARPGROUPS": 2}, {"_WARPGROUPS": 4, "_WIDTH_MAX": 128},
-                                 {"_WIDTH_MAX": 128}, {"_MAX_STAGES": 4}, {"_TILE_TARGET": 200}]),
-        # K4: warpgroups, the copy group (slabs a copy; 0 sizes it from C:
-        # 8 at C = 64, 16 below), the ring's reserve in bytes (64 KB shrinks
-        # stage 2's window to 320 rows), and the tile target (stage 2 keeps
-        # its 448 rows; stage 3 takes 512 rows at 328, 768 from 640 on)
-        (tail_check, "tail_cuda", [{"_WARPGROUPS": 4}, {"_WARPGROUPS": 3}, {"_GROUP": 4}, {"_GROUP": 8},
-                                   {"_RING_RESERVE": 65536}, {"_TILE_TARGET": 328}, {"_TILE_TARGET": 1000}]),
+        # K3: the ring's depth (one group a stage at C = 128), and a 200-row
+        # tile target (a 320-row window and 16 slabs at C = 128; C = 256
+        # keeps its 192 rows)
+        (mrf_check, "mrf_cuda", [{}, {"_MAX_STAGES": 4}, {"_TILE_TARGET": 200}]),
+        # K4: the ring's reserve in bytes (64 KB shrinks stage 2's window to
+        # 320 rows), and the tile target (stage 2 keeps its 448 rows; stage 3
+        # takes 512 rows at 328, 768 from 640 on)
+        (tail_check, "tail_cuda", [{}, {"_RING_RESERVE": 65536}, {"_TILE_TARGET": 328}, {"_TILE_TARGET": 1000}]),
     ]
     if only:
         grids = [grid for grid in grids if grid[1].removesuffix("_cuda") in only]

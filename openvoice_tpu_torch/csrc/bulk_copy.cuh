@@ -8,7 +8,8 @@
 // announced with mbar_expect_tx has landed.  On an H100 the bulk copies one
 // thread issues complete one after another, about 450-470 cycles apart at any
 // size up to 16 KB, so a kernel moves several slabs a copy and lets different
-// threads issue its copies.  All addresses are shared::cta.
+// threads issue its copies.  Shared-memory addresses are 32-bit shared::cta
+// addresses (smem_u32).
 
 #pragma once
 
@@ -20,37 +21,35 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-                 : "memory");
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
 }
 
 // Spin until the phase of `bar` with this parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
     uint32_t done;
     do {
         asm volatile(
             "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
             : "=r"(done)
-            : "r"(smem_u32(bar)), "r"(parity)
+            : "r"(bar), "r"(parity)
             : "memory");
     } while (!done);
 }
 
-// One 1-D bulk copy global -> shared whose bytes complete a transaction on `bar`.
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+// One 1-D bulk copy global -> shared (at `dst`) whose bytes complete a transaction on `bar`.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
     asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-            smem_u32(dst)),
-        "l"(src), "r"(bytes), "r"(smem_u32(bar))
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+        "l"(src), "r"(bytes), "r"(bar)
         : "memory");
 }
 

@@ -24,35 +24,34 @@ from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 launches = 0
 
 LRELU_SLOPE = 0.1
-MAX_BRANCHES = 4   # MAX_BRANCHES / MAX_PAIRS in csrc/mrf_branch.cuh
+MAX_BRANCHES = 4   # MAX_BRANCHES / MAX_PAIRS in csrc/mrf_core.cuh
 MAX_PAIRS = 4
-TILE_M = 64        # rows of one wgmma tile (TILE_M in csrc/mrf.cu)
+TILE_M = 64        # rows of one wgmma tile (TILE_M in csrc/mrf_core.cuh)
+MAX_STAGES = 32    # ring groups at most (MAX_STAGES in csrc/mrf_core.cuh)
+WARPGROUPS = 3     # warpgroups a block (WARPGROUPS in csrc/mrf.cu)
+WIDTHS = (256, 128, 64)   # the product widths csrc/mrf.cu has an instance of
 # The launch plan (`launch_plan`) follows from what the wrapper sees: C, T,
-# the kernel sizes and dilations, and shared memory.  A block's window is a
-# multiple of 64 rows, the largest (up to `_TILE_TARGET` kept rows) that fits
-# beside a ring of `_RING_RESERVE` slabs of 32·C bytes; the ring then takes
-# as many slabs as fit beside it, up to `_MAX_STAGES`, in whole groups (the
-# slabs a warpgroup's products take at once, which the ring moves in one
-# copy: `group_steps`).  A warpgroup computes one item a round, a 64-row tile
-# by up to `_WIDTH_MAX` columns (`product_width`), and each conv covers its
-# range with whole tiles placed from the range's first row (`conv_tiles`).
-# At C = 256 the window is 192 rows (72 kept), the ring 4 slabs in groups of
-# 2, and the tiles compute 2.19x the useful products (2.67x if placed at
-# 64-row boundaries, 1.87x at 16-row chunks).  At C = 128: 384 rows (264
-# kept), 8 slabs in groups of 4, 1.32x.  What bounds K3 on the card is then
-# the products that one warpgroup issues between waits on its own, which
-# ptxas asks of A in registers, so that only the other warpgroups' products
-# fill the tensor cores while it loads; the ring, whose copies wait for the
-# slowest warpgroup; and the epilogues and block barriers between convs,
-# which no product overlaps.  The knobs are the ones
-# ``python3 chip_smoke.py --sweep mrf`` times (warpgroups, widest product,
-# ring depth, tile target); PERF.md has the table the defaults came from.
-_WARPGROUPS = 3
-_WIDTH_MAX = 256
+# the kernel sizes and dilations, and shared memory (`plan_window`, which K4
+# shares).  A block's window is a multiple of 64 rows, the largest (up to
+# `_TILE_TARGET` kept rows) that fits beside a ring of `_RING_RESERVE` slabs
+# of 32·C bytes; the ring then takes as many groups of `ring_group` slabs as
+# fit beside it, up to `_MAX_STAGES` slabs.  A warpgroup computes one item
+# a round, a 64-row tile by `product_width(C)` columns, and each conv covers
+# its range with whole tiles placed from the range's first row
+# (`conv_tiles`).  At C = 256 the window is 192 rows (72 kept), the ring 4
+# slabs in groups of 2, and the tiles compute 2.19x the useful products
+# (2.67x if placed at 64-row boundaries, 1.87x at 16-row chunks).  At C =
+# 128: 384 rows (264 kept), 8 slabs in groups of 4, 1.32x.  What bounds K3
+# on the card is then the products that one warpgroup issues between waits
+# on its own, which ptxas asks of A in registers, so that only the other
+# warpgroups' products fill the tensor cores while it loads; the ring, whose
+# copies wait for the slowest warpgroup; and the epilogues and block
+# barriers between convs, which no product overlaps.  The knobs are the ones
+# ``python3 chip_smoke.py --sweep mrf`` times (ring depth, tile target);
+# PERF.md has the table the defaults came from.
 _TILE_TARGET = 4096
-_RING_RESERVE = 4  # the largest group of slabs (`group_steps`)
-_MAX_STAGES = 16   # MAX_STAGES in csrc/mrf.cu
-_WIDTHS = (256, 128, 64)   # the product widths csrc/mrf.cu has an instance of
+_RING_RESERVE = 4  # slabs
+_MAX_STAGES = 16   # slabs
 # launch plans, kept per sizes and knobs (`launch_plan`)
 _PLANS: dict[tuple, tuple] = {}
 
@@ -99,47 +98,84 @@ def conv_tiles(kernel_sizes, dilation_sizes, halo: int, tile: int, rows: int) ->
     return out
 
 
-def group_steps(width: int) -> int:
-    """Slabs whose products a warpgroup issues at once, and that the weight
-    ring moves in one copy (csrc/mrf.cu's group_steps): two at 256 columns,
-    whose accumulators leave room for two slabs' fragments, four below."""
+def ring_group(width: int) -> int:
+    """Slabs of a K3 ring group, which the ring moves in one copy and a
+    warpgroup's products take between waits (csrc/mrf.cu's group_of): two at
+    256 columns, whose accumulators leave room for two slabs' fragments,
+    four below."""
     return 2 if width >= 256 else 4
 
 
 def product_width(c: int) -> int | None:
     """The columns of one warpgroup's product: the widest instance of the
-    kernel (`_WIDTHS`, up to `_WIDTH_MAX`) that divides C; None where none
-    does."""
-    return next((n for n in _WIDTHS if n <= _WIDTH_MAX and c % n == 0), None)
+    kernel (`WIDTHS`) that divides C (as csrc/mrf.cu's width_of); None where
+    none does."""
+    return next((n for n in WIDTHS if c % n == 0), None)
+
+
+def plan_window(key: tuple, halo: int, t: int, tile_target: int, smem, group: int, reserve: int,
+                max_slabs: int | None = None, stream_slabs: int = 0) -> tuple[int, int, int]:
+    """(rows, tile, stages) of a K3 or K4 launch: the block's window of
+    `tile` kept rows and `halo` a side, and its weight ring of `stages`
+    groups of `group` slabs.  The window is a multiple of 64 rows, the
+    largest (up to `tile_target` kept rows) that fits beside a ring of
+    `reserve` slabs (one group at least); the whole stream of `stream_slabs`
+    then stays resident if it fits beside that window (stages 0), else the
+    ring takes as many groups as fit, up to `max_slabs` slabs and MAX_STAGES
+    groups.  smem(rows, ring slabs, stages) is the kernel's shared memory;
+    `key` names the kernel and the sizes it depends on."""
+    reserve = max(1, reserve // group)
+    most = min(MAX_STAGES, (max_slabs or MAX_STAGES * group) // group)
+    rows, tile = _frag.window((*key, group, reserve), halo, t, tile_target,
+                              lambda r, _tile: smem(r, reserve * group, reserve), multiples=(TILE_M,))
+    if stream_slabs and smem(rows, stream_slabs, 0) <= _frag.SMEM_MAX:
+        return rows, tile, 0
+    stages = reserve
+    while stages < most and smem(rows, (stages + 1) * group, stages + 1) <= _frag.SMEM_MAX:
+        stages += 1
+    return rows, tile, stages
+
+
+def ring_plan(entries, group: int, warpgroups: int, parts: int = 1) -> ctypes.Array:
+    """The ring plan of a K3 or K4 launch as the kernels' int32 table
+    (csrc/mrf_core.cuh's RingPlan, which `make_plan` checks): for each
+    product entry (first row, 64-row tiles, slabs a round), in execution
+    order, first, tiles, slabs a round, its first slab in the stream and the
+    ring groups of the entries up to it.  A round gives each warpgroup one
+    item, a tile's N-column part (`parts` a tile), and moves ceil(slabs /
+    group) groups; every warp walks every group of every round."""
+    flat, slabs, groups = [], 0, 0
+    for first, count, steps in entries:
+        groups += -(-count * parts // warpgroups) * -(-steps // group)
+        flat += [first, count, steps, slabs, groups]
+        slabs += steps
+    return (ctypes.c_int * len(flat))(*flat)
 
 
 def launch_plan(c: int, t: int, kernel_sizes, dilation_sizes) -> tuple:
-    """(rows, tile, stages, width, tiles) of a launch at C channels and T
-    samples: the window and ring of the comment above, the product width,
-    and `conv_tiles` of that window as the kernel's ctypes array.  Computed
-    once per sizes and knobs."""
-    key = (c, min(_TILE_TARGET, max(t, 1)), kernel_sizes, dilation_sizes, _RING_RESERVE, _TILE_TARGET,
-           _MAX_STAGES, _WIDTH_MAX)
+    """(rows, tile, stages, group, width, plan) of a launch at C channels
+    and T samples: the window and ring of the comment above, the product
+    width, and `ring_plan` over `conv_tiles` of that window.  Computed once
+    per sizes and knobs."""
+    key = (c, min(_TILE_TARGET, max(t, 1)), kernel_sizes, dilation_sizes, _RING_RESERVE, _TILE_TARGET, _MAX_STAGES)
     if key not in _PLANS:
         lib = _library()
-        width = product_width(c)
-        group = group_steps(width or TILE_M)
-        reserve = max(_RING_RESERVE, group)
+        width = product_width(c) or TILE_M
+        group = ring_group(width)
         halo = stage_halo(kernel_sizes, dilation_sizes)
-        rows, tile = _frag.window(("mrf", c, reserve), halo, t, _TILE_TARGET,
-                                  lambda r, tl: lib.mrf_stage_smem_bytes(c, r, reserve), multiples=(TILE_M,))
-        stages = reserve
-        while stages < _MAX_STAGES and lib.mrf_stage_smem_bytes(c, rows, stages + 1) <= _frag.SMEM_MAX:
-            stages += 1
-        stages -= stages % group  # the ring moves whole groups
-        tiles = [v for rng in conv_tiles(kernel_sizes, dilation_sizes, halo, tile, rows) for v in rng]
-        _PLANS[key] = (rows, tile, stages, width, (ctypes.c_int * len(tiles))(*tiles))
+        rows, tile, stages = plan_window(
+            ("mrf", c), halo, t, _TILE_TARGET, lambda r, slabs, n: lib.mrf_stage_smem_bytes(c, r, slabs, n), group,
+            _RING_RESERVE, _MAX_STAGES)
+        steps = [k * (c // 16) for k, dils in zip(kernel_sizes, dilation_sizes) for _ in range(2 * len(dils))]
+        tiles = conv_tiles(kernel_sizes, dilation_sizes, halo, tile, rows)
+        plan = ring_plan([(*rng, s) for rng, s in zip(tiles, steps)], group, WARPGROUPS, c // width)
+        _PLANS[key] = (rows, tile, stages, group, width, plan)
     return _PLANS[key]
 
 
 def chosen_stages() -> dict[tuple[int, int], int]:
-    """The ring depth of each (C, window rows) planned so far."""
-    return {(key[0], plan[0]): plan[2] for key, plan in _PLANS.items()}
+    """The ring slabs of each (C, window rows) planned so far."""
+    return {(key[0], plan[0]): plan[2] * plan[3] for key, plan in _PLANS.items()}
 
 
 def pack_slabs(w: torch.Tensor, multiple: int = 64) -> torch.Tensor | None:
@@ -266,22 +302,22 @@ def _library() -> ctypes.CDLL:
     lib = _nvcc.load("mrf")
     lib.mrf_stage_bf16.argtypes = (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.mrf_stage_bf16.restype = ctypes.c_int
-    lib.mrf_stage_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.mrf_stage_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.mrf_stage_smem_bytes.restype = ctypes.c_int
-    lib.mrf_stage_attributes.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)]
+    lib.mrf_stage_attributes.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.mrf_stage_attributes.restype = ctypes.c_int
     return lib
 
 
-def kernel_attributes(width: int, warpgroups: int) -> dict:
+def kernel_attributes(width: int) -> dict:
     """Registers a thread and local (stack and spilled) bytes of the kernel
-    instance of a product width and warpgroup count (cudaFuncGetAttributes)."""
+    instance of a product width (cudaFuncGetAttributes)."""
     out = (ctypes.c_int * 2)()
-    err = _library().mrf_stage_attributes(width, warpgroups, out)
+    err = _library().mrf_stage_attributes(width, out)
     if err != 0:
-        raise RuntimeError(f"no K3 instance of {width} columns and {warpgroups} warpgroups ({err})")
+        raise RuntimeError(f"no K3 instance of {width} columns ({err})")
     return {"registers": out[0], "spill_bytes": out[1]}
 
 
@@ -309,7 +345,7 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
     lengths = _frag.check_lengths(lengths, batch, x.device)
 
     lib = _library()
-    rows, tile, stages, width, tiles = launch_plan(c, t, packed["kernel_sizes"], packed["dilation_sizes"])
+    rows, tile, stages, group, _, plan = launch_plan(c, t, packed["kernel_sizes"], packed["dilation_sizes"])
     out = torch.empty_like(x)
     # where the finished branches' outputs wait for the last one, a tile a block
     scratch = torch.empty(batch * -(-t // tile) * (len(packed["kernel_sizes"]) - 1) * tile * c,
@@ -318,7 +354,7 @@ def mrf_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Ten
         x.data_ptr(), lengths.data_ptr(), packed["w_slabs"].data_ptr(), packed["b"].data_ptr(),
         out.data_ptr(), scratch.data_ptr(), batch, t, c,
         len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils,
-        tiles, rows, tile, stages, width, _WARPGROUPS, x.device.index or 0,
+        plan, rows, tile, stages, group, x.device.index or 0,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

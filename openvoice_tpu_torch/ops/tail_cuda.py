@@ -25,28 +25,25 @@ import torch.nn.functional as F
 
 from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 from openvoice_tpu_torch.ops.mrf_cuda import (
-    LRELU_SLOPE, TILE_M, check_stage, check_stage_cuda, conv_tiles, lrelu_plain, mrf_branches_plain, pack_slabs,
-    stage_halo, stage_weights,
+    LRELU_SLOPE, TILE_M, check_stage, check_stage_cuda, conv_tiles, lrelu_plain,
+    mrf_branches_plain, pack_slabs, plan_window, ring_plan, stage_halo, stage_weights,
 )
 
 launches = 0
 
 POST_SLOPE = 0.01   # the last activation uses torch's default slope
 WIDTHS = (16, 32, 64)   # the channel counts csrc/tail.cu has an instance of (N = C)
-MAX_GROUP = 16          # MAX_GROUP in csrc/tail.cu: slabs a copy at most
-MAX_STAGES = 32         # MAX_STAGES in csrc/tail.cu
+WARPGROUPS = 4          # warpgroups a block (WARPGROUPS in csrc/tail.cu)
+MAX_GROUP = 16          # slabs a ring group at most (MAX_GROUP in csrc/mrf_core.cuh)
 # The launch plan (`launch_plan`) follows from what the wrapper sees: C, the
-# length, the stage's structure and shared memory.  The window is a multiple
-# of 64 rows, the largest (up to `_TILE_TARGET` kept rows) that fits beside
-# `_RING_RESERVE` bytes of ring; the whole weight stream then stays resident
-# if it fits beside that window (C = 16), else the ring takes as many groups
-# as fit, up to `MAX_STAGES`.  A group is `copy_group(C)` slabs of 32·C
-# bytes.  The knobs are the ones ``python3 chip_smoke.py --sweep tail``
-# times: warpgroups a block (3 or 4, the instances csrc/tail.cu has), the
-# copy group (0: `copy_group`), the ring's reserve and the tile target;
-# PERF.md has the table the defaults came from.
-_WARPGROUPS = 4
-_GROUP = 0
+# length, the stage's structure and shared memory (`mrf_cuda.plan_window`,
+# which K3 shares).  The window is a multiple of 64 rows, the largest (up to
+# `_TILE_TARGET` kept rows) that fits beside `_RING_RESERVE` bytes of ring;
+# the whole weight stream then stays resident if it fits beside that window
+# (C = 16), else the ring takes as many groups of `copy_group(C)` slabs as
+# fit, up to `mrf_cuda.MAX_STAGES`.  The knobs are the ones ``python3
+# chip_smoke.py --sweep tail`` times: the ring's reserve and the tile
+# target; PERF.md has the table the defaults came from.
 _TILE_TARGET = 640
 _RING_RESERVE = 32768
 # what the last launch ran: window rows and tile, halo, warpgroups, threads,
@@ -84,10 +81,10 @@ def pack_stream(up_w: torch.Tensor, w: torch.Tensor, stride: int, pad_up: int) -
 
 
 def copy_group(c: int) -> int:
-    """Slabs the ring moves in one copy: 16 KB of weights (one thread's bulk
-    copies complete one after another, about as fast at any size up to 16
-    KB), 8 slabs at C = 64, 16 below.  A warpgroup issues a group's products
-    eight slabs at a time."""
+    """Slabs the ring moves in one copy (csrc/tail.cu's group_of): 16 KB of
+    weights (one thread's bulk copies complete one after another, about as
+    fast at any size up to 16 KB), 8 slabs at C = 64, 16 below.  A warpgroup
+    issues a group's products eight slabs at a time."""
     return min(MAX_GROUP, max(1, 16384 // (32 * c)))
 
 
@@ -173,13 +170,13 @@ def live_tiles(len_out: int, tile: int, post_half: int, t_out: int) -> int:
 
 def launch_plan(cin: int, c: int, t_out: int, k_up: int, stride: int, pad_up: int, k_post: int,
                 kernel_sizes, dilation_sizes) -> tuple:
-    """(rows, tile, halo, stages, group, ring slabs, tiles, smem bytes) of a
+    """(rows, tile, halo, stages, group, ring slabs, plan, smem bytes) of a
     launch: the window and weight ring of the comment above (stages 0: the
     stream is resident, ring slabs then the whole stream's), and
-    `tail_tiles` of that window as the kernel's ctypes array.  Computed once
-    per sizes and knobs."""
+    `mrf_cuda.ring_plan` over the upsample's phases (every phase row) and
+    `tail_tiles` of that window.  Computed once per sizes and knobs."""
     key = (cin, c, min(_TILE_TARGET, max(t_out, 1)), k_up, stride, pad_up, k_post, kernel_sizes, dilation_sizes,
-           _TILE_TARGET, _GROUP, _RING_RESERVE)
+           _TILE_TARGET, _RING_RESERVE)
     if key not in _PLANS:
         if TILE_M % stride:
             raise ValueError(f"the kernel's 64-row windows take a stride dividing 64, got {stride}")
@@ -187,27 +184,21 @@ def launch_plan(cin: int, c: int, t_out: int, k_up: int, stride: int, pad_up: in
         margin = _in_margin(k_up, stride, pad_up)
         halo = tail_halo(kernel_sizes, dilation_sizes, k_post, stride)
         n_convs = 2 * sum(len(d) for d in dilation_sizes)
-        group = _GROUP or copy_group(c)
-        reserve = max(1, _RING_RESERVE // (32 * c * group))   # groups
         n_slabs = stream_slabs(cin, c, k_up, kernel_sizes, dilation_sizes)
 
         def smem(rows, slabs, stages):
             return lib.tail_stage_smem_bytes(cin, c, stride, margin, rows, n_convs, slabs, stages)
 
-        rows, tile = _frag.window(
-            ("tail", cin, c, stride, margin, n_convs, group, reserve), halo, t_out, _TILE_TARGET,
-            lambda r, tl: smem(r, reserve * group, reserve), multiples=(TILE_M,))
-        if smem(rows, n_slabs, 0) <= _frag.SMEM_MAX:
-            stages, ring_slabs = 0, n_slabs
-        else:
-            stages = reserve
-            while stages < MAX_STAGES and smem(rows, (stages + 1) * group, stages + 1) <= _frag.SMEM_MAX:
-                stages += 1
-            ring_slabs = stages * group
-        tiles = [v for rng in tail_tiles(kernel_sizes, dilation_sizes, halo, tile, rows,
-                                         max(k_post - 1, 0) // 2) for v in rng]
-        _PLANS[key] = (rows, tile, halo, stages, group, ring_slabs, (ctypes.c_int * len(tiles))(*tiles),
-                       smem(rows, ring_slabs, stages))
+        group = copy_group(c)
+        rows, tile, stages = plan_window(("tail", cin, c, stride, margin, n_convs), halo, t_out, _TILE_TARGET, smem,
+                                         group, _RING_RESERVE // (32 * c), stream_slabs=n_slabs)
+        ring_slabs = stages * group if stages else n_slabs
+        phases = [(0, -(-(rows // stride) // TILE_M), len(taps) * (cin // 16))
+                  for _, taps in phase_taps(k_up, stride, pad_up)]
+        tiles = tail_tiles(kernel_sizes, dilation_sizes, halo, tile, rows, max(k_post - 1, 0) // 2)
+        steps = [k * (c // 16) for k, dils in zip(kernel_sizes, dilation_sizes) for _ in range(2 * len(dils))]
+        plan = ring_plan(phases + [(*rng, s) for rng, s in zip(tiles, steps)], group, WARPGROUPS)
+        _PLANS[key] = (rows, tile, halo, stages, group, ring_slabs, plan, smem(rows, ring_slabs, stages))
     return _PLANS[key]
 
 
@@ -220,25 +211,25 @@ def stream_slabs(cin: int, c: int, k_up: int, kernel_sizes, dilation_sizes) -> i
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("tail")
     lib.tail_stage_bf16.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)] * 3
-        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)] * 3
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.tail_stage_bf16.restype = ctypes.c_int
     lib.tail_stage_smem_bytes.argtypes = [ctypes.c_int] * 8
     lib.tail_stage_smem_bytes.restype = ctypes.c_int
-    lib.tail_stage_attributes.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.tail_stage_attributes.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.tail_stage_attributes.restype = ctypes.c_int
     return lib
 
 
 def kernel_attributes(c: int, smem: int, device: int = 0) -> dict:
-    """What the kernel instance of C channels and `_WARPGROUPS` warpgroups
-    takes on the card: registers and local (spilled) bytes a thread
-    (cudaFuncGetAttributes), and how many of its blocks of `smem` bytes an
-    SM holds (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    """What the kernel instance of C channels takes on the card: registers
+    and local (spilled) bytes a thread (cudaFuncGetAttributes), and how many
+    of its blocks of `smem` bytes an SM holds
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
     out = (ctypes.c_int * 3)()
-    err = _library().tail_stage_attributes(c, _WARPGROUPS, smem, device, out)
+    err = _library().tail_stage_attributes(c, smem, device, out)
     if err != 0:
-        raise RuntimeError(f"tail kernel attributes failed with error {err} (C = {c}, {_WARPGROUPS} warpgroups)")
+        raise RuntimeError(f"tail kernel attributes failed with error {err} (C = {c})")
     return {"registers": out[0], "spill_bytes": out[1], "blocks_per_sm": out[2]}
 
 
@@ -283,7 +274,7 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
     k_post = post_w.shape[0] if post_w is not None else 0
     margin = _in_margin(k_up, stride, pad_up)
     t_out = t_in * stride
-    rows, tile, halo, stages, group, _, tiles, smem = launch_plan(
+    rows, tile, halo, stages, group, _, plan, smem = launch_plan(
         cin, c, t_out, k_up, stride, pad_up, k_post, packed["kernel_sizes"], packed["dilation_sizes"])
     if packed["slabs"].shape[0] != stream_slabs(cin, c, k_up, packed["kernel_sizes"], packed["dilation_sizes"]):
         raise ValueError(f"the packed stream has {packed['slabs'].shape[0]} slabs, not this stage's")
@@ -296,14 +287,14 @@ def tail_stage(x: torch.Tensor, lengths: torch.Tensor, packed: dict) -> torch.Te
     err = lib.tail_stage_bf16(
         x.data_ptr(), lengths.data_ptr(), packed["slabs"].data_ptr(), packed["up_b"].data_ptr(),
         packed["b"].data_ptr(), post_w.data_ptr() if post_w is not None else None, out.data_ptr(),
-        scratch.data_ptr(), batch, t_in, cin, c, stride, k_up, pad_up, margin, k_post,
-        len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils, tiles,
-        rows, tile, stages, group, _WARPGROUPS, device, torch.cuda.current_stream(x.device).cuda_stream,
+        scratch.data_ptr(), batch, t_in, cin, c, stride, pad_up, margin, k_post,
+        len(packed["kernel_sizes"]), len(packed["dilation_sizes"][0]), ks, dils, plan,
+        rows, tile, stages, group, device, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"tail kernel launch failed with error {err} (CUDA's, or -1: a launch the kernel "
-                           f"cannot take, {_WARPGROUPS} warpgroups)")
+                           f"cannot take)")
     count_launch(__name__)
-    last_launch.update(rows=rows, tile=tile, halo=halo, warpgroups=_WARPGROUPS, threads=128 * _WARPGROUPS,
+    last_launch.update(rows=rows, tile=tile, halo=halo, warpgroups=WARPGROUPS, threads=128 * WARPGROUPS,
                        tiles=-(-t_out // tile), smem=smem, stages=stages, group=group)
     return out

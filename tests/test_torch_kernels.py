@@ -506,14 +506,20 @@ def test_mrf_trimmed_rows_keep_the_stage(dtype):
 
 class _SmemStandIn:
     """The K3 library's shared-memory size, as ``csrc/mrf.cu::
-    mrf_stage_smem_bytes`` computes it (alignment room, slabs of 32·C bytes
-    and their two barriers, a claim count a stage rounded to 16 bytes, the
-    ring's 400-byte plan, a zero row and two [rows, C] bf16 buffers), so
-    that `launch_plan` runs without the card."""
+    mrf_stage_smem_bytes`` computes it (alignment room, the ring's slabs of
+    32·C bytes, two barriers a ring group, a zero row and two [rows, C]
+    bf16 buffers), so that `launch_plan` runs without the card."""
 
     @staticmethod
-    def mrf_stage_smem_bytes(c, rows, stages):
-        return 256 + stages * (32 * c + 16) + -(-4 * stages // 16) * 16 + 400 + (1 + 2 * rows) * c * 2
+    def mrf_stage_smem_bytes(c, rows, slabs, stages):
+        return 256 + slabs * 32 * c + 16 * max(stages, 1) + (1 + 2 * rows) * c * 2
+
+
+def _plan_entries(plan) -> list[tuple]:
+    """A kernel's ctypes plan table as (first, count, steps, slab0,
+    group_end) entries."""
+    flat = list(plan)
+    return [tuple(flat[i:i + 5]) for i in range(0, len(flat), 5)]
 
 
 @pytest.mark.parametrize("c,t_len,rows,stages", [
@@ -527,19 +533,19 @@ def test_mrf_conv_tiles_cover_the_ranges(monkeypatch, c, t_len, rows, stages):
     them back, and reach past the range only into rows no later conv of the
     branch reads within its own range; the kept rows, which `out` takes, lie
     inside every range.  Each branch's last conv has the same tiles (the
-    threads that park a branch's rows sum them).  The ring holds whole
-    groups of slabs."""
+    threads that park a branch's rows sum them).  The ring holds `stages`
+    slabs in whole groups."""
     monkeypatch.setattr(mrf_cuda, "_library", lambda: _SmemStandIn)
     monkeypatch.setattr(mrf_cuda, "_PLANS", {})
     monkeypatch.setattr(_frag, "_WINDOWS", {})
-    got_rows, tile, got_stages, width, flat = mrf_cuda.launch_plan(c, t_len, KS, DILS)
-    assert (got_rows, got_stages, width) == (rows, stages, c)
-    assert stages % mrf_cuda.group_steps(width) == 0
+    got_rows, tile, groups, group, width, plan = mrf_cuda.launch_plan(c, t_len, KS, DILS)
+    assert (got_rows, groups * group, width) == (rows, stages, c)
+    assert group == mrf_cuda.ring_group(width)
     item = mrf_cuda.TILE_M
-    assert _SmemStandIn.mrf_stage_smem_bytes(c, rows, stages) <= _frag.SMEM_MAX
+    assert _SmemStandIn.mrf_stage_smem_bytes(c, rows, stages, groups) <= _frag.SMEM_MAX
     halo = mrf_cuda.stage_halo(KS, DILS)
     assert rows - tile == 2 * halo and (tile >= t_len or rows == 192 or rows == 384)
-    tiles = list(zip(flat[0::2], flat[1::2]))
+    tiles = [entry[:2] for entry in _plan_entries(plan)]
     ranges = mrf_cuda.conv_ranges(KS, DILS, halo, tile)
     assert tiles == mrf_cuda.conv_tiles(KS, DILS, halo, tile, rows) and len(tiles) == 18
     for j, ((lo, hi), (first, count)) in enumerate(zip(ranges, tiles)):
@@ -553,6 +559,38 @@ def test_mrf_conv_tiles_cover_the_ranges(monkeypatch, c, t_len, rows, stages):
             nlo, nhi = ranges[j + 1]
             assert lo <= nlo - reach and nhi + reach <= hi
     assert len(set(tiles[5::6])) == 1
+
+
+@pytest.mark.parametrize("c,t_len", [
+    (256, 8192), (128, 65536),    # V2's two K3 stages at a 1024-frame bucket
+    (256, 6144), (128, 49152),    # MeloTTS's at its median line's 768-frame bucket
+    (256, 40), (128, 100)],       # shorter than one tile
+    ids=["v2-c256", "v2-c128", "melo-c256", "melo-c128", "c256-short", "c128-short"])
+def test_mrf_ring_plan_matches_the_device_formula(monkeypatch, c, t_len):
+    """K3's ring plan, built on the host, walks the ring as the plan its
+    kernel once built on the device did: for each conv the same group end,
+    groups a round and first group, with groups of as many slabs (2 at
+    C = 256, 4 at 128, which the products of a warpgroup took at once)."""
+    monkeypatch.setattr(mrf_cuda, "_library", lambda: _SmemStandIn)
+    monkeypatch.setattr(mrf_cuda, "_PLANS", {})
+    monkeypatch.setattr(_frag, "_WINDOWS", {})
+    rows, tile, _, group, width, plan = mrf_cuda.launch_plan(c, t_len, KS, DILS)
+    tiles = mrf_cuda.conv_tiles(KS, DILS, mrf_cuda.stage_halo(KS, DILS), tile, rows)
+    # the device's formula: G slabs a group, a round's groups taps x k-tiles / G,
+    # ceil(tiles x parts / warpgroups) rounds, the convs' groups one after another
+    g, k_tiles, parts, warpgroups = (2 if width >= 256 else 4), c // 16, c // width, 3
+    end = first = 0
+    device = []
+    for cv, (_, count) in enumerate(tiles):
+        round_groups = KS[cv // (2 * len(DILS[0]))] * k_tiles // g
+        end += -(-count * parts // warpgroups) * round_groups
+        device.append((end, round_groups, first))
+        first += round_groups
+    assert group == g and mrf_cuda.WARPGROUPS == warpgroups
+    host = [(group_end, -(-steps // group), slab0 // group)
+            for _, _, steps, slab0, group_end in _plan_entries(plan)]
+    assert all(slab0 % group == 0 for _, _, _, slab0, _ in _plan_entries(plan))
+    assert host == device
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -823,19 +861,19 @@ def test_tail_tiles_cover_the_ranges(monkeypatch, cin, c, k_up, pad, k_post, t_o
     monkeypatch.setattr(tail_cuda, "_library", lambda: _TailSmemStandIn)
     monkeypatch.setattr(tail_cuda, "_PLANS", {})
     monkeypatch.setattr(_frag, "_WINDOWS", {})
-    got_rows, tile, halo, got_stages, got_group, ring_slabs, flat, smem = tail_cuda.launch_plan(
+    got_rows, tile, halo, got_stages, got_group, ring_slabs, plan, smem = tail_cuda.launch_plan(
         cin, c, t_out, k_up, 2, pad, k_post, KS, DILS)
     assert (got_rows, got_stages, got_group) == (rows, stages, group)
     margin = tail_cuda._in_margin(k_up, 2, pad)
     n_slabs = tail_cuda.stream_slabs(cin, c, k_up, KS, DILS)
-    assert ring_slabs == (n_slabs if stages == 0 else stages * group) and stages <= tail_cuda.MAX_STAGES
+    assert ring_slabs == (n_slabs if stages == 0 else stages * group) and stages <= mrf_cuda.MAX_STAGES
     assert smem == _TailSmemStandIn.tail_stage_smem_bytes(cin, c, 2, margin, rows, 18, ring_slabs, stages)
     assert smem <= _frag.SMEM_MAX
     item = mrf_cuda.TILE_M
     post_half = max(k_post - 1, 0) // 2
     assert rows % item == 0 and rows % 2 == 0 and halo % 2 == 0 and rows - tile == 2 * halo
     assert halo == tail_cuda.tail_halo(KS, DILS, k_post, 2) and (tile >= t_out or t_out > 1000)
-    tiles = list(zip(flat[0::2], flat[1::2]))
+    tiles = [entry[:2] for entry in _plan_entries(plan)[2:]]   # after the stride's two phases
     assert tiles == tail_cuda.tail_tiles(KS, DILS, halo, tile, rows, post_half) and len(tiles) == 18
     ranges = mrf_cuda.conv_ranges(KS, DILS, halo - post_half, tile + 2 * post_half)
     for j, ((lo, hi), (first, count)) in enumerate(zip(ranges, tiles)):
