@@ -4,9 +4,9 @@
     python3 chip_smoke.py          # from the repository root, one NVIDIA H100
     python3 chip_smoke.py --sweep [wn coupling mrf tail]
                                    # instead: time K1-K4 (or those named) over
-                                   # tile sizes, warps, K1's and K2's cluster
-                                   # size, K3's ring depth and tile target,
-                                   # K4's ring reserve and tile target
+                                   # K1's and K2's ring depth, K3's ring
+                                   # depth and tile target, K4's
+                                   # ring reserve and tile target
     python3 chip_smoke.py --elastic     # instead: build, then phase 11 alone
     python3 chip_smoke.py --installed   # instead: build, then phase 12 alone
     python3 chip_smoke.py --melo-tail   # instead: build, then phase 3f alone
@@ -560,6 +560,18 @@ def wn_flop(frames: int, n_layers: int, k: int, h: int) -> float:
     return 2.0 * frames * (n_layers * (k + 1) * h * 2 * h - h * h)
 
 
+# a ragged batch of 8 rows at a 512-frame bucket, as the batcher forms them
+RAGGED_B8 = [512, 487, 430, 366, 301, 233, 129, 64]
+
+
+def cluster_line(launch: dict) -> str:
+    """K1's or K2's launch as the wrapper planned it and ptxas built it."""
+    return (f"cluster launch: R {launch['ranks']}, rows/tile {launch['rows']}/{launch['tile']}, {launch['ctas']} "
+            f"CTAs launched, cudaOccupancyMaxActiveClusters {launch['max_clusters']} ({launch['warpgroups']} "
+            f"warpgroups, m64n{launch['width']} items, ring {launch['stages']} x {launch['group']} units, "
+            f"{launch['registers']} registers, {launch['spill_bytes']} bytes spilled a thread)")
+
+
 # -- K1 ------------------------------------------------------------------------
 
 def wn_check(kind: str, gen) -> dict:
@@ -574,7 +586,8 @@ def wn_check(kind: str, gen) -> dict:
     wn16 = copy.deepcopy(wn).to(torch.bfloat16)
     packed = wn_cuda.stack_wn_params(wn)
     max_err, timed = 0.0, None
-    for label, t, lengths in [("convert B=1 T=1024", BUCKET, [FRAMES]), ("ragged B=2 T=333", 333, [333, 200])]:
+    for label, t, lengths in [("convert B=1 T=1024", BUCKET, [FRAMES]), ("ragged B=2 T=333", 333, [333, 200]),
+                              ("ragged B=8 T=512", 512, RAGGED_B8)]:
         b = len(lengths)
         x, g = rand_bf16(gen, b, t, h), rand_bf16(gen, b, gin, 1, scale=1.0)
         lens = lens_on_card(lengths)
@@ -582,10 +595,7 @@ def wn_check(kind: str, gen) -> dict:
         out = wn_cuda.wn_stack(x, lens, packed, g_all)
         max_err = max(max_err, agree(label, out, wn_cuda.wn_stack_plain(x, lens, packed, g_all), WN_MEAN_TOL, lengths))
         launch = {**wn_cuda.last_launch, **wn_cuda.kernel_attributes()}
-        print(f"{label} cluster launch: R {launch['ranks']}, rows/tile {launch['rows']}/{launch['tile']}, "
-              f"{launch['ctas']} CTAs launched, cudaOccupancyMaxActiveClusters {launch['max_clusters']} "
-              f"({launch['threads']} threads, {launch['registers']} registers, {launch['spill_bytes']} bytes "
-              f"spilled a thread); live tiles by the exit rule (computed on the host): "
+        print(f"{label} {cluster_line(launch)}; live tiles by the exit rule (computed on the host): "
               + ", ".join(str(wn_cuda.live_tiles(n, launch["tile"], t)) for n in lengths)
               + f" of {launch['tiles']}")
         check(launch["max_clusters"] >= 1, "no K1 cluster fits on the card")
@@ -634,7 +644,8 @@ def coupling_check(kind: str, gen) -> dict:
     convs = [layer.enc.cond_layer for layer in flow16.flows[::2]]
     packed = {rev: cc.pack_coupling_block(flow, reverse=rev) for rev in (False, True)}
     max_err, timed = 0.0, None
-    for label, t, lengths in [("convert B=1 T=1024", BUCKET, [FRAMES]), ("ragged B=2 T=333", 333, [333, 200])]:
+    for label, t, lengths in [("convert B=1 T=1024", BUCKET, [FRAMES]), ("ragged B=2 T=333", 333, [333, 200]),
+                              ("ragged B=8 T=512", 512, RAGGED_B8), ("length 0 B=1 T=1024", BUCKET, [0])]:
         b = len(lengths)
         lens = lens_on_card(lengths)
         live = (torch.arange(t, device="cuda")[None, :] < lens[:, None])[..., None]
@@ -650,10 +661,10 @@ def coupling_check(kind: str, gen) -> dict:
         trip, peak = float((back.float() - x.float()).abs().max()), float(x.float().abs().max())
         print(f"{label} forward then reverse: max |back - x| {trip:.3e} (bar {ROUND_TRIP_TOL * peak:.3e})")
         check(trip <= ROUND_TRIP_TOL * peak, f"{label}: the flow does not invert")
-        launch = dict(cc.last_launch)
-        print(f"{label} cluster launch: R {launch['ranks']}, rows/tile {launch['rows']}/{launch['tile']}, "
-              f"{launch['ctas']} CTAs launched, cudaOccupancyMaxActiveClusters {launch['max_clusters']} "
-              f"({cc._THREADS} threads)")
+        if not max(lengths):
+            check(bool((fwd == 0).all()) and bool((back == 0).all()), f"{label}: output not all zero")
+        launch = {**cc.last_launch, **cc.kernel_attributes()}
+        print(f"{label} {cluster_line(launch)}")
         check(launch["max_clusters"] >= 1, "no cluster fits on the card")
         timed = timed or (x, g, lens, g_all, launch)
     x, g, lens, g_all, launch = timed
@@ -910,8 +921,8 @@ def print_windows() -> None:
 
 def sweep(kind: str, only: list[str]) -> None:
     """Time K1-K4 at the main path's shapes over the knobs their wrappers
-    have: the rows a block keeps, K1's and K2's threads and cluster size,
-    K3's weight-ring depth, and K4's ring reserve.  Each variant goes
+    have: K1's and K2's ring depth, K3's weight-ring depth
+    and tile target, and K4's ring reserve and tile target.  Each variant goes
     through the kernel's whole check, so a variant that disagrees with the
     plain version fails the run.  The wrappers' defaults were chosen from
     this table."""
@@ -919,18 +930,12 @@ def sweep(kind: str, only: list[str]) -> None:
 
     import torch
 
-    # K2: cluster size × tile × threads (at most 384: the kernel's ring of
-    # B fragments leaves too few registers for 512), and one unsplit launch
-    # (a cluster of one CTA) beside them
-    coupling = [{"_RANKS": r, "_TILE_TARGET": tile, "_THREADS": th}
-                for r in (2, 4) for tile in (32, 64) for th in (288, 384)]
-    coupling.append({"_RANKS": 1, "_TILE_TARGET": 32, "_THREADS": 384})
-    # K1: cluster size × tile × threads
-    wn_knobs = [{"_RANKS": r, "_TILE_TARGET": tile, "_THREADS": th}
-                for r in (2, 4, 8) for tile in (32, 64) for th in (288, 384)]
+    # K1 and K2: the ring's depth (groups at most; their launch shape is
+    # fixed, _frag's CLUSTER_* constants)
+    cluster = [{}, {"_MAX_STAGES": 2}, {"_MAX_STAGES": 4}]
     grids = [
-        (wn_check, "wn_cuda", wn_knobs),
-        (coupling_check, "coupling_cuda", coupling),
+        (wn_check, "wn_cuda", cluster),
+        (coupling_check, "coupling_cuda", cluster),
         # K3: the ring's depth (one group a stage at C = 128), and a 200-row
         # tile target (a 320-row window and 16 slabs at C = 128; C = 256
         # keeps its 192 rows)
@@ -967,9 +972,11 @@ def sweep(kind: str, only: list[str]) -> None:
         stages = f" = {' + '.join(f'{t:.4f}' for t in stage_ms)}" if stage_ms else ""
         setting = "  ".join(f"{k.strip('_').lower()} {v}" for k, v in knob.items())
         if isinstance(launch, dict):  # K1's and K2's cluster line
-            regs = f", {launch['registers']} regs, {launch['spill_bytes']} B spilled" if "registers" in launch else ""
             full = f", {launch['full_ms']:.4f} ms at {BUCKET} frames" if "full_ms" in launch else ""
-            clusters = f"  [{launch['ctas']} CTAs, {launch['max_clusters']} clusters fit{regs}{full}]"
+            clusters = (f"  [{launch['rows']}/{launch['tile']} rows, {launch['ctas']} CTAs, {launch['max_clusters']} "
+                        f"clusters fit, m64n{launch['width']} x {launch['warpgroups']}, ring {launch['stages']} x "
+                        f"{launch['group']} units, {launch['registers']} regs, {launch['spill_bytes']} B spilled"
+                        f"{full}]")
         elif launch and "width" in launch[0]:   # K3's launch per stage
             clusters = "  [" + "; ".join(
                 f"C={st['c']} {st['rows']}/{st['tile']} rows, {st['stages']} slabs by {st['group']}, "

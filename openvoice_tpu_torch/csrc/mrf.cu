@@ -155,7 +155,7 @@ extern "C" int mrf_stage_attributes(int width, int* out) {
 // dilations [n_branches][n_pairs]; plan [n_convs][PLAN_FIELDS]: each conv's
 // first window row, its nonzero count of 64-row tiles inside [0, rows), its
 // slabs a round, its first slab and the ring groups of convs 0 .. cv
-// (ops/mrf_cuda.py::ring_plan; `make_plan` checks it); stages (1 to
+// (ops/_frag.py::ring_plan; `make_plan` checks it); stages (1 to
 // MAX_STAGES) groups of `group` slabs in the ring, group_of(the product
 // width); scratch: batch *
 // ceil(t_len / tile) * (n_branches - 1) * tile * chan bf16.  chan % 64 == 0;

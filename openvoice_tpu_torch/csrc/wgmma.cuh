@@ -1,6 +1,9 @@
 // Hopper's warpgroup matrix multiply (wgmma, sm_90a) for the MRF-stage
 // kernel (mrf.cu, K3: N = 64, 128, 256) and the decoder-tail kernel
-// (tail.cu, K4: N = C = 16, 32, 64).
+// (tail.cu, K4: N = C = 16, 32, 64), A from registers (`Wgmma`), and for the
+// WaveNet cluster kernels (wn.cu, K1, and coupling.cu, K2: N = 48 and 24, a
+// warpgroup's half of a CTA's columns of a wide and a narrow product), A
+// from shared memory (`WgmmaSS`, below).
 //
 // One instruction multiplies a 64-row A tile by a [16, N] B tile into f32
 // accumulators held by the four warps of a warpgroup (128 threads):
@@ -167,5 +170,62 @@ struct Wgmma<256> {
     }
 };
 
+
+// -- A from shared memory --------------------------------------------------------
+//
+// The A tile (bf16, 64 x 16, K-major) through a descriptor too, without
+// swizzle: eight 8-row core matrices down M, each 8 rows of 16 bytes (8 K
+// values) one after another, SBO = 128 bytes apart, and the tile's second 8
+// K values a core matrix LBO bytes after its first.  A window held chunk by
+// chunk (8 columns of every row, then the next 8: wn_cluster.cuh's
+// ChunkRows) is that layout at any row, a row being 16 bytes: a tap's row
+// shift moves the start address, and LBO is the distance between two
+// chunks.  The accumulators are as for `Wgmma`.
+
+// The descriptor of an A tile at shared-memory address `addr` (16-byte
+// aligned): start address / 16, leading byte offset `lbo` (K: one 8-column
+// chunk to the next), stride byte offset 128 (M: 8 rows to the next),
+// layout 0 (no swizzle).
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr, uint32_t lbo) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+           (static_cast<uint64_t>(128 >> 4) << 32);
+}
+
+// acc[64 x N] += A[64 x 16] @ B[16 x N], both from shared memory; N / 2
+// accumulators a thread.
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<24> {
+    static __device__ __forceinline__ void mma(float (&d)[12], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %14, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+            "}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
+
+template <>
+struct WgmmaSS<48> {
+    static __device__ __forceinline__ void mma(float (&d)[24], uint64_t a, uint64_t b) {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "setp.ne.b32 p, %26, 0;\n"
+            "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+            "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+            "%16, %17, %18, %19, %20, %21, %22, %23"
+            "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+            : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+              "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+              "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+            : "l"(a), "l"(b), "r"(1));
+    }
+};
 
 }  // namespace ovt

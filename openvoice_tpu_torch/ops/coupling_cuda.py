@@ -1,7 +1,9 @@
 """K2: one direction of the coupling flow as one hand-written CUDA kernel
 (``csrc/coupling.cu``), launched as thread-block clusters: each time tile
 is split over the R CTAs of one cluster, which share the window through
-distributed shared memory (`_frag.cluster_bounds` is the column plan).
+distributed shared memory (`_frag.cluster_bounds` is the column plan).  Its
+products, their weight streams and their launch plan are K1's
+(`_frag.add_streams`, `_frag.cluster_plan`).
 
 Replaces ``openvoice_tpu/ops/coupling_pallas.py::fused_coupling_block`` with
 its packers (`_exec_order`, `pack_coupling_block`, `coupling_g_stack`).  The
@@ -23,23 +25,20 @@ import ctypes
 import torch
 
 from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
-from openvoice_tpu_torch.ops.wn_cuda import stack_wn_params, wn_layers_plain
+from openvoice_tpu_torch.ops.wn_cuda import wn_layers_plain, wn_matrices, wn_products
 
 launches = 0
 
-# CTAs a cluster splits a time tile over, frames a tile keeps (the window
-# recomputes S·L·(K−1)/2 more a side), and threads a CTA (at most 384:
-# MAX_THREADS in csrc/coupling.cu).  On one H100 (``python3 chip_smoke.py
-# --sweep coupling``, PERF.md) a 64-frame tile on 4 CTAs with 12 warps was
-# fastest: 16 clusters of 128 rows fit in one wave (30 clusters of 4 fit on
-# the card, so 32 of 96 rows take two), and 12 warps hold a CTA's 12 gate
-# tiles.
-_RANKS = 4
-_TILE_TARGET = 64
-_THREADS = 384
+# K2's one knob, as K1's (wn_cuda; ``python3 chip_smoke.py --sweep
+# coupling`` times it; PERF.md has the table): ring groups at most.  The
+# window's three buffers and skip sum leave a 128-row window four ring
+# groups (the window recomputes S·L·(K−1)/2 frames a side, 32 in V2's flow),
+# and two ring groups took 40 % longer.  The launch's shape is fixed
+# (`_frag`'s CLUSTER_* constants).
+_MAX_STAGES = _frag.MAX_STAGES
 
-# what the last launch ran: ranks, rows, tile, CTAs, and
-# cudaOccupancyMaxActiveClusters for its CTA size
+# what the last launch ran: ranks, rows, tile, CTAs, warpgroups, item
+# columns, ring groups and their units, and cudaOccupancyMaxActiveClusters
 last_launch: dict = {}
 
 
@@ -67,8 +66,9 @@ def pack_coupling_block(flow, *, reverse: bool, dtype: torch.dtype = torch.bfloa
       wq [S, H, C]  post 1×1 scattered to the target lanes, negated for reverse
       bq [S, C]     post bias, same placement and sign
 
-    plus ``*_frag`` copies of the matrices in the kernel's fragment order
-    (None where the sizes have no such layout).
+    plus (`_frag.add_streams`) each CTA's weights as the kernel streams them,
+    in bfloat16: per step pre, the WaveNet's products (`wn_cuda.wn_products`),
+    post.
     """
     layers = _couplings(flow)
     half = layers[0].half
@@ -101,7 +101,7 @@ def pack_coupling_block(flow, *, reverse: bool, dtype: torch.dtype = torch.bfloa
                 v_post[half - 1 - idx] = post_b
             if reverse:
                 m_post, v_post = -m_post, -v_post
-            wn = stack_wn_params(layer.enc, torch.float32)
+            wn = wn_matrices(layer.enc, torch.float32)
             cols["wp"].append(m_pre)
             cols["bp"].append(layer.pre.bias.float())
             cols["wq"].append(m_post)
@@ -109,9 +109,20 @@ def pack_coupling_block(flow, *, reverse: bool, dtype: torch.dtype = torch.bfloa
             for k in ("w_in", "b_in", "w_rs", "b_rs"):
                 cols[k].append(wn[k])
         packed = {k: torch.stack(v).to(dtype).contiguous() for k, v in cols.items()}
-        for k in ("wp", "wq", "w_in", "w_rs"):
-            packed[f"{k}_frag"] = _frag.maybe_frag(packed[k])
-    return packed
+        return _frag.add_streams(packed, coupling_products(packed))
+
+
+def coupling_products(packed: dict) -> list[tuple]:
+    """A direction's products in execution order as `_frag.cluster_streams`
+    takes them: per step pre ([1, C, H]), the WaveNet's, post ([1, H, C])."""
+    n_steps, _, _, h, _ = packed["w_in"].shape
+    c = packed["wp"].shape[1]
+    out = []
+    for s in range(n_steps):
+        out.append((packed["wp"][s][None], (0,), h // 8))
+        out += wn_products(packed["w_in"][s], packed["w_rs"][s])
+        out.append((packed["wq"][s][None], (0,), c // 8))
+    return out
 
 
 def coupling_g_stack(flow, g: torch.Tensor, *, reverse: bool, convs=None) -> torch.Tensor:
@@ -152,14 +163,26 @@ def coupling_block_plain(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
 
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("coupling")
-    lib.coupling_block_bf16.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.coupling_block_bf16.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.POINTER(ctypes.c_int)] * 3
                                         + [ctypes.c_int] * 13 + [ctypes.c_void_p])
     lib.coupling_block_bf16.restype = ctypes.c_int
-    lib.coupling_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.coupling_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.coupling_smem_bytes.restype = ctypes.c_int
-    lib.coupling_max_clusters.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.coupling_max_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.coupling_max_clusters.restype = ctypes.c_int
+    lib.coupling_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.coupling_attributes.restype = ctypes.c_int
     return lib
+
+
+def kernel_attributes() -> dict:
+    """Registers and spilled bytes a thread of the kernel, as ptxas left
+    them (cudaFuncGetAttributes)."""
+    out = (ctypes.c_int * 2)()
+    err = _library().coupling_attributes(out)
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes of K2 failed with CUDA error {err}")
+    return {"registers": out[0], "spill_bytes": out[1]}
 
 
 def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
@@ -189,10 +212,8 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
 
     _frag.check_bf16("x", x)
     _frag.check_bf16("g_all", g_all)
-    frags = ("wp_frag", "w_in_frag", "w_rs_frag", "wq_frag")
-    if any(packed[name] is None for name in frags) or c % 16 or h % 16:
-        raise ValueError(f"the kernel needs C % 16 == 0 and H % 16 == 0, got C = {c}, H = {h}")
-    for name in frags + ("bp", "b_in", "b_rs", "bq"):
+    share = _frag.check_streams(packed, n_steps * (2 * n_layers + 2), x.device)
+    for name in ("bp", "b_in", "b_rs", "bq"):
         _frag.check_bf16(name, packed[name])
         if packed[name].device != x.device:
             raise ValueError(f"{name} on {packed[name].device}, x on {x.device}")
@@ -201,28 +222,30 @@ def coupling_block(x: torch.Tensor, lengths: torch.Tensor, packed: dict,
     lengths = _frag.check_lengths(lengths, batch, x.device)
 
     lib = _library()
+    ranks = _frag.CLUSTER_RANKS
     halo = n_steps * n_layers * (k - 1) // 2
-    c_bounds, h_bounds = _frag.cluster_bounds(c // 8, _RANKS), _frag.cluster_bounds(h // 8, _RANKS)
-    skip_cols = 8 * max(b - a for a, b in zip(h_bounds, h_bounds[1:]))
-    rows, tile = _frag.window(("coupling", c, h, _RANKS), halo, t, _TILE_TARGET,
-                              lambda r, tl: lib.coupling_smem_bytes(c, h, r, skip_cols))
+    c_bounds, h_bounds = _frag.cluster_bounds(c // 8, ranks), _frag.cluster_bounds(h // 8, ranks)
+    skip_cols = 8 * share
+    launch = _frag.cluster_plan(
+        ("coupling", c, h), halo, t, packed["stream_units"], share,
+        lambda r, _tile, ub, n, s: lib.coupling_smem_bytes(c, h, r, skip_cols, ub, n, s), _MAX_STAGES)
     device = x.device.index or 0
-    clusters = _frag.max_clusters(
-        ("coupling", c, h, rows, skip_cols, _THREADS, _RANKS, device),
-        lambda n: lib.coupling_max_clusters(c, h, rows, skip_cols, _THREADS, _RANKS, device, n))
+    clusters = _frag.max_clusters(("coupling", launch["smem"], device),
+                                  lambda n: lib.coupling_max_clusters(launch["smem"], ranks, device, n))
+    rows, tile = launch["rows"], launch["tile"]
     out = torch.empty_like(x)
     err = lib.coupling_block_bf16(
-        x.data_ptr(), lengths.data_ptr(), packed["wp_frag"].data_ptr(), packed["bp"].data_ptr(),
-        packed["w_in_frag"].data_ptr(), packed["b_in"].data_ptr(), g_all.data_ptr(),
-        packed["w_rs_frag"].data_ptr(), packed["b_rs"].data_ptr(), packed["wq_frag"].data_ptr(),
-        packed["bq"].data_ptr(), out.data_ptr(),
-        (ctypes.c_int * len(c_bounds))(*c_bounds), (ctypes.c_int * len(h_bounds))(*h_bounds),
-        batch, t, c, h, k, n_layers, n_steps, rows, tile, skip_cols, _THREADS, _RANKS, device,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), lengths.data_ptr(), packed["streams"].data_ptr(), packed["bp"].data_ptr(),
+        packed["b_in"].data_ptr(), g_all.data_ptr(), packed["b_rs"].data_ptr(), packed["bq"].data_ptr(),
+        out.data_ptr(), (ctypes.c_int * len(c_bounds))(*c_bounds), (ctypes.c_int * len(h_bounds))(*h_bounds),
+        launch["plan"], batch, t, c, h, k, n_layers, n_steps, rows, tile, skip_cols, launch["stages"], ranks,
+        device, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"coupling kernel launch failed with CUDA error {err}")
     count_launch(__name__)
-    last_launch.update(ranks=_RANKS, rows=rows, tile=tile, ctas=-(-t // tile) * _RANKS * batch,
+    last_launch.update(ranks=ranks, rows=rows, tile=tile, ctas=-(-t // tile) * ranks * batch,
+                       warpgroups=_frag.CLUSTER_WARPGROUPS, threads=128 * _frag.CLUSTER_WARPGROUPS,
+                       width=_frag.CLUSTER_WIDTH, stages=launch["stages"], group=launch["group"],
                        max_clusters=clusters)
     return out

@@ -26,13 +26,12 @@ launches = 0
 LRELU_SLOPE = 0.1
 MAX_BRANCHES = 4   # MAX_BRANCHES / MAX_PAIRS in csrc/mrf_core.cuh
 MAX_PAIRS = 4
-TILE_M = 64        # rows of one wgmma tile (TILE_M in csrc/mrf_core.cuh)
-MAX_STAGES = 32    # ring groups at most (MAX_STAGES in csrc/mrf_core.cuh)
+TILE_M = _frag.TILE_M  # rows of one wgmma tile (TILE_M in csrc/ring.cuh)
 WARPGROUPS = 3     # warpgroups a block (WARPGROUPS in csrc/mrf.cu)
 WIDTHS = (256, 128, 64)   # the product widths csrc/mrf.cu has an instance of
 # The launch plan (`launch_plan`) follows from what the wrapper sees: C, T,
-# the kernel sizes and dilations, and shared memory (`plan_window`, which K4
-# shares).  A block's window is a multiple of 64 rows, the largest (up to
+# the kernel sizes and dilations, and shared memory (`_frag.plan_window`,
+# which K4 shares).  A block's window is a multiple of 64 rows, the largest (up to
 # `_TILE_TARGET` kept rows) that fits beside a ring of `_RING_RESERVE` slabs
 # of 32·C bytes; the ring then takes as many groups of `ring_group` slabs as
 # fit beside it, up to `_MAX_STAGES` slabs.  A warpgroup computes one item
@@ -113,49 +112,10 @@ def product_width(c: int) -> int | None:
     return next((n for n in WIDTHS if c % n == 0), None)
 
 
-def plan_window(key: tuple, halo: int, t: int, tile_target: int, smem, group: int, reserve: int,
-                max_slabs: int | None = None, stream_slabs: int = 0) -> tuple[int, int, int]:
-    """(rows, tile, stages) of a K3 or K4 launch: the block's window of
-    `tile` kept rows and `halo` a side, and its weight ring of `stages`
-    groups of `group` slabs.  The window is a multiple of 64 rows, the
-    largest (up to `tile_target` kept rows) that fits beside a ring of
-    `reserve` slabs (one group at least); the whole stream of `stream_slabs`
-    then stays resident if it fits beside that window (stages 0), else the
-    ring takes as many groups as fit, up to `max_slabs` slabs and MAX_STAGES
-    groups.  smem(rows, ring slabs, stages) is the kernel's shared memory;
-    `key` names the kernel and the sizes it depends on."""
-    reserve = max(1, reserve // group)
-    most = min(MAX_STAGES, (max_slabs or MAX_STAGES * group) // group)
-    rows, tile = _frag.window((*key, group, reserve), halo, t, tile_target,
-                              lambda r, _tile: smem(r, reserve * group, reserve), multiples=(TILE_M,))
-    if stream_slabs and smem(rows, stream_slabs, 0) <= _frag.SMEM_MAX:
-        return rows, tile, 0
-    stages = reserve
-    while stages < most and smem(rows, (stages + 1) * group, stages + 1) <= _frag.SMEM_MAX:
-        stages += 1
-    return rows, tile, stages
-
-
-def ring_plan(entries, group: int, warpgroups: int, parts: int = 1) -> ctypes.Array:
-    """The ring plan of a K3 or K4 launch as the kernels' int32 table
-    (csrc/mrf_core.cuh's RingPlan, which `make_plan` checks): for each
-    product entry (first row, 64-row tiles, slabs a round), in execution
-    order, first, tiles, slabs a round, its first slab in the stream and the
-    ring groups of the entries up to it.  A round gives each warpgroup one
-    item, a tile's N-column part (`parts` a tile), and moves ceil(slabs /
-    group) groups; every warp walks every group of every round."""
-    flat, slabs, groups = [], 0, 0
-    for first, count, steps in entries:
-        groups += -(-count * parts // warpgroups) * -(-steps // group)
-        flat += [first, count, steps, slabs, groups]
-        slabs += steps
-    return (ctypes.c_int * len(flat))(*flat)
-
-
 def launch_plan(c: int, t: int, kernel_sizes, dilation_sizes) -> tuple:
     """(rows, tile, stages, group, width, plan) of a launch at C channels
     and T samples: the window and ring of the comment above, the product
-    width, and `ring_plan` over `conv_tiles` of that window.  Computed once
+    width, and `_frag.ring_plan` over `conv_tiles` of that window.  Computed once
     per sizes and knobs."""
     key = (c, min(_TILE_TARGET, max(t, 1)), kernel_sizes, dilation_sizes, _RING_RESERVE, _TILE_TARGET, _MAX_STAGES)
     if key not in _PLANS:
@@ -163,12 +123,12 @@ def launch_plan(c: int, t: int, kernel_sizes, dilation_sizes) -> tuple:
         width = product_width(c) or TILE_M
         group = ring_group(width)
         halo = stage_halo(kernel_sizes, dilation_sizes)
-        rows, tile, stages = plan_window(
+        rows, tile, stages = _frag.plan_window(
             ("mrf", c), halo, t, _TILE_TARGET, lambda r, slabs, n: lib.mrf_stage_smem_bytes(c, r, slabs, n), group,
             _RING_RESERVE, _MAX_STAGES)
         steps = [k * (c // 16) for k, dils in zip(kernel_sizes, dilation_sizes) for _ in range(2 * len(dils))]
         tiles = conv_tiles(kernel_sizes, dilation_sizes, halo, tile, rows)
-        plan = ring_plan([(*rng, s) for rng, s in zip(tiles, steps)], group, WARPGROUPS, c // width)
+        plan = _frag.ring_plan([(*rng, s) for rng, s in zip(tiles, steps)], group, WARPGROUPS, c // width)
         _PLANS[key] = (rows, tile, stages, group, width, plan)
     return _PLANS[key]
 
@@ -176,22 +136,6 @@ def launch_plan(c: int, t: int, kernel_sizes, dilation_sizes) -> tuple:
 def chosen_stages() -> dict[tuple[int, int], int]:
     """The ring slabs of each (C, window rows) planned so far."""
     return {(key[0], plan[0]): plan[2] * plan[3] for key, plan in _PLANS.items()}
-
-
-def pack_slabs(w: torch.Tensor, multiple: int = 64) -> torch.Tensor | None:
-    """[n_taps, C_in, C_out] → the kernel's weight slabs [n_taps, C_in/16,
-    C_out, 16] bfloat16: slab (tap, k-tile) is the [16, C_out] B tile of
-    ``csrc/wgmma.cuh``, K-major (row n holds the tile's 16 K values of output
-    channel n), with the 32-byte swizzle: the 16-byte halves of row n trade
-    places where (n / 4) % 2 is 1.  None where C_in or C_out is not a
-    multiple of `multiple` (16 at least: K3 takes C % 64 == 0, K4 C_in and C
-    % 16 == 0; the plain versions do not need it)."""
-    n_taps, k, n = w.shape
-    if k % multiple or n % multiple:
-        return None
-    v = w.to(torch.bfloat16).reshape(n_taps, k // 16, 2, 8, n).permute(0, 1, 4, 2, 3)  # tap, kt, n, half, k8
-    swap = ((torch.arange(n, device=w.device) >> 2) & 1).bool()[:, None, None]
-    return torch.where(swap, v.flip(-2), v).reshape(n_taps, k // 16, n, 16).contiguous()
 
 
 def stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
@@ -221,10 +165,10 @@ def stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
 
 def pack_stage_weights(resblocks, dtype: torch.dtype = torch.bfloat16) -> dict:
     """Pack one stage for `mrf_stage`, once: `stage_weights`, and ``w_slabs``,
-    w as `pack_slabs` lays it out for the kernel (None where C has no such
+    w as `_frag.pack_slabs` lays it out for the kernel (None where C has no such
     layout)."""
     packed = stage_weights(resblocks, dtype)
-    packed["w_slabs"] = pack_slabs(packed["w"])
+    packed["w_slabs"] = _frag.pack_slabs(packed["w"])
     return packed
 
 

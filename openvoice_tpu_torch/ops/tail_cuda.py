@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 from openvoice_tpu_torch.ops.mrf_cuda import (
     LRELU_SLOPE, TILE_M, check_stage, check_stage_cuda, conv_tiles, lrelu_plain,
-    mrf_branches_plain, pack_slabs, plan_window, ring_plan, stage_halo, stage_weights,
+    mrf_branches_plain, stage_halo, stage_weights,
 )
 
 launches = 0
@@ -34,14 +34,14 @@ launches = 0
 POST_SLOPE = 0.01   # the last activation uses torch's default slope
 WIDTHS = (16, 32, 64)   # the channel counts csrc/tail.cu has an instance of (N = C)
 WARPGROUPS = 4          # warpgroups a block (WARPGROUPS in csrc/tail.cu)
-MAX_GROUP = 16          # slabs a ring group at most (MAX_GROUP in csrc/mrf_core.cuh)
+MAX_GROUP = 16          # slabs a ring group at most (MAX_GROUP in csrc/ring.cuh)
 # The launch plan (`launch_plan`) follows from what the wrapper sees: C, the
-# length, the stage's structure and shared memory (`mrf_cuda.plan_window`,
+# length, the stage's structure and shared memory (`_frag.plan_window`,
 # which K3 shares).  The window is a multiple of 64 rows, the largest (up to
 # `_TILE_TARGET` kept rows) that fits beside `_RING_RESERVE` bytes of ring;
 # the whole weight stream then stays resident if it fits beside that window
 # (C = 16), else the ring takes as many groups of `copy_group(C)` slabs as
-# fit, up to `mrf_cuda.MAX_STAGES`.  The knobs are the ones ``python3
+# fit, up to `_frag.MAX_STAGES`.  The knobs are the ones ``python3
 # chip_smoke.py --sweep tail`` times: the ring's reserve and the tile
 # target; PERF.md has the table the defaults came from.
 _TILE_TARGET = 640
@@ -68,7 +68,7 @@ def phase_taps(k_up: int, stride: int, pad_up: int) -> list[tuple[int, list[int]
 def pack_stream(up_w: torch.Tensor, w: torch.Tensor, stride: int, pad_up: int) -> torch.Tensor | None:
     """The kernel's weight stream [n_slabs, C, 16] bfloat16: for each
     upsample phase (`phase_taps`) its taps' slabs, then every MRF tap's, each
-    (tap, k-tile) one slab of `mrf_cuda.pack_slabs`'s layout (wgmma's
+    (tap, k-tile) one slab of `_frag.pack_slabs`'s layout (wgmma's
     swizzled B tile).  up_w [k_up, C_in, C], w [n_taps, C, C].  None where
     the sizes have no such layout (the kernel takes C_in % 16 == 0 and C in
     `WIDTHS`; the plain version does not need it)."""
@@ -76,8 +76,8 @@ def pack_stream(up_w: torch.Tensor, w: torch.Tensor, stride: int, pad_up: int) -
     if c not in WIDTHS or up_w.shape[1] % 16:
         return None
     order = [j for _, taps in phase_taps(up_w.shape[0], stride, pad_up) for j in taps]
-    up = pack_slabs(up_w[order], 16)
-    return torch.cat([up.reshape(-1, c, 16), pack_slabs(w, 16).reshape(-1, c, 16)]).contiguous()
+    up = _frag.pack_slabs(up_w[order], 16)
+    return torch.cat([up.reshape(-1, c, 16), _frag.pack_slabs(w, 16).reshape(-1, c, 16)]).contiguous()
 
 
 def copy_group(c: int) -> int:
@@ -173,7 +173,7 @@ def launch_plan(cin: int, c: int, t_out: int, k_up: int, stride: int, pad_up: in
     """(rows, tile, halo, stages, group, ring slabs, plan, smem bytes) of a
     launch: the window and weight ring of the comment above (stages 0: the
     stream is resident, ring slabs then the whole stream's), and
-    `mrf_cuda.ring_plan` over the upsample's phases (every phase row) and
+    `_frag.ring_plan` over the upsample's phases (every phase row) and
     `tail_tiles` of that window.  Computed once per sizes and knobs."""
     key = (cin, c, min(_TILE_TARGET, max(t_out, 1)), k_up, stride, pad_up, k_post, kernel_sizes, dilation_sizes,
            _TILE_TARGET, _RING_RESERVE)
@@ -190,14 +190,15 @@ def launch_plan(cin: int, c: int, t_out: int, k_up: int, stride: int, pad_up: in
             return lib.tail_stage_smem_bytes(cin, c, stride, margin, rows, n_convs, slabs, stages)
 
         group = copy_group(c)
-        rows, tile, stages = plan_window(("tail", cin, c, stride, margin, n_convs), halo, t_out, _TILE_TARGET, smem,
-                                         group, _RING_RESERVE // (32 * c), stream_slabs=n_slabs)
+        rows, tile, stages = _frag.plan_window(("tail", cin, c, stride, margin, n_convs), halo, t_out,
+                                               _TILE_TARGET, smem, group, _RING_RESERVE // (32 * c),
+                                               stream_slabs=n_slabs)
         ring_slabs = stages * group if stages else n_slabs
         phases = [(0, -(-(rows // stride) // TILE_M), len(taps) * (cin // 16))
                   for _, taps in phase_taps(k_up, stride, pad_up)]
         tiles = tail_tiles(kernel_sizes, dilation_sizes, halo, tile, rows, max(k_post - 1, 0) // 2)
         steps = [k * (c // 16) for k, dils in zip(kernel_sizes, dilation_sizes) for _ in range(2 * len(dils))]
-        plan = ring_plan(phases + [(*rng, s) for rng, s in zip(tiles, steps)], group, WARPGROUPS)
+        plan = _frag.ring_plan(phases + [(*rng, s) for rng, s in zip(tiles, steps)], group, WARPGROUPS)
         _PLANS[key] = (rows, tile, halo, stages, group, ring_slabs, plan, smem(rows, ring_slabs, stages))
     return _PLANS[key]
 

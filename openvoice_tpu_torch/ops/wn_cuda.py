@@ -1,7 +1,9 @@
 """K1: a whole WaveNet stack as one hand-written CUDA kernel (``csrc/wn.cu``),
 launched as thread-block clusters: each time tile is split over the R CTAs of
 one cluster, which share the window through distributed shared memory
-(`_frag.cluster_bounds` is the column plan), as K2 does.
+(`_frag.cluster_bounds` is the column plan), as K2 does.  Every product is a
+warpgroup MMA with each CTA's weights streamed through a shared-memory ring
+(`_frag.cluster_streams`, `_frag.cluster_plan`).
 
 Replaces ``openvoice_tpu/ops/wn_pallas.py::fused_wn_stack``; `stack_wn_params`
 is the port's packer (its ``stack_wn_params``).  `wn_stack` takes the
@@ -28,29 +30,22 @@ from openvoice_tpu_torch.ops import count_launch, _frag, _nvcc
 
 launches = 0
 
-# CTAs a cluster splits a time tile over, frames a tile keeps (the window
-# recomputes L·(K−1)/2 more a side: 32 at the V2 posterior encoder's L 16, K 5)
-# and threads a CTA (at most 384: MAX_THREADS in csrc/wn_cluster.cuh).  A
-# 64-frame tile is a 128-row window: 16 clusters at T = 1024, one wave of the
-# 30 clusters of 4 an H100 holds.  ``python3 chip_smoke.py --sweep wn`` times
-# R 2/4/8 × tile 32/64 × 288/384 threads (PERF.md).
-_RANKS = 4
-_TILE_TARGET = 64
-_THREADS = 384
+# K1's one knob, the ring's depth in groups at most (as many as fit beside
+# the window, up to this; ``python3 chip_smoke.py --sweep wn`` times it,
+# PERF.md has the table): a ring of two groups took 40 % longer than one of
+# four or more on one H100.  The launch's shape is fixed (`_frag`'s
+# CLUSTER_* constants).
+_MAX_STAGES = _frag.MAX_STAGES
 
-# what the last launch ran: ranks, rows, tile, CTAs, and
-# cudaOccupancyMaxActiveClusters for its CTA size
+# what the last launch ran: ranks, rows, tile, CTAs, warpgroups, item
+# columns, ring groups and their units, and cudaOccupancyMaxActiveClusters
 last_launch: dict = {}
 
 
-def stack_wn_params(wn, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Pack a `nn.wavenet.WN`'s layers for `wn_stack`, once:
-
-    w_in [L, K, H, 2H], b_in [L, 2H], w_rs [L, H, 2H] (the last layer, which
-    has H outputs, sits in the skip half beside a zero res half), b_rs
-    [L, 2H], in `dtype`; and ``w_in_frag`` / ``w_rs_frag``, the same matrices
-    in the kernel's fragment order (None where H has no such layout).
-    """
+def wn_matrices(wn, dtype: torch.dtype) -> dict:
+    """A `nn.wavenet.WN`'s layers as matrices in `dtype`: w_in [L, K, H, 2H],
+    b_in [L, 2H], w_rs [L, H, 2H] (the last layer, which has H outputs, sits
+    in the skip half beside a zero res half), b_rs [L, 2H]."""
     h = wn.hidden
     with torch.no_grad():
         w_in = torch.stack([layer.weight.permute(2, 1, 0) for layer in wn.in_layers])
@@ -64,10 +59,29 @@ def stack_wn_params(wn, dtype: torch.dtype = torch.bfloat16) -> dict:
             w_rs.append(w)
             b_rs.append(b)
         packed = {"w_in": w_in, "b_in": b_in, "w_rs": torch.stack(w_rs), "b_rs": torch.stack(b_rs)}
-        packed = {k: v.to(dtype).contiguous() for k, v in packed.items()}
-        packed["w_in_frag"] = _frag.maybe_frag(packed["w_in"])
-        packed["w_rs_frag"] = _frag.maybe_frag(packed["w_rs"])
-    return packed
+        return {k: v.to(dtype).contiguous() for k, v in packed.items()}
+
+
+def wn_products(w_in: torch.Tensor, w_rs: torch.Tensor) -> list[tuple]:
+    """The WaveNet's products in execution order as `_frag.cluster_streams`
+    takes them: per layer the gate ([K, H, 2H], tanh and sigmoid halves),
+    then res|skip ([1, H, 2H], both halves; the last layer's skip half
+    alone)."""
+    n_layers, _, h, _ = w_in.shape
+    out = []
+    for layer in range(n_layers):
+        out.append((w_in[layer], (0, h), h // 8))
+        out.append((w_rs[layer][None], (0, h) if layer + 1 < n_layers else (h,), h // 8))
+    return out
+
+
+def stack_wn_params(wn, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """Pack a `nn.wavenet.WN`'s layers for `wn_stack`, once: `wn_matrices`
+    in `dtype`, and (`_frag.add_streams`) each CTA's weights as the kernel
+    streams them, in bfloat16."""
+    with torch.no_grad():
+        packed = wn_matrices(wn, dtype)
+        return _frag.add_streams(packed, wn_products(packed["w_in"], packed["w_rs"]))
 
 
 def wn_layers_plain(xs: torch.Tensor, mask: torch.Tensor, dt: torch.dtype, w_in, b_in, g_all,
@@ -110,26 +124,26 @@ def live_tiles(length: int, tile: int, t_len: int) -> int:
 
 def _library() -> ctypes.CDLL:
     lib = _nvcc.load("wn")
-    lib.wn_stack_bf16.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 11
+    lib.wn_stack_bf16.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3 + [ctypes.c_int] * 11
                                   + [ctypes.c_void_p])
     lib.wn_stack_bf16.restype = ctypes.c_int
-    lib.wn_stack_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.wn_stack_smem_bytes.argtypes = [ctypes.c_int] * 7
     lib.wn_stack_smem_bytes.restype = ctypes.c_int
-    lib.wn_stack_max_clusters.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.wn_stack_max_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.wn_stack_max_clusters.restype = ctypes.c_int
-    lib.wn_stack_attributes.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.wn_stack_attributes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.wn_stack_attributes.restype = ctypes.c_int
     return lib
 
 
-def kernel_attributes(device: int = 0) -> dict:
-    """Registers and spilled bytes a thread of the kernel, as ptxas left them
-    (cudaFuncGetAttributes)."""
-    regs, local = ctypes.c_int(0), ctypes.c_int(0)
-    err = _library().wn_stack_attributes(device, ctypes.byref(regs), ctypes.byref(local))
+def kernel_attributes() -> dict:
+    """Registers and spilled bytes a thread of the kernel, as ptxas left
+    them (cudaFuncGetAttributes)."""
+    out = (ctypes.c_int * 2)()
+    err = _library().wn_stack_attributes(out)
     if err != 0:
-        raise RuntimeError(f"wn kernel attributes failed with CUDA error {err}")
-    return {"registers": regs.value, "spill_bytes": local.value}
+        raise RuntimeError(f"cudaFuncGetAttributes of K1 failed with CUDA error {err}")
+    return {"registers": out[0], "spill_bytes": out[1]}
 
 
 def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.Tensor) -> torch.Tensor:
@@ -158,9 +172,8 @@ def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.
 
     _frag.check_bf16("x", x)
     _frag.check_bf16("g_all", g_all)
-    if packed["w_in_frag"] is None or h % 16:
-        raise ValueError(f"the kernel needs H % 16 == 0, got H = {h}")
-    for name in ("w_in_frag", "w_rs_frag", "b_in", "b_rs"):
+    share = _frag.check_streams(packed, 2 * n_layers, x.device)
+    for name in ("b_in", "b_rs"):
         _frag.check_bf16(name, packed[name])
         if packed[name].device != x.device:
             raise ValueError(f"{name} on {packed[name].device}, x on {x.device}")
@@ -169,25 +182,30 @@ def wn_stack(x: torch.Tensor, lengths: torch.Tensor, packed: dict, g_all: torch.
     lengths = _frag.check_lengths(lengths, batch, x.device)
 
     lib = _library()
+    ranks = _frag.CLUSTER_RANKS
     halo = n_layers * (k - 1) // 2
-    h_bounds = _frag.cluster_bounds(h // 8, _RANKS)
-    skip_cols = 8 * max(b - a for a, b in zip(h_bounds, h_bounds[1:]))
-    rows, tile = _frag.window(("wn", h, _RANKS), halo, t, _TILE_TARGET,
-                              lambda r, tl: lib.wn_stack_smem_bytes(h, r, tl, skip_cols))
+    bounds = _frag.cluster_bounds(h // 8, ranks)
+    skip_cols = 8 * share
+    launch = _frag.cluster_plan(("wn", h), halo, t, packed["stream_units"], share,
+                                lambda r, tl, ub, n, s: lib.wn_stack_smem_bytes(h, r, tl, skip_cols, ub, n, s),
+                                _MAX_STAGES)
     device = x.device.index or 0
-    clusters = _frag.max_clusters(
-        ("wn", h, rows, tile, skip_cols, _THREADS, _RANKS, device),
-        lambda n: lib.wn_stack_max_clusters(h, rows, tile, skip_cols, _THREADS, _RANKS, device, n))
+    clusters = _frag.max_clusters(("wn", launch["smem"], device),
+                                  lambda n: lib.wn_stack_max_clusters(launch["smem"], ranks, device, n))
+    rows, tile = launch["rows"], launch["tile"]
     out = torch.empty_like(x)
+    c_bounds = (ctypes.c_int * len(bounds))(*bounds)
     err = lib.wn_stack_bf16(
-        x.data_ptr(), lengths.data_ptr(), packed["w_in_frag"].data_ptr(), packed["b_in"].data_ptr(),
-        g_all.data_ptr(), packed["w_rs_frag"].data_ptr(), packed["b_rs"].data_ptr(), out.data_ptr(),
-        (ctypes.c_int * len(h_bounds))(*h_bounds), batch, t, h, k, n_layers, rows, tile, skip_cols, _THREADS,
-        _RANKS, device, torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), lengths.data_ptr(), packed["streams"].data_ptr(), packed["b_in"].data_ptr(),
+        g_all.data_ptr(), packed["b_rs"].data_ptr(), out.data_ptr(), c_bounds, c_bounds, launch["plan"],
+        batch, t, h, k, n_layers, rows, tile, skip_cols, launch["stages"], ranks, device,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"wn kernel launch failed with CUDA error {err}")
     count_launch(__name__)
-    last_launch.update(ranks=_RANKS, rows=rows, tile=tile, tiles=-(-t // tile),
-                       ctas=-(-t // tile) * _RANKS * batch, threads=_THREADS, max_clusters=clusters)
+    last_launch.update(ranks=ranks, rows=rows, tile=tile, tiles=-(-t // tile), ctas=-(-t // tile) * ranks * batch,
+                       warpgroups=_frag.CLUSTER_WARPGROUPS, threads=128 * _frag.CLUSTER_WARPGROUPS,
+                       width=_frag.CLUSTER_WIDTH, stages=launch["stages"], group=launch["group"],
+                       max_clusters=clusters)
     return out

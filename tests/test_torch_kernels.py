@@ -168,7 +168,7 @@ def test_wn_tiles_past_the_length_are_zero(length, live):
     """K1's early exit: a tile whose first frame lies at or past the length
     writes zeros and returns.  The plain version gives exactly 0 on every
     such tile and not on the tile before it, which `live_tiles` counts."""
-    t_len, tile = 200, wn_cuda._TILE_TARGET
+    t_len, tile = 200, _frag.CLUSTER_TILE
     x, _, packed, g_all, _ = _wn_case(4, 32, 16, t_len, torch.float32)
     out = wn_cuda.wn_stack(x, torch.tensor([length, t_len]), packed, g_all)
     assert wn_cuda.live_tiles(length, tile, t_len) == live
@@ -652,7 +652,7 @@ def test_mrf_wgmma_slabs_give_back_the_weights(c):
                                conv.weight.detach().permute(2, 1, 0).to(torch.bfloat16))
             tap += size
     assert tap == w.shape[0]
-    assert mrf_cuda.pack_slabs(torch.zeros(3, 48, 48)) is None
+    assert _frag.pack_slabs(torch.zeros(3, 48, 48)) is None
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
@@ -866,7 +866,7 @@ def test_tail_tiles_cover_the_ranges(monkeypatch, cin, c, k_up, pad, k_post, t_o
     assert (got_rows, got_stages, got_group) == (rows, stages, group)
     margin = tail_cuda._in_margin(k_up, 2, pad)
     n_slabs = tail_cuda.stream_slabs(cin, c, k_up, KS, DILS)
-    assert ring_slabs == (n_slabs if stages == 0 else stages * group) and stages <= mrf_cuda.MAX_STAGES
+    assert ring_slabs == (n_slabs if stages == 0 else stages * group) and stages <= _frag.MAX_STAGES
     assert smem == _TailSmemStandIn.tail_stage_smem_bytes(cin, c, 2, margin, rows, 18, ring_slabs, stages)
     assert smem <= _frag.SMEM_MAX
     item = mrf_cuda.TILE_M
@@ -987,18 +987,193 @@ def test_tail_tiles_past_the_length_are_zero(last, len_out, live):
         assert bool((block == 0).all()) == (i >= live), (i, live)
 
 
-# -- the kernels' weight layout ------------------------------------------------
+# -- the cluster kernels' weight streams ---------------------------------------
 
-def test_fragment_layout_places_every_element_on_its_lane():
-    w = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 32, 24)).astype(np.float32))
-    frag = _frag.pack_frag(w)
-    assert frag.shape == (3, 2, 3, 32, 4) and frag.dtype == torch.bfloat16 and frag.is_contiguous()
-    # lane l = 4·g + t of k-tile kt, column tile nt holds W[16kt + 2t + {0, 1, 8, 9}, 8nt + g]
-    wb = w.to(torch.bfloat16)
-    for kt in range(2):
-        for nt in range(3):
-            for lane in range(32):
-                g, tq = lane // 4, lane % 4
-                rows = [16 * kt + 2 * tq + d for d in (0, 1, 8, 9)]
-                assert torch.equal(frag[:, kt, nt, lane], wb[:, rows, 8 * nt + g])
-    assert _frag.maybe_frag(torch.zeros(24, 8)) is None
+STREAM_RANKS = [1, 2, 4, 8]
+STREAM_KINDS = ["wn", "coupling-fwd", "coupling-rev"]
+
+
+@pytest.fixture(scope="module")
+def stream_models():
+    """A WaveNet and a flow at the shipped widths (H = C = 192, K = 5: 24
+    column tiles, which every cluster size here splits evenly), with seeded
+    weights; fewer layers than the shipped ones, which only lengthens the
+    streams."""
+    from openvoice_tpu_torch.nn.flows import ResidualCouplingBlock
+
+    gen = torch.Generator().manual_seed(11)
+    wn = WN(192, 5, 3, 0)
+    flow = ResidualCouplingBlock(192, 192, 5, 2, 2, 0)
+    with torch.no_grad():
+        for p in list(wn.parameters()) + list(flow.parameters()):
+            p.copy_(torch.randn(p.shape, generator=gen))
+    return wn, flow
+
+
+def _stream_case(stream_models, kind, ranks):
+    """(packed, products in execution order, (streams, units) of
+    `_frag.cluster_streams` for `ranks` CTAs a cluster) of one kernel's
+    direction."""
+    wn, flow = stream_models
+    if kind == "wn":
+        packed = wn_cuda.stack_wn_params(wn)
+        products = wn_cuda.wn_products(packed["w_in"], packed["w_rs"])
+    else:
+        packed = coupling_cuda.pack_coupling_block(flow, reverse=kind == "coupling-rev")
+        products = coupling_cuda.coupling_products(packed)
+    return packed, products, _frag.cluster_streams(products, ranks)
+
+
+def _read_slabs(region: torch.Tensor, taps: int, k: int, n: int) -> torch.Tensor:
+    """[taps, K, n] bfloat16 back from a run of `pack_slabs`'s slabs, each
+    element W[k, n] read at the byte wgmma's descriptor reads it from: byte
+    32·n + 2·(k % 16) of slab (tap, k // 16), bit 4 of the address XOR bit 7
+    (the 32-byte swizzle)."""
+    kk = np.arange(k)[:, None]
+    nn = np.arange(n)[None, :]
+    byte = 32 * nn + 2 * (kk % 16)
+    byte = byte ^ (((byte >> 7) & 1) << 4)
+    flat = region.view(torch.int16).reshape(taps, k // 16, n * 16)
+    return flat[:, torch.from_numpy(kk // 16 + 0 * nn), torch.from_numpy(byte // 2)].view(torch.bfloat16)
+
+
+def _walk_streams(made, products, ranks):
+    """Each rank's stream read back product by product, in execution order,
+    by the units `made` gives each product: for every product the number of
+    times each element of its dense matrix was found (and where it was found,
+    its value checked against the matrix), and for every rank the columns it
+    held."""
+    streams, units = made
+    share = 24 // ranks
+    unit = 16 * 8 * share  # elements
+    assert streams.shape == (ranks, sum(units) * unit) and streams.dtype == torch.bfloat16
+    counts = [torch.zeros(w.shape, dtype=torch.int32) for w, _, _ in products]
+    held = [[] for _ in range(ranks)]
+    for r in range(ranks):
+        pos = 0
+        for p, ((w, halves, n_tiles), n_units) in enumerate(zip(products, units)):
+            taps, k, _ = w.shape
+            bounds = _frag.cluster_bounds(n_tiles, ranks)
+            cols = _frag.share_columns(halves, range(bounds[r], bounds[r + 1]))
+            assert n_units == taps * (k // 16) * len(halves)
+            region = streams[r, pos:pos + n_units * unit]
+            got = _read_slabs(region, taps, k, len(cols))
+            assert torch.equal(got, w[..., cols].to(torch.bfloat16)), f"rank {r}, product {p}"
+            counts[p][..., cols] += 1
+            held[r].append(cols)
+            pos += n_units * unit
+        assert pos == streams.shape[1], "a rank's stream holds more than its products"
+    return counts, held
+
+
+@pytest.mark.parametrize("ranks", STREAM_RANKS)
+@pytest.mark.parametrize("kind", STREAM_KINDS)
+def test_cluster_streams_place_every_weight_once(stream_models, kind, ranks):
+    """Every element of every weight matrix of K1 and K2 (both directions)
+    lies in exactly one slab of exactly one rank's stream, at the byte the
+    swizzled wgmma descriptor reads it from; only the last layer's res half,
+    which the packing fills with zeros and the kernel never computes, lies in
+    none."""
+    _, products, made = _stream_case(stream_models, kind, ranks)
+    counts, _ = _walk_streams(made, products, ranks)
+    for (w, halves, _), count in zip(products, counts):
+        if halves == (192,):  # the last layer: skip half only
+            assert bool((count[..., 192:] == 1).all())
+            assert bool((count[..., :192] == 0).all()) and bool((w[..., :192] == 0).all())
+        else:
+            assert bool((count == 1).all())
+
+
+@pytest.mark.parametrize("ranks", STREAM_RANKS)
+@pytest.mark.parametrize("kind", STREAM_KINDS)
+def test_cluster_streams_hold_each_rank_its_columns(stream_models, kind, ranks):
+    """Each rank's stream holds exactly its planned columns of every product
+    (`_frag.cluster_columns`: a gate pair's tanh and sigmoid columns, a
+    channel's res and skip columns, with one owner), in execution order (the
+    gate's K taps, res|skip, a layer; for K2 pre, the layers, post, a step,
+    forward or reverse as `_exec_order` says), each 8-column tile of one
+    half beside the same tile of the other."""
+    packed, products, made = _stream_case(stream_models, kind, ranks)
+    _, held = _walk_streams(made, products, ranks)
+    n_layers = packed["w_in"].shape[-4]
+    names = ["gate", "res|skip"] * n_layers
+    if kind != "wn":
+        names = (["pre"] + names + ["post"]) * packed["w_in"].shape[0]
+    assert len(names) == len(products) == len(made[1]) == len(packed["stream_units"])
+    for p, (name, (w, halves, _)) in enumerate(zip(names, products)):
+        n_out = w.shape[-1]
+        plan = _frag.cluster_columns(n_out, ranks, paired=name in ("gate", "res|skip"))
+        for r in range(ranks):
+            cols = held[r][p]
+            want = plan[r] if halves != (192,) else [c for c in plan[r] if c >= 192]
+            assert sorted(cols) == sorted(want), f"{name}: rank {r} holds other columns"
+            if len(halves) == 2:
+                tiles = [cols[i:i + 8] for i in range(0, len(cols), 8)]
+                assert all(b[0] == a[0] + 192 for a, b in zip(tiles[::2], tiles[1::2])), f"{name}: halves apart"
+    if kind != "wn":
+        ref = coupling_cuda.pack_coupling_block(stream_models[1], reverse=kind == "coupling-rev")
+        for s in range(packed["wp"].shape[0]):
+            assert torch.equal(products[s * (2 * n_layers + 2)][0][0], ref["wp"][s])
+            assert torch.equal(products[(s + 1) * (2 * n_layers + 2) - 1][0][0], ref["wq"][s])
+
+
+class _ClusterSmemStandIn:
+    """K1's and K2's shared memory, as ``csrc/wn.cu::wn_stack_smem_bytes``
+    and ``csrc/coupling.cu::coupling_smem_bytes`` compute it (alignment room,
+    the ring's units and two barriers a group, then the window, held chunk by
+    chunk with 9 pad rows a chunk, and the f32 skip sum), so that
+    `cluster_plan` runs without the card."""
+
+    @staticmethod
+    def wn(hidden, rows, tile, skip_cols, unit_bytes, ring_units, stages):
+        return 256 + ring_units * unit_bytes + 16 * max(stages, 1) + 2 * 2 * hidden * (rows + 9) + tile * skip_cols * 4
+
+    @staticmethod
+    def coupling(chan, hidden, rows, skip_cols, unit_bytes, ring_units, stages):
+        return (256 + ring_units * unit_bytes + 16 * max(stages, 1) + 2 * (chan + 2 * hidden) * (rows + 9)
+                + rows * skip_cols * 4)
+
+
+@pytest.mark.parametrize("t_len", [1024, 333, 40], ids=["bucket1024", "ragged333", "short"])
+@pytest.mark.parametrize("kind", STREAM_KINDS)
+def test_cluster_ring_plan_covers_each_stream_once(monkeypatch, stream_models, kind, t_len):
+    """The ring plan of a K1 or K2 launch walks each rank's stream once:
+    copied group by group as the device copies them
+    (csrc/ring.cuh::ring_copy), the groups are the stream's units in order,
+    each unit once; the items are the built instance's (CLUSTER_WIDTH
+    columns of a wide product), and every product is one round of them (the
+    window's 64-row tiles times the parts of the CTA's columns, at most the
+    warpgroups); and the window and ring fit in shared memory."""
+    monkeypatch.setattr(_frag, "_CLUSTER_PLANS", {})
+    monkeypatch.setattr(_frag, "_WINDOWS", {})
+    module = wn_cuda if kind == "wn" else coupling_cuda
+    packed, products, _ = _stream_case(stream_models, kind, _frag.CLUSTER_RANKS)
+    n_steps = 1 if kind == "wn" else packed["w_in"].shape[0]
+    halo = n_steps * packed["w_in"].shape[-4] * 2
+    share = 24 // _frag.CLUSTER_RANKS
+    assert packed["streams"].shape[0] == _frag.CLUSTER_RANKS
+    assert _frag.check_streams(packed, len(products), packed["streams"].device) == share
+    if kind == "wn":
+        smem = lambda r, tl, ub, n, s: _ClusterSmemStandIn.wn(192, r, tl, 8 * share, ub, n, s)
+    else:
+        smem = lambda r, tl, ub, n, s: _ClusterSmemStandIn.coupling(192, 192, r, 8 * share, ub, n, s)
+    launch = _frag.cluster_plan((kind, 192), halo, t_len, packed["stream_units"], share, smem, module._MAX_STAGES)
+    assert launch["smem"] <= _frag.SMEM_MAX and launch["stages"] >= 1
+    assert launch["rows"] % 64 == 0 and launch["rows"] - launch["tile"] == 2 * halo
+    count, group = launch["rows"] // 64, launch["group"]
+    assert _frag.CLUSTER_WIDTH * launch["parts"] == 16 * share, "items of the built instance's width"
+    assert count * launch["parts"] <= _frag.CLUSTER_WARPGROUPS, "a product is one round"
+    with pytest.raises(ValueError, match="do not split"):
+        _frag.cluster_plan((kind, 128), halo, t_len, packed["stream_units"], 4, smem, module._MAX_STAGES)
+    entries = [tuple(e) for e in np.asarray(list(launch["plan"])).reshape(-1, 5)]
+    assert [e[2] for e in entries] == list(packed["stream_units"])
+    copied = []
+    for p in range(entries[-1][4]):
+        e = next(i for i, entry in enumerate(entries) if p < entry[4])
+        first, _, steps, slab0, _ = entries[e]
+        start = entries[e - 1][4] if e else 0
+        q = (p - start) % -(-steps // group)
+        n = min(group, steps - q * group)
+        copied += range(slab0 + q * group, slab0 + q * group + n)
+        assert first == 0
+    assert copied == list(range(sum(packed["stream_units"])))
